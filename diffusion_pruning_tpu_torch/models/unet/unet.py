@@ -1,0 +1,214 @@
+"""The gated conditional U-Net.
+
+The per-prompt architecture is one flat `(B, vq_dim)` tensor `arch` (widths
+then depths, in `StructureSpec` order), sliced per subblock by `_GateReader`;
+`arch=None` runs the dense model. Public tensors keep the JAX package's
+layout — latents `(B, H, W, C)` — while the convolutions run NCHW inside.
+Module names follow diffusers' `UNet2DConditionModel` state dict, so a
+diffusers checkpoint loads without a key map.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from diffusion_pruning_tpu_torch.core.structure import StructureSpec, SubBlock, build_structure
+from diffusion_pruning_tpu_torch.models.unet.blocks import (
+    Downsample,
+    GatedResnetBlock,
+    GatedTransformer2D,
+    Upsample,
+)
+from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+from diffusion_pruning_tpu_torch.ops.gates import match_batch
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
+                       freq_shift: float = 0.0, max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal timestep features (diffusers `Timesteps`), [cos, sin]."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
+                                                    device=timesteps.device)
+    exponent = exponent / (half - freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+
+
+class _GateReader:
+    """Slices width/depth gates for a subblock out of the flat arch tensor."""
+
+    def __init__(self, spec: StructureSpec, arch: Optional[torch.Tensor]):
+        self.subs = {sb.name: sb for sb in spec.subblocks}
+        self.num_width = spec.num_width
+        self.arch = arch
+
+    def resnet(self, name: str):
+        """(width_gate, depth_gate) for a resnet subblock (or None, None)."""
+        sb = self.subs.get(name)
+        if sb is None or self.arch is None:
+            return None, None
+        site = sb.sites[0]
+        return self.arch[:, site.start: site.start + site.width], self._depth(sb)
+
+    def transformer(self, name: str):
+        """((attn1, attn2, ff),) gates for the one layer + depth gate."""
+        sb = self.subs.get(name)
+        if sb is None or self.arch is None:
+            return None, None
+        gs = [self.arch[:, site.start: site.start + site.width] for site in sb.sites]
+        if len(gs) == 2:
+            gs.append(None)  # ungated ff
+        return (tuple(gs),), self._depth(sb)
+
+    def _depth(self, sb: SubBlock):
+        if sb.depth_index < 0:
+            return None
+        return self.arch[:, self.num_width + sb.depth_index]
+
+
+class _TimeEmbedding(nn.Module):
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class _Block(nn.Module):
+    """A down/up block: resnets, optional attentions, optional resampler."""
+
+    def __init__(self, resnets, attentions=None, downsample=None, upsample=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if attentions is not None:
+            self.attentions = nn.ModuleList(attentions)
+        if downsample is not None:
+            self.downsamplers = nn.ModuleList([downsample])
+        if upsample is not None:
+            self.upsamplers = nn.ModuleList([upsample])
+
+
+class GatedUNet(nn.Module):
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.spec = build_structure(cfg)
+        b0 = cfg.block_out_channels[0]
+        temb = cfg.time_embed_dim
+        g = cfg.norm_num_groups
+        L = cfg.num_levels
+
+        def resnet(cin, cout):
+            return GatedResnetBlock(cin, cout, temb, g, cfg.norm_eps)
+
+        def transformer(c, heads):
+            return GatedTransformer2D(c, heads, cfg.cross_attention_dim, g,
+                                      cfg.use_flash_attention)
+
+        self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
+        self.time_embedding = _TimeEmbedding(b0, temb)
+
+        ch = b0
+        skips = [b0]
+        self.down_blocks = nn.ModuleList()
+        for i, block_type in enumerate(cfg.down_block_types):
+            out = cfg.block_out_channels[i]
+            cross = block_type.startswith("CrossAttn")
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(resnet(ch, out))
+                ch = out
+                if cross:
+                    attns.append(transformer(out, cfg.heads_at(i)))
+                skips.append(ch)
+            down = Downsample(ch) if i < L - 1 else None
+            if down is not None:
+                skips.append(ch)
+            self.down_blocks.append(_Block(resnets, attns if cross else None, downsample=down))
+
+        mid = cfg.block_out_channels[-1]
+        self.mid_block = _Block([resnet(mid, mid), resnet(mid, mid)],
+                                [transformer(mid, cfg.heads_at(L - 1))])
+
+        rev = list(reversed(cfg.block_out_channels))
+        self.up_blocks = nn.ModuleList()
+        for i, block_type in enumerate(cfg.up_block_types):
+            out = rev[i]
+            cross = block_type.startswith("CrossAttn")
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block + 1):
+                resnets.append(resnet(ch + skips.pop(), out))
+                ch = out
+                if cross:
+                    attns.append(transformer(out, cfg.heads_at(L - 1 - i)))
+            up = Upsample(ch) if i < L - 1 else None
+            self.up_blocks.append(_Block(resnets, attns if cross else None, upsample=up))
+
+        self.conv_norm_out = nn.GroupNorm(g, ch, eps=cfg.norm_eps)
+        self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: torch.Tensor,
+                arch: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sample: (B, H, W, C_in) latents; timesteps: (B,); encoder_hidden_states:
+        (B, 77, cross_dim); arch: (B or B/2 under CFG, vq_dim) or None.
+        Returns (B, H, W, C_out) in the weights' dtype."""
+        cfg, spec = self.cfg, self.spec
+        dtype = self.conv_in.weight.dtype
+        if arch is not None:
+            if arch.shape[-1] != spec.vq_dim:
+                raise ValueError(
+                    f"arch vector has {arch.shape[-1]} logits, structure expects "
+                    f"{spec.vq_dim} ({spec.num_width} width + {spec.num_depth} depth)")
+            arch = match_batch(arch, sample.shape[0])
+        gates = _GateReader(spec, arch)
+
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                   cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
+        temb = self.time_embedding(t_emb)
+        ehs = encoder_hidden_states.to(dtype)
+
+        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous())
+        res_stack = [h]
+        for i, block in enumerate(self.down_blocks):
+            cross = hasattr(block, "attentions")
+            for j, res in enumerate(block.resnets):
+                wg, dg = gates.resnet(f"down.{i}.resnet.{j}")
+                h = res(h, temb, wg, dg)
+                if cross:
+                    tg, tdg = gates.transformer(f"down.{i}.attn.{j}")
+                    h = block.attentions[j](h, ehs, tg, tdg)
+                res_stack.append(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+                res_stack.append(h)
+
+        wg, _ = gates.resnet("mid.resnet.0")
+        h = self.mid_block.resnets[0](h, temb, wg)
+        tg, _ = gates.transformer("mid.attn.0")
+        h = self.mid_block.attentions[0](h, ehs, tg, None)
+        wg, _ = gates.resnet("mid.resnet.1")
+        h = self.mid_block.resnets[1](h, temb, wg)
+
+        for i, block in enumerate(self.up_blocks):
+            cross = hasattr(block, "attentions")
+            for j, res in enumerate(block.resnets):
+                identity = h
+                h = torch.cat([h, res_stack.pop()], dim=1)
+                wg, dg = gates.resnet(f"up.{i}.resnet.{j}")
+                h = res(h, temb, wg, dg, identity)
+                if cross:
+                    tg, tdg = gates.transformer(f"up.{i}.attn.{j}")
+                    h = block.attentions[j](h, ehs, tg, tdg)
+            if hasattr(block, "upsamplers"):
+                h = block.upsamplers[0](h)
+
+        h = self.conv_out(F.silu(self.conv_norm_out(h)))
+        return h.permute(0, 2, 3, 1)

@@ -1,0 +1,170 @@
+"""The PyTorch port's gate layout, gate functions, resource model, import
+isolation and device rules, held against the JAX package on the CPU."""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffusion_pruning_tpu.core.resource import ResourceModel as JaxResourceModel
+from diffusion_pruning_tpu.core.structure import build_structure as jax_build_structure
+from diffusion_pruning_tpu.models.unet.config import UNetConfig as JaxUNetConfig
+from diffusion_pruning_tpu.ops import gates as jax_gates
+from diffusion_pruning_tpu_torch.core.estimators import hard_concrete
+from diffusion_pruning_tpu_torch.core.resource import ResourceModel
+from diffusion_pruning_tpu_torch.core.structure import build_structure
+from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+from diffusion_pruning_tpu_torch.ops import gates
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("name", ["sd21", "tiny"])
+def test_structure_spec_matches_jax_site_by_site(name):
+    ours = build_structure(getattr(UNetConfig, name)())
+    ref = jax_build_structure(getattr(JaxUNetConfig, name)())
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.vq_dim == ref.vq_dim
+    if name == "sd21":
+        assert (ours.num_width, ours.num_depth, ours.vq_dim) == (1606, 14, 1620)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_gate_functions_match_jax(b):
+    rng = np.random.default_rng(b)
+    gate = rng.random((b, 4), dtype=np.float32)
+    x = rng.standard_normal((2 * b, 3, 5, 8), dtype=np.float32)
+    heads = rng.standard_normal((2 * b, 6, 4, 3), dtype=np.float32)
+    d = rng.random((b,), dtype=np.float32)
+    ident = rng.standard_normal(x.shape, dtype=np.float32)
+    t = torch.from_numpy
+    pairs = [
+        (gates.match_batch(t(gate), 2 * b), jax_gates.match_batch(jnp.asarray(gate), 2 * b)),
+        (gates.channel_mask(t(gate), 8, 2 * b),
+         jax_gates.channel_mask(jnp.asarray(gate), 8, 2 * b)),
+        (gates.channel_gate(t(x), t(gate)), jax_gates.channel_gate(jnp.asarray(x),
+                                                                   jnp.asarray(gate))),
+        (gates.head_gate(t(heads), t(gate)), jax_gates.head_gate(jnp.asarray(heads),
+                                                                 jnp.asarray(gate))),
+        (gates.depth_lerp(t(d), t(ident), t(x)),
+         jax_gates.depth_lerp(jnp.asarray(d), jnp.asarray(ident), jnp.asarray(x))),
+    ]
+    for got, want in pairs:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cfg_rows_tile_and_channels_repeat():
+    g = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
+    # CFG [uncond, cond]: rows tile, never interleave
+    assert gates.match_batch(g, 4).tolist() == [[1, 0], [0, 1], [1, 0], [0, 1]]
+    # a gate unit covers a contiguous channel slab
+    assert gates.channel_mask(g, 4, 2).tolist() == [[1, 1, 0, 0], [0, 0, 1, 1]]
+
+
+@pytest.mark.parametrize("name", ["sd21", "tiny"])
+def test_resource_ratio_matches_jax(name):
+    ours = ResourceModel(build_structure(getattr(UNetConfig, name)()))
+    ref = JaxResourceModel(jax_build_structure(getattr(JaxUNetConfig, name)()))
+    arch = np.random.default_rng(0).random((3, ours.spec.vq_dim), dtype=np.float32)
+    np.testing.assert_allclose(ours.resource_ratio(torch.from_numpy(arch)).numpy(),
+                               np.asarray(ref.resource_ratio(jnp.asarray(arch))), rtol=1e-5)
+    assert float(ours.resource_ratio(torch.ones(1, ours.spec.vq_dim))) == pytest.approx(1.0)
+
+
+def test_hard_concrete_threshold_and_straight_through():
+    x = torch.tensor([0.2, 0.5, 0.7], requires_grad=True)
+    y = hard_concrete(x)
+    assert y.tolist() == [0.0, 1.0, 1.0]
+    y.sum().backward()
+    assert x.grad.tolist() == [1.0, 1.0, 1.0]
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import diffusion_pruning_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers")
+                     or m == "diffusion_pruning_tpu"
+                     or m.startswith("diffusion_pruning_tpu."))
+        print(len(names), bad)
+        sys.exit(1 if bad or len(names) < 20 else 0)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_a_device(monkeypatch):
+    from diffusion_pruning_tpu_torch.pipelines import PruningPipeline
+    from diffusion_pruning_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PruningPipeline(unet=None, vae=None, text_encoder=None)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrapper_routes_cpu_tensors_to_plain_version_without_building(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a CPU tensor must not build or load the CUDA kernel")
+
+    monkeypatch.setattr(fa, "build_kernel", no_build)
+    monkeypatch.setattr(fa, "_library", no_build)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 16, 3, 64, generator=g) for _ in range(3))
+    gate = torch.rand(2, 3, generator=g)
+    before = fa.gated_flash_attention.launches
+    out = fa.gated_flash_attention(q, k, v, gate)
+    assert fa.gated_flash_attention.launches == before
+    torch.testing.assert_close(out, fa.gated_attention_reference(q, k, v, gate),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_kernel_build_runs_nvcc_per_source_and_caches_by_content(tmp_path, monkeypatch, fails):
+    """The build drives nvcc (here a stand-in script) on the kernel source
+    into the build directory, keeps its report, reuses an up-to-date library,
+    and raises with the compiler's output when the compile fails."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'ptxas info    : Used 1 registers'\n"
+                    + ("echo 'error: boom'; exit 2\n" if fails else
+                       'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n'))
+    fake.chmod(0o755)
+    monkeypatch.setattr(fa, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(fa, "BUILD_DIR", tmp_path / "build")
+    if fails:
+        with pytest.raises(RuntimeError, match="boom"):
+            fa.build_kernel()
+        assert not fa._library_path().exists()
+        return
+    assert fa.build_kernel() >= 0.0
+    lib = fa._library_path()
+    assert lib.parent == tmp_path / "build" and lib.read_text() == "lib\n"
+    assert "registers" in (tmp_path / "build" / "gated_flash_fwd.ptxas.txt").read_text()
+    assert fa.build_kernel() is None
+
+
+def test_kernel_wrapper_rejects_other_devices():
+    q = torch.empty(1, 4, 1, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.gated_flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("override", [dict(fused_norms=True), dict(fused_norm_conv=True),
+                                      dict(use_linear_projection=False)])
+def test_unported_config_options_are_refused(override):
+    with pytest.raises(NotImplementedError):
+        UNetConfig.tiny(**override)
