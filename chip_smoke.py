@@ -6,8 +6,9 @@ CUDA card, from the root of a checkout:
 
 Phases, each of which passes or ends the run with a non-zero exit:
   1. device     — require CUDA; print the card's name and power limit;
-  2. build      — compile the CUDA kernel from `diffusion_pruning_tpu_torch/csrc/`
-                  with nvcc into `build/torch_kernels/`;
+  2. build      — compile the CUDA kernels from `diffusion_pruning_tpu_torch/csrc/`
+                  with nvcc into `build/torch_kernels/`, one nvcc per source,
+                  all started together;
   3. kernels    — the bf16 kernel against its plain PyTorch version run in f32
                   (TF32 off) on the same bf16 inputs, at the SD-2.1 shapes:
                   relative L2 per (batch, head) <= REL_L2, and two planted
@@ -27,6 +28,27 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   800 kernel launches per call, finite images in [0, 1];
   6. profile    — one more 256px call under torch.profiler: stage times, device
                   kernel time by category, the device's busy share;
+  7. training kernels — the training forward (with lse) and the dq and dk/dv
+                  backward kernels against their plain versions run in f32
+                  (TF32 off) on the same bf16 inputs, at the 8 attention shapes
+                  of the SD-2.1 U-Net at 256px with the train step's B = 64,
+                  gate none, soft and hard: lse by max-abs error, dq/dk/dv by
+                  relative L2 per (batch, head), dgate per (batch, head)
+                  relative to the head's RMS dgate over the batch; planted
+                  faults, emulated in plain torch, must read above each
+                  limit; timed beside the plain versions, the bound and the
+                  backward of PyTorch's SDPA;
+  8. train step — the stage-1 pruning step at full width (SD-2.1 U-Net at
+                  256px in bf16, CLIP ViT-H text, SD VAE, hypernet 768→1620,
+                  K = 8, B = 64, the coco yaml's losses and optimiser): one
+                  pretrain step, then four codebook steps; finite losses,
+                  trainables changed, 32 launches of each attention kernel
+                  per step, and the step's hypernet and codebook grads through
+                  the kernels against the same step with plain attention
+                  (cosine per leaf, > GRAD_COS; with the kernels' dgate
+                  dropped, a planted fault, it must read below); seconds per
+                  step, samples/s, stage times,
+                  peak memory, and one step under torch.profiler;
 then a `kernels` JSON line and, last, the device JSON line.
 
 Weights and inputs are random, from fixed seeds. Imports nothing of JAX.
@@ -37,6 +59,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -54,6 +77,18 @@ BF16_TOL = 3e-2
 # through the bf16 network, a dropped kv tile about 0.11 (PERF.md)
 UNET_REL_L2 = 2e-2
 KV_TILE = 64  # the kernel's kv tile, for the planted fault that drops one
+# phase 7: the training kernels at the train step's batch; limits between the
+# sound readings and the planted faults' (PERF.md)
+TRAIN_B = 64
+TRAIN_CASES = ((1024, 1024, 5, 5), (1024, 77, 5, 5), (256, 256, 10, 5), (256, 77, 10, 5),
+               (64, 64, 20, 5), (64, 77, 20, 5), (16, 16, 20, 1), (16, 77, 20, 1))
+LSE_ATOL = 1e-3      # max |lse - reference|, natural log
+GRAD_REL_L2 = 1e-2   # dq, dk, dv: relative L2 per (batch, head)
+DGATE_REL = 5e-2     # |dgate - reference| / RMS over the batch of the head's dgate
+# phase 8: the stage-1 step (configs/pruning/sd-2-1_coco2014.yaml)
+DEPTH_ORDER = (-1, -2, 0, 1, -3, -4, 2, 3, -5, -6, 4, 5, -7, 6)
+TRAIN_STEPS = 5      # one pretrain step, then codebook steps
+GRAD_COS = 0.999     # per-leaf cosine of kernel-path grads vs plain attention
 STEPS = 25
 GUIDANCE = 7.5
 # (prompts, resolution) per request; the first request of each resolution
@@ -390,8 +425,9 @@ def serve(pipe, mpnet, device):
 
 def _category(name: str) -> str:
     n = name.lower()
-    if "gated_flash" in n:
-        return "gated_flash_fwd"
+    for kernel in ("gated_flash_fwd", "gated_flash_bwd_dq", "gated_flash_bwd_dkv"):
+        if kernel + "_" in n:
+            return kernel
     if "conv" in n or "fprop" in n or "dgrad" in n or "implicit" in n:
         return "convolution"
     if "gemm" in n or "nvjet" in n or "xmma" in n or "cutlass" in n or "sm90" in n:
@@ -437,6 +473,17 @@ def profile_call(pipe, mpnet, device):
         lat = stage("denoise_ms", lambda: pipe.denoise(gen, pe, ne, arch, STEPS, GUIDANCE))
         stage("vae_decode_ms", lambda: pipe.decode(lat))
         wall_ms = (time.perf_counter() - t0) * 1e3
+    row = {"phase": "profile", "resolution": 256, "prompts": b, "wall_ms": wall_ms,
+           "stages_ms": stages, **device_kernel_times(prof, wall_ms),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(row)
+    return row
+
+
+def device_kernel_times(prof, wall_ms: float) -> dict:
+    """Device kernel time of a torch.profiler run: total, busy share of
+    `wall_ms`, by category and the largest kernels."""
+    import torch
     by_cat = {}
     kernels = []
     busy_us = 0.0
@@ -451,16 +498,410 @@ def profile_call(pipe, mpnet, device):
         by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3
         kernels.append((us / 1e3, e.count, cat, e.key[:90]))
     kernels.sort(reverse=True)
-    row = {"phase": "profile", "resolution": 256, "prompts": b, "wall_ms": wall_ms,
-           "stages_ms": stages,
-           "device_kernel_ms": busy_us / 1e3 if busy_us else "not measured",
-           "device_busy_share": busy_us / 1e3 / wall_ms if busy_us else "not measured",
-           "kernel_ms_by_category": by_cat,
-           "top_kernels": [{"ms": ms, "count": n, "category": c, "name": k}
-                           for ms, n, c, k in kernels[:15]],
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return {"device_kernel_ms": busy_us / 1e3 if busy_us else "not measured",
+            "device_busy_share": busy_us / 1e3 / wall_ms if busy_us else "not measured",
+            "kernel_ms_by_category": by_cat,
+            "top_kernels": [{"ms": ms, "count": n, "category": c, "name": k}
+                            for ms, n, c, k in kernels[:15]]}
+
+
+# ---------------------------------------------------------------- phase 7
+
+def dgate_rel(dgate, ref):
+    """|dgate - ref| per (batch, head), relative to the RMS over the batch of
+    the head's reference dgate: a sum of terms of both signs can land near 0
+    for one sample, where a plain relative error says nothing."""
+    return (dgate - ref).abs() / ref.square().mean(dim=0).sqrt().clamp_min(1e-30)
+
+
+def training_bytes(kind: str, s_q: int, s_kv: int) -> float:
+    """Bytes per (batch, head) that each training kernel must move: bf16 rows
+    of 64 (128 bytes) and f32 lse/δ per query row, each read or written once."""
+    if kind == "fwd_lse":  # q, k, v in; o, lse out
+        return 128.0 * (2 * s_q + 2 * s_kv) + 4 * s_q
+    if kind == "dq":       # q, k, v, o, dO, lse in; dq, δ, dgate partials out
+        return 128.0 * (4 * s_q + 2 * s_kv) + 8 * s_q + 4 * -(-s_q // KV_TILE)
+    # dk/dv: q, k, v, dO, lse, δ in; dk, dv, dgate partials out
+    return 128.0 * (2 * s_q + 4 * s_kv) + 8 * s_q + 4 * -(-s_kv // KV_TILE)
+
+
+TRAINING_PRODUCTS = {"fwd_lse": 2, "dq": 3, "dkv": 4}  # products of 2·S_q·S_kv·64 operations
+
+
+def training_bound(kind: str, b: int, h: int, s_q: int, s_kv: int):
+    flop_ms = b * h * TRAINING_PRODUCTS[kind] * 2.0 * s_q * s_kv * 64 / PEAK_BF16_FLOPS * 1e3
+    byte_ms = b * h * training_bytes(kind, s_q, s_kv) / PEAK_BYTES * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
+
+
+def training_faults(qf, kf, vf, dof, gate, gate_name, lse_r, dq_r, dk_r, dv_r, dg_r):
+    """What a kernel with one fault would return, emulated in plain torch (f32)
+    from the reference results, read with each check's metric."""
+    from diffusion_pruning_tpu_torch.ops.flash_attention import gated_attention_reference_lse
+    s_kv = kf.shape[1]
+    last = (s_kv - 1) // KV_TILE * KV_TILE  # first row of the last kv tile
+    out = {"lse_log2_domain": (lse_r * 1.4426950408889634 - lse_r).abs().max().item()}
+    if last:
+        _, lse_bad = gated_attention_reference_lse(qf, kf[:, :last], vf[:, :last], gate)
+        out["lse_drop_last_kv_tile"] = (lse_bad - lse_r).abs().max().item()
+    worst = 0.0  # a dk/dv kernel whose last kv-tile block never ran
+    for ref in (dk_r, dv_r):
+        bad = ref.clone()
+        bad[:, last:] = 0
+        worst = max(worst, per_head_rel_l2(bad, ref).max().item())
+    out["dkv_drop_last_kv_tile"] = worst
+    if gate_name == "soft":  # dq' returned in place of dq = g·dq'
+        out["dq_missing_g"] = per_head_rel_l2(dq_r / gate[:, None, :, None], dq_r).max().item()
+    if gate is not None:  # dgate without Σ dv'∘v = Σ P ∘ (dO·vᵀ)
+        import torch
+        g2 = gate.square()[:, :, None, None]
+        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * 0.125 * g2, dim=-1)
+        term_v = (p * torch.einsum("bqhd,bkhd->bhqk", dof, vf)).sum(dim=(2, 3))
+        out["dgate_without_dv_term"] = dgate_rel(dg_r - term_v, dg_r).max().item()
+    return out
+
+
+def check_training_kernels(device):
+    import torch
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    b = TRAIN_B
+    limits = {"lse_max_abs": LSE_ATOL, "o": REL_L2, "dq": GRAD_REL_L2, "dk": GRAD_REL_L2,
+              "dv": GRAD_REL_L2, "dgate": DGATE_REL}
+    fault_limit = {"lse_log2_domain": LSE_ATOL, "lse_drop_last_kv_tile": LSE_ATOL,
+                   "dkv_drop_last_kv_tile": GRAD_REL_L2, "dq_missing_g": GRAD_REL_L2,
+                   "dgate_without_dv_term": DGATE_REL}
+    worst = {key: 0.0 for key in limits}
+    worst.update(dq_max_abs=0.0, dkv_max_abs=0.0)
+    least_fault = {}
+    rows = []
+    for s_q, s_kv, h, sites in TRAIN_CASES:
+        q, do = (torch.randn(b, s_q, h, 64, device=device, generator=gen).bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(b, s_kv, h, 64, device=device, generator=gen).bfloat16()
+                for _ in range(2))
+        soft = torch.rand(b, h, device=device, generator=gen)
+        hard = torch.ones(b, h, device=device)
+        hard[:, h // 2] = 0.0  # one closed head
+        for gate_name, gate in (("none", None), ("soft", soft), ("hard", hard)):
+            o, lse = fa.gated_flash_forward_lse(q, k, v, gate)
+            dq, dk, dv, dgate = fa.gated_flash_backward(q, k, v, gate, o, lse, do)
+            torch.cuda.synchronize()
+            # each kernel against its plain version on its own inputs: the
+            # backward's include the forward's o and lse
+            qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+            o_r, lse_r = fa.gated_attention_reference_lse(qf, kf, vf, gate)
+            dq_r, dk_r, dv_r, dg_r = fa.gated_flash_backward_reference(qf, kf, vf, gate,
+                                                                        o.float(), lse, dof)
+            reading = {"lse_max_abs": (lse - lse_r).abs().max().item(),
+                       "o": per_head_rel_l2(o, o_r).max().item(),
+                       "dq": per_head_rel_l2(dq, dq_r).max().item(),
+                       "dk": per_head_rel_l2(dk, dk_r).max().item(),
+                       "dv": per_head_rel_l2(dv, dv_r).max().item()}
+            if gate is not None:
+                reading["dgate"] = dgate_rel(dgate, dg_r).max().item()
+            faults = training_faults(qf, kf, vf, dof, gate, gate_name, lse_r, dq_r, dk_r, dv_r,
+                                     dg_r)
+            row = {"phase": "training_kernel_check", "b": b, "s_q": s_q, "s_kv": s_kv, "h": h,
+                   "gate": gate_name, **reading,
+                   "dq_max_abs": (dq.float() - dq_r).abs().max().item(),
+                   "dkv_max_abs": max((dk.float() - dk_r).abs().max().item(),
+                                      (dv.float() - dv_r).abs().max().item()),
+                   "dq_ref_mean_abs": dq_r.abs().mean().item(),
+                   "planted_faults": faults}
+            if gate is not None:
+                row["dgate_ref_rms"] = dg_r.square().mean().sqrt().item()
+                if gate_name == "hard":  # the closed head's dgate, kernel and reference
+                    row["dgate_closed_head"] = [dgate[0, h // 2].item(), dg_r[0, h // 2].item()]
+            bad = [key for key, value in reading.items()
+                   if not (math.isfinite(value) and value <= limits[key])]
+            if gate_name == "hard" and not all(bool((t[:, :, h // 2] == 0).all())
+                                               for t in (dq, dk, dv)):
+                bad.append("closed head gives nonzero dq/dk/dv")
+            if bad:
+                emit(row)
+                fail(f"training kernels disagree with their plain versions ({bad}): {row}")
+            caught = [key for key, value in faults.items() if not value > fault_limit[key]]
+            if caught:
+                emit(row)
+                fail(f"planted faults read within their limits ({caught}): {row}")
+            for key in worst:
+                worst[key] = max(worst[key], row.get(key, 0.0))
+            for key, value in faults.items():
+                least_fault[key] = min(least_fault.get(key, math.inf), value)
+            del qf, kf, vf, dof, o_r, lse_r, dq_r, dk_r, dv_r, dg_r
+            if gate_name == "soft":
+                row.update(time_training_kernels(q, k, v, do, soft, o, lse))
+                row["sites_per_256px_forward"] = sites
+                for kind in ("fwd_lse", "dq", "dkv"):
+                    row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = training_bound(
+                        kind, b, h, s_q, s_kv)
+                rows.append(row)
+            emit(row)
+            del o, lse, dq, dk, dv, dgate
+        torch.cuda.empty_cache()
+    return rows, {"limits": limits, "worst": worst, "least_planted_fault": least_fault}
+
+
+def time_training_kernels(q, k, v, do, gate, o, lse):
+    """CUDA-event times of the three training kernels at one shape, of their
+    plain versions (bf16 inputs, as a CPU-less caller would run them), and of
+    PyTorch's SDPA on pre-masked bf16 q/k/v: its forward under autograd
+    (which keeps the lse) and its backward (dq, dk, dv; no dgate)."""
+    import torch
+    import torch.nn.functional as F
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+
+    n = 10 if q.shape[1] * k.shape[1] >= 2 ** 20 else 20
+    _, delta, _ = fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do)
+    out = {"fwd_lse_ms": time_ms(lambda: fa.gated_flash_forward_lse(q, k, v, gate), n),
+           "dq_ms": time_ms(lambda: fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do), n),
+           "dkv_ms": time_ms(lambda: fa.gated_flash_bwd_dkv(q, k, v, gate, lse, delta, do), n),
+           "fwd_lse_plain_ms": time_ms(
+               lambda: fa.gated_attention_reference_lse(q, k, v, gate), 3, warmup=1),
+           "bwd_plain_ms": time_ms(
+               lambda: fa.gated_flash_backward_reference(q, k, v, gate, o, lse, do), 3,
+               warmup=1)}
+    g = gate[:, None, :, None].to(q.dtype)
+    gq, gk, gv = ((t * g).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    out["fwd_lse_library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(gq, gk, gv), n)
+    lib_out = F.scaled_dot_product_attention(gq, gk, gv)
+    gdo = do.transpose(1, 2)
+    out["bwd_library_ms"] = time_ms(
+        lambda: torch.autograd.grad(lib_out, (gq, gk, gv), gdo, retain_graph=True), n)
+    return out
+
+
+# ---------------------------------------------------------------- phase 8
+
+def build_trainer(pipe, device, gen):
+    """The stage-1 modules at full width: the U-Net, VAE and CLIP of the
+    serving phases in bf16 (frozen), a fresh hypernet and codebook (f32)."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.hypernet import HyperStructure
+    from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
+    from diffusion_pruning_tpu_torch.training import PrunerConfig, PrunerModules, make_optimizer
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+
+    spec = pipe.unet.spec
+    with torch.device(device):
+        hypernet = HyperStructure(spec, input_dim=768)
+        quantizer = StructureQuantizer(spec, n_e=8, base=3.0, depth_order=DEPTH_ORDER)
+    random_init_(hypernet, gen)
+    quantizer.init_params(gen)
+    quantizer.init_state()
+    mods = PrunerModules(unet=pipe.unet, vae=pipe.vae.to(torch.bfloat16),
+                         text_encoder=pipe.text_encoder.to(torch.bfloat16), hypernet=hypernet,
+                         quantizer=quantizer, schedule=pipe.schedule)
+    cfg = PrunerConfig()  # the coco yaml's losses, AdamW, √batch LR, 100 warmup steps
+    return mods, cfg, make_optimizer(cfg, mods, TRAIN_B)
+
+
+def trainables(mods):
+    """(name, parameter) of everything the step trains."""
+    return ([(f"hypernet.{n}", p) for n, p in mods.hypernet.named_parameters()]
+            + [("codebook", mods.quantizer.embedding.weight)])
+
+
+def launch_counts():
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    return {"gated_flash_fwd": fa.gated_flash_attention.launches,
+            "gated_flash_fwd_lse": fa.gated_flash_forward_lse.launches,
+            "gated_flash_bwd_dq": fa.gated_flash_bwd_dq.launches,
+            "gated_flash_bwd_dkv": fa.gated_flash_bwd_dkv.launches}
+
+
+def reset_launch_counts():
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    for wrapper in fa.KERNEL_WRAPPERS:
+        wrapper.launches = 0
+
+
+def train(mods, cfg, opt, device):
+    """TRAIN_STEPS full-width steps from random pixels, ids and MPNet
+    embeddings: per-step seconds, stage times and launches, peak memory."""
+    import torch
+    from diffusion_pruning_tpu_torch.training import make_pruner_step
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    b, res = TRAIN_B, mods.unet.cfg.sample_size * mods.vae.cfg.spatial_scale
+    vocab = mods.text_encoder.cfg.vocab_size
+    batch = {"pixel_values": torch.rand(b, res, res, 3, device=device, generator=gen) * 2 - 1,
+             "input_ids": torch.randint(0, vocab, (b, 77), device=device, generator=gen),
+             "mpnet_embeddings": torch.randn(b, 768, device=device, generator=gen)}
+    steps = {True: make_pruner_step(mods, cfg, opt, pretrain=True),
+             False: make_pruner_step(mods, cfg, opt, pretrain=False)}
+    before = {name: p.detach().clone() for name, p in trainables(mods)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rows = []
+    for i in range(TRAIN_STEPS):
+        pretrain = i == 0
+        counts = launch_counts()
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
+        t0 = time.perf_counter()
+        metrics, aux = steps[pretrain](batch, generator=gen, mark=mark)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v - counts[k] for k, v in launch_counts().items()}
+        row = {"phase": "train_step", "step": i, "pretrain": pretrain, "batch": b,
+               "resolution": res, "seconds": seconds,
+               "stages_ms": {name: marks[j - 1][1].elapsed_time(ev)
+                             for j, (name, ev) in enumerate(marks) if j},
+               "launches": launches,
+               **{k: float(v) for k, v in metrics.items()},
+               "expert_counts": torch.bincount(aux["expert_indices"], minlength=8).tolist()}
+        emit(row)
+        terms = [k for k in metrics if k != "skipped"]
+        if row["skipped"] or not all(math.isfinite(row[k]) for k in terms):
+            fail(f"train step {i} gave a non-finite loss or was skipped: {row}")
+        if launches != {k: 32 for k in launches}:
+            fail(f"expected 32 launches of each attention kernel per step: {launches}")
+        rows.append(row)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = {name: not torch.equal(p.detach(), before[name]) for name, p in trainables(mods)}
+    if not (all(changed.values())):
+        fail(f"trainables that did not change over {TRAIN_STEPS} steps: "
+             f"{[n for n, c in changed.items() if not c]}")
+    warm = [r["seconds"] for r in rows[1:]]
+    median = statistics.median(warm)
+    stages = {name: statistics.median(r["stages_ms"][name] for r in rows[1:])
+              for name in rows[-1]["stages_ms"]}
+    summary = {"phase": "train_summary", "batch": b, "resolution": res,
+               "seconds_per_step_median_warm": median, "seconds_warm": warm,
+               "samples_per_sec": b / median, "stages_ms_median_warm": stages,
+               "peak_memory_gib": peak_gib, "remat": mods.unet.cfg.remat,
+               "launches": launch_counts()}
+    emit(summary)
+    return batch, summary
+
+
+def step_grads(mods, cfg, batch, draws, pretrain):
+    """The step's gradient of every trainable at the current parameters (no
+    update)."""
+    import torch
+    from diffusion_pruning_tpu_torch.training import compute_losses
+    for _, p in trainables(mods):
+        p.grad = None
+    p_actual = mods.resource_model.actual_pruning_target(cfg.pruning_target)
+    loss, _ = compute_losses(mods, cfg, batch, draws, pretrain, p_actual)
+    loss.backward()
+    grads = {name: (p.grad.detach().float().clone() if p.grad is not None
+                    else torch.zeros_like(p, dtype=torch.float32)) for name, p in trainables(mods)}
+    for _, p in trainables(mods):
+        p.grad = None
+    return grads
+
+
+@contextlib.contextmanager
+def without_dgate():
+    """A planted fault: the backward kernels' gate gradient dropped."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    real = fa.gated_flash_backward
+
+    def faulty(*args):
+        dq, dk, dv, dgate = real(*args)
+        return dq, dk, dv, None if dgate is None else dgate.zero_()
+
+    fa.gated_flash_backward = faulty
+    try:
+        yield
+    finally:
+        fa.gated_flash_backward = real
+
+
+def leaf_cosines(got, want):
+    """Cosine per leaf, over the leaves whose reference gradient is not 0."""
+    import torch
+    out = {}
+    for name, w in want.items():
+        wn = w.norm()
+        if wn > 0:
+            out[name] = (torch.dot(got[name].flatten(), w.flatten())
+                         / (got[name].norm() * wn).clamp_min(1e-30)).item()
+    return out
+
+
+def check_train_grads(mods, cfg, batch, device):
+    """The step's grads through the kernels against the same step with plain
+    attention (bf16, under autograd), in both phases, on one batch and one
+    set of draws; and, in the pretrain phase, a planted fault (the kernels'
+    dgate dropped) that the limit must catch."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops.flash_attention import gated_attention_reference
+    from diffusion_pruning_tpu_torch.training.pruner import complete_draws
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    draws = complete_draws(mods, cfg, batch, None, gen)
+    out = {"phase": "train_grad_check", "limit": GRAD_COS}
+    for pretrain in (True, False):
+        kernel = step_grads(mods, cfg, batch, draws, pretrain)
+        with unet_attention(gated_attention_reference):
+            plain = step_grads(mods, cfg, batch, draws, pretrain)
+        cos = leaf_cosines(kernel, plain)
+        worst = min(cos, key=cos.get)
+        entry = {"leaves": len(cos), "min_cos": cos[worst], "min_cos_leaf": worst,
+                 "median_cos": statistics.median(cos.values()),
+                 "codebook_cos": cos.get("codebook")}
+        with without_dgate():
+            cos_fault = leaf_cosines(step_grads(mods, cfg, batch, draws, pretrain), plain)
+        worst_fault = min(cos_fault, key=cos_fault.get)
+        entry.update(planted_fault_no_dgate_min_cos=cos_fault[worst_fault],
+                     planted_fault_leaf=worst_fault)
+        out["pretrain" if pretrain else "codebook"] = entry
+    emit(out)
+    for phase in ("pretrain", "codebook"):
+        if not out[phase]["min_cos"] > GRAD_COS:
+            fail(f"kernel-path grads disagree with plain attention ({phase}): {out}")
+    if not out["pretrain"]["planted_fault_no_dgate_min_cos"] <= GRAD_COS:
+        fail(f"the planted fault reads within the limit {GRAD_COS}: {out}")
+    return out
+
+
+def profile_train_step(mods, cfg, opt, batch, device):
+    """One more codebook step under torch.profiler: device kernel time by
+    category and the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from diffusion_pruning_tpu_torch.training import make_pruner_step
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    step = make_pruner_step(mods, cfg, opt, pretrain=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    row = {"phase": "train_profile", "batch": TRAIN_B, "wall_ms": wall_ms,
+           **device_kernel_times(prof, wall_ms)}
     emit(row)
     return row
+
+
+def training_entry(rows, kind: str, plain_key: str, library_key: str) -> dict:
+    """A training kernel's times summed over the 32 attention sites of one
+    student pass. The plain and library times of the two backward kernels
+    are those of one call that computes dq, dk and dv together."""
+    def total(key):
+        return sum(r[key] * r["sites_per_256px_forward"] for r in rows)
+    ops = sum(r[f"{kind}_bound_ms"] * r["sites_per_256px_forward"] for r in rows
+              if r[f"{kind}_bound_by"] == "operations")
+    bound = total(f"{kind}_bound_ms")
+    return {"ms": total(f"{kind}_ms"), "plain_ms": total(plain_key), "bound_ms": bound,
+            "bound_by": "operations" if ops >= bound / 2 else "bytes",
+            "library_ms": total(library_key),
+            "shapes": "the 32 attention sites of one student U-Net pass of the stage-1 "
+                      "step at 256px, B = 64, bf16, soft gates"}
 
 
 # ---------------------------------------------------------------- main
@@ -490,13 +931,14 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    nvcc_s = fa.build_kernel()
+    nvcc_s = fa.build_kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_s})
-    report = fa.BUILD_DIR / f"{fa.SOURCE.stem}.ptxas.txt"
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {fa.SOURCE.name}: {line.strip()}")
+    for source in fa.SOURCES:
+        report = fa.BUILD_DIR / f"{source.stem}.ptxas.txt"
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"ptxas {source.name}: {line.strip()}")
 
     # 3. kernel vs plain version
     t0 = time.perf_counter()
@@ -527,11 +969,29 @@ def main() -> None:
     # 6. one more call under the profiler
     profile_call(pipe, mpnet, device)
 
-    # 7. kernels line: times summed over the 32 sites of one 256px forward
+    # 7. training kernels vs their plain versions (TF32 off for the references)
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    train_rows, train_check = check_training_kernels(device)
+    emit({"phase": "training_kernel_check_summary", **train_check})
+    log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
+
+    # 8. the stage-1 train step at full width
+    t0 = time.perf_counter()
+    mods, cfg, opt = build_trainer(pipe, device, gen)
+    batch, train_summary = train(mods, cfg, opt, device)
+    check_train_grads(mods, cfg, batch, device)
+    profile_train_step(mods, cfg, opt, batch, device)
+    log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
+
+    # kernels line: inference times summed over the 32 sites of one 256px
+    # forward (B_eff 16), training times over the 32 sites of one student
+    # pass of the train step (B = 64)
     agg = {key: sum(r[key] * r["sites_per_256px_forward"] for r in rows)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     ops_share = sum(r["bound_ms"] * r["sites_per_256px_forward"] for r in rows
                     if r["bound_by"] == "operations") / agg["bound_ms"]
+    train_launches = train_summary["launches"]
     emit({"kernels": [{
         "name": "gated_flash_fwd",
         "route": "cuda",
@@ -540,7 +1000,11 @@ def main() -> None:
         "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:181",
                           "diffusion_pruning_tpu/ops/flash_attention.py:215",
                           "diffusion_pruning_tpu/ops/flash_attention.py:284"],
-        "launches": launches,
+        "launches": launches + train_launches["gated_flash_fwd"]
+                    + train_launches["gated_flash_fwd_lse"],
+        "launches_by_path": {"serving": launches,
+                             "train_teacher": train_launches["gated_flash_fwd"],
+                             "train_student_lse": train_launches["gated_flash_fwd_lse"]},
         "max_abs_err": worst["max_abs_err"],
         "rel_l2_worst_head": worst["rel_l2_worst_head"],
         "ms": agg["ms"], "kernel_ms": agg["ms"], "plain_ms": agg["plain_ms"],
@@ -549,9 +1013,39 @@ def main() -> None:
         "library_ms": agg["library_ms"],
         "shapes": "the 32 attention sites of one SD-2.1 U-Net forward at 256px, "
                   "B_eff 16, bf16, soft gates",
+        "training_forward": {**training_entry(train_rows, "fwd_lse", "fwd_lse_plain_ms",
+                                              "fwd_lse_library_ms"),
+                             "launches": train_launches["gated_flash_fwd_lse"],
+                             "lse_max_abs_err": train_check["worst"]["lse_max_abs"],
+                             "library_call": "F.scaled_dot_product_attention forward of "
+                                             "pre-masked q/k/v under autograd"},
+    }, {
+        "name": "gated_flash_bwd_dq",
+        "route": "cuda",
+        "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu",
+        "replaces": "diffusion_pruning_tpu/ops/flash_attention.py:586",
+        "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:686"],
+        "launches": train_launches["gated_flash_bwd_dq"],
+        "max_abs_err": train_check["worst"]["dq_max_abs"],
+        "rel_l2_worst_head": train_check["worst"]["dq"],
+        "dgate_rel_worst": train_check["worst"]["dgate"],
+        **training_entry(train_rows, "dq", "bwd_plain_ms", "bwd_library_ms"),
+    }, {
+        "name": "gated_flash_bwd_dkv",
+        "route": "cuda",
+        "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu",
+        "replaces": "diffusion_pruning_tpu/ops/flash_attention.py:638",
+        "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:741"],
+        "launches": train_launches["gated_flash_bwd_dkv"],
+        "max_abs_err": train_check["worst"]["dkv_max_abs"],
+        "rel_l2_worst_head": max(train_check["worst"]["dk"], train_check["worst"]["dv"]),
+        "dgate_rel_worst": train_check["worst"]["dgate"],
+        **training_entry(train_rows, "dkv", "bwd_plain_ms", "bwd_library_ms"),
     }]})
     log(f"total {time.perf_counter() - t_start:.1f}s; 256px img/s (median of 3) "
-        f"{8 / s256[1]:.4f}; 512px seconds {calls[5]['seconds']:.4f}")
+        f"{8 / s256[1]:.4f}; 512px seconds {calls[5]['seconds']:.4f}; train step "
+        f"{train_summary['seconds_per_step_median_warm']:.4f} s "
+        f"({train_summary['samples_per_sec']:.2f} samples/s)")
     # 8. last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

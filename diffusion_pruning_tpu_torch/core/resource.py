@@ -54,5 +54,25 @@ class ResourceModel:
         return macs + d @ d_nonprunable
 
     def resource_ratio(self, arch: torch.Tensor) -> torch.Tensor:
-        """Per-sample ratio vs the dense (all-ones) model — in (0, 1]."""
+        """Per-sample ratio vs the dense (all-ones) model — in (0, 1];
+        differentiable in `arch` through the straight-through estimator."""
         return self.cur_prunable_macs(arch) / self.spec.cur_prunable_macs_dense
+
+    def actual_pruning_target(self, p: float) -> float:
+        """Rescale a total-MACs keep fraction p onto prunable-MACs space:
+        keeping p of the total MACs means keeping this fraction of the
+        gateable ones."""
+        return float(1.0 - (1.0 - p) * self.spec.total_macs / self.spec.cur_prunable_macs_dense)
+
+    def prunable_macs_template(self) -> np.ndarray:
+        """Per arch-vector slot, the fraction of all prunable MACs its gate
+        site controls; a depth slot gets its subblock's fraction (the
+        quantizer's resource-aware normalisation)."""
+        spec = self.spec
+        out = np.zeros(spec.vq_dim, dtype=np.float32)
+        for sb in spec.subblocks:
+            for site in sb.sites:
+                out[site.start: site.start + site.width] = site.prunable_macs / spec.prunable_macs
+            if sb.depth_index >= 0:
+                out[spec.num_width + sb.depth_index] = sb.prunable_macs / spec.prunable_macs
+        return out

@@ -34,83 +34,37 @@
 //    zero-filled in shared memory (no read runs past S_kv), query rows past
 //    S_q are computed on zeros and never stored.
 // wgmma and TMA are left for a later version.
+//
+// Training forward: with a non-null `lse`, the kernel also writes one f32 per
+// (b·h, query row), the log-sum-exp of that row's logits q·kᵀ·d^-½·g² in the
+// NATURAL log, (m + log2 l)·ln 2 from the online-softmax state it keeps in the
+// log2 domain. It is the lse of the JAX package's training forwards
+// (`_attn_kernel` and `_attn_kernel2` with an lse output); gated_flash_bwd.cu
+// reads it back as lse·log2(e). A null `lse` is the inference launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;          // head dim
-constexpr int kBlockM = 64;     // query rows per block
-constexpr int kBlockN = 64;     // kv rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kSRow = kD + 8;   // padded shared row: 144 bytes, conflict-free fragment reads
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> one register of two bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [row0, row0 + 64) of one (batch, head) slab into shared memory;
-// rows at or past n_rows are zero-filled and their source is never read.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
-                                          int n_rows, long row_stride, int tid) {
-#pragma unroll
-  for (int i = 0; i < (kBlockN * kD / 8) / kThreads; ++i) {
-    const int c = tid + i * kThreads;
-    const int r = c >> 3;
-    const int ch = (c & 7) * 8;
-    const bool in = row0 + r < n_rows;
-    const __nv_bfloat16* g = in ? src + (long)(row0 + r) * row_stride + ch : src;
-    cp_async_16(dst + r * kSRow + ch, g, in);
-  }
-}
+using namespace gfa;
 
 __global__ void __launch_bounds__(kThreads)
     gated_flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
                                 const float* __restrict__ gate, __nv_bfloat16* __restrict__ o,
-                                int H, int Sq, int Skv, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kBlockM * kSRow];
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kBlockN * kSRow];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kBlockN * kSRow];
+                                float* __restrict__ lse, int H, int Sq, int Skv,
+                                float scale_log2) {
+  __shared__ __align__(16) __nv_bfloat16 q_s[kTileElems];
+  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTileElems];
+  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTileElems];
 
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int m0 = blockIdx.x * kBlockM;
+  const int m0 = blockIdx.x * kBlock;
   const long row_stride = (long)H * kD;
   const __nv_bfloat16* qb = q + ((long)b * Sq * H + h) * kD;
   const __nv_bfloat16* kb = k + ((long)b * Skv * H + h) * kD;
@@ -140,45 +94,25 @@ __global__ void __launch_bounds__(kThreads)
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.0f, 0.0f};
 
-  const int n_tiles = (Skv + kBlockN - 1) / kBlockN;
+  const int n_tiles = (Skv + kBlock - 1) / kBlock;
   for (int j = 0; j < n_tiles; ++j) {
     const int cur = j & 1;
     if (j + 1 < n_tiles) {
-      load_tile(k_s[cur ^ 1], kb, (j + 1) * kBlockN, Skv, row_stride, tid);
-      load_tile(v_s[cur ^ 1], vb, (j + 1) * kBlockN, Skv, row_stride, tid);
+      load_tile(k_s[cur ^ 1], kb, (j + 1) * kBlock, Skv, row_stride, tid);
+      load_tile(v_s[cur ^ 1], vb, (j + 1) * kBlock, Skv, row_stride, tid);
     }
     cp_async_commit();
     cp_async_wait_1();  // everything but the prefetch just issued has landed
     __syncthreads();
 
-    if (j == 0) {
-      const __nv_bfloat16* q0 = q_s + (warp * 16 + gr) * kSRow + 2 * tg;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        qf[kk][0] = ld_u32(q0 + kk * 16);
-        qf[kk][1] = ld_u32(q0 + 8 * kSRow + kk * 16);
-        qf[kk][2] = ld_u32(q0 + kk * 16 + 8);
-        qf[kk][3] = ld_u32(q0 + 8 * kSRow + kk * 16 + 8);
-      }
-    }
+    if (j == 0) load_a_frags(qf, q_s, warp * 16, gr, tg);
 
     // S = Q Kᵀ for this warp's 16 rows × 64 kv columns (8 n-tiles of 8)
-    const __nv_bfloat16* ks = k_s[cur];
     float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-      const __nv_bfloat16* k0 = ks + (nt * 8 + gr) * kSRow + 2 * tg;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t bf[2] = {ld_u32(k0 + kk * 16), ld_u32(k0 + kk * 16 + 8)};
-        mma_16816(s[nt], qf[kk], bf);
-      }
-    }
+    mma_abt(s, qf, k_s[cur], gr, tg);
 
     // scale, mask the kv tail, running row max (rows gr and gr + 8)
-    const int n0 = j * kBlockN;
+    const int n0 = j * kBlock;
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -219,42 +153,26 @@ __global__ void __launch_bounds__(kThreads)
       l_run[r] = l_run[r] * alpha[r] + rs[r];
     }
 
-    // O += P V: P's accumulator layout for n-tiles (2kk, 2kk+1) is the A
-    // fragment of k-block kk; V fragments are gathered from shared memory
-    const __nv_bfloat16* vs = v_s[cur];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_f32(s[2 * kk][0], s[2 * kk][1]),
-                              pack_f32(s[2 * kk][2], s[2 * kk][3]),
-                              pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* v0 = vs + (kk * 16 + 2 * tg) * kSRow + gr;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* vp = v0 + nt * 8;
-        const uint32_t bf[2] = {pack_bf16(vp[0], vp[kSRow]),
-                                pack_bf16(vp[8 * kSRow], vp[9 * kSRow])};
-        mma_16816(acc[nt], pa, bf);
-      }
-    }
+    // O += P V, P rounded to bf16 in registers
+    mma_ab(acc, s, v_s[cur], gr, tg);
     __syncthreads();  // the next iteration's prefetch overwrites the buffer read here
   }
 
   const float inv0 = g / l_run[0];
   const float inv1 = g / l_run[1];
-  const int row0 = m0 + warp * 16 + gr;
-  const int row1 = row0 + 8;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
-    const int col = nt * 8 + 2 * tg;
-    if (row0 < Sq) {
-      *reinterpret_cast<uint32_t*>(ob + (long)row0 * row_stride + col) =
-          pack_f32(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    }
-    if (row1 < Sq) {
-      *reinterpret_cast<uint32_t*>(ob + (long)row1 * row_stride + col) =
-          pack_f32(acc[nt][2] * inv1, acc[nt][3] * inv1);
-    }
+    acc[nt][0] *= inv0;
+    acc[nt][1] *= inv0;
+    acc[nt][2] *= inv1;
+    acc[nt][3] *= inv1;
+  }
+  const int row0 = m0 + warp * 16 + gr;
+  store_rows(ob, acc, 1.0f, row0, Sq, row_stride, tg);
+  if (lse != nullptr && tg == 0) {  // the quad holds equal m_run/l_run after its shuffles
+    float* lb = lse + (long)bh * Sq;
+    if (row0 < Sq) lb[row0] = (m_run[0] + log2f(l_run[0])) * kLn2;
+    if (row0 + 8 < Sq) lb[row0 + 8] = (m_run[1] + log2f(l_run[1])) * kLn2;
   }
 }
 
@@ -263,14 +181,14 @@ __global__ void __launch_bounds__(kThreads)
 // C interface, loaded with ctypes. Launches on `stream`, never synchronises,
 // allocates nothing, and returns cudaGetLastError() after the launch.
 // q: (B, Sq, H, 64), k/v: (B, Skv, H, 64), o like q, all contiguous bf16;
-// gate: (B, H) f32 or null.
+// gate: (B, H) f32 or null; lse: (B·H, Sq) f32 for the training forward, or null.
 extern "C" int gated_flash_fwd(const void* q, const void* k, const void* v, const float* gate,
-                               void* o, int B, int H, int Sq, int Skv, float scale_log2,
-                               void* stream) {
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
+                               void* o, float* lse, int B, int H, int Sq, int Skv,
+                               float scale_log2, void* stream) {
+  const dim3 grid((Sq + kBlock - 1) / kBlock, B * H);
   gated_flash_fwd_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), gate, static_cast<__nv_bfloat16*>(o), H, Sq, Skv,
-      scale_log2);
+      static_cast<const __nv_bfloat16*>(v), gate, static_cast<__nv_bfloat16*>(o), lse, H, Sq,
+      Skv, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

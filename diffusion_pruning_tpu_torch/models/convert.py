@@ -30,11 +30,13 @@ _UNET_RULES = (
     (r"\.ff\.out\.", ".ff.net.2."),
 )
 
-_VAE_RULES = (  # applied to the flax decoder subtree
-    (r"^post_quant_conv\.", "@post_quant_conv."),
+_VAE_RULES = (  # applied to the flax encoder and decoder subtrees
+    (r"^(post_quant_conv|quant_conv)\.", r"@\1."),
     (r"^mid_resnet_(\d+)", r"mid_block.resnets.\1"),
     (r"^mid_attn\.to_out_0\.", "mid_block.attentions.0.to_out.0."),
     (r"^mid_attn\.", "mid_block.attentions.0."),
+    (r"^down_(\d+)_resnet_(\d+)", r"down_blocks.\1.resnets.\2"),
+    (r"^down_(\d+)_downsample\.", r"down_blocks.\1.downsamplers.0.conv."),
     (r"^up_(\d+)_resnet_(\d+)", r"up_blocks.\1.resnets.\2"),
     (r"^up_(\d+)_upsample\.", r"up_blocks.\1.upsamplers.0.conv."),
 )
@@ -89,12 +91,12 @@ def _leaf(key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def _rules_for(model: nn.Module):
-    table = ((GatedUNet, _UNET_RULES, ""), (AutoencoderKL, _VAE_RULES, "decoder."),
-             (CLIPTextEncoder, _CLIP_RULES, ""), (MPNetEncoder, _MPNET_RULES, ""),
-             (HyperStructure, _HYPERNET_RULES, ""), (StructureQuantizer, _QUANTIZER_RULES, ""))
-    for cls, rules, prefix in table:
+    table = ((GatedUNet, _UNET_RULES), (AutoencoderKL, _VAE_RULES),
+             (CLIPTextEncoder, _CLIP_RULES), (MPNetEncoder, _MPNET_RULES),
+             (HyperStructure, _HYPERNET_RULES), (StructureQuantizer, _QUANTIZER_RULES))
+    for cls, rules in table:
         if isinstance(model, cls):
-            return rules, prefix
+            return rules
     raise TypeError(f"no weight carry for {type(model).__name__}")
 
 
@@ -102,14 +104,18 @@ def params_from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     """Flax parameter tree (numpy leaves) → a state dict for `model`.
 
     tree: the flax `params` of the matching JAX module — for the VAE the
-    whole AutoencoderKL tree (its decoder half is taken), for the quantizer
+    whole AutoencoderKL tree (`encoder` and `decoder` subtrees, with
+    `quant_conv` inside the encoder), for the quantizer
     `{"embedding": ..., "embedding_gs": ...}` (params and state merged).
     Raises unless the keys match `model.state_dict()` exactly."""
-    rules, prefix = _rules_for(model)
-    if prefix == "decoder.":
-        tree = tree["decoder"]
+    rules = _rules_for(model)
+    if isinstance(model, AutoencoderKL):  # rules apply within each half
+        leaves = [(f"{half}.", key, value) for half in ("encoder", "decoder")
+                  for key, value in _flatten(tree[half])]
+    else:
+        leaves = [("", key, value) for key, value in _flatten(tree)]
     out = {}
-    for key, value in _flatten(tree):
+    for prefix, key, value in leaves:
         for pattern, repl in rules:
             key = re.sub(pattern, repl, key)
         key, value = _leaf(key, value)

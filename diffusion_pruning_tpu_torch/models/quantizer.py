@@ -1,12 +1,17 @@
-"""StructureQuantizer, eval half: route each prompt to one of K expert
-architecture codes by cosine similarity against the frozen gumbel-sigmoid
-snapshot of the codebook (`embedding_gs`), then binarise that code.
+"""StructureQuantizer: the K-expert architecture codebook and its router.
 
-The gumbel noise of `gumbel_sigmoid_trick` is an explicit argument. By
-default it is drawn from `torch.Generator().manual_seed(0)` — the original
-APTP code's fixed-seed eval semantics. The JAX package draws it from
-`jax.random.PRNGKey(0)` instead; the two give different bits, so the tests
-hand the JAX noise to the port.
+Training (`forward_train`): the codebook rows go through a gumbel-sigmoid
+(differentiable in `embedding.weight`), prompts are assigned to them by
+Sinkhorn optimal transport over the batch, and the assigned rows z_q carry
+the gradient back into the codebook. Eval (`forward_eval`): each prompt goes
+to the code of highest cosine similarity against the frozen gumbel-sigmoid
+snapshot of the codebook (`embedding_gs`), which is then binarised.
+
+Gumbel noise is an explicit argument everywhere. At eval it defaults to
+`torch.Generator().manual_seed(0)` — the original APTP code's fixed-seed
+semantics; the JAX package draws it from `jax.random.PRNGKey(0)` instead, and
+the two give different bits, so the tests hand the JAX noise to the port. In
+training the caller passes it (the train step draws it from its generator).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from diffusion_pruning_tpu_torch.core.estimators import (
     importance_gumbel_sigmoid,
     sample_gumbel,
 )
+from diffusion_pruning_tpu_torch.core.sinkhorn import sinkhorn_assign
 from diffusion_pruning_tpu_torch.core.structure import StructureSpec
 
 
@@ -119,6 +125,33 @@ class StructureQuantizer(nn.Module):
         """Argmax cosine similarity of the gated logits against the snapshot."""
         gates = self.gumbel_sigmoid_trick(z, noise)
         return torch.argmax(self._scores(gates, self.embedding_gs.float()), dim=-1)
+
+    @torch.no_grad()
+    def init_params(self, generator: Optional[torch.Generator] = None) -> None:
+        """Orthogonal codebook rows (K < vq_dim), as the JAX package inits it."""
+        nn.init.orthogonal_(self.embedding.weight, generator=generator)
+
+    def codebook_gates(self, noise: Optional[torch.Tensor] = None,
+                       hard: bool = False) -> torch.Tensor:
+        """Gumbel-sigmoid'd codebook rows (K, vq_dim), binarised with `hard`."""
+        g = self.gumbel_sigmoid_trick(self.embedding.weight, noise)
+        return hard_concrete(g) if hard else g
+
+    def forward_train(self, z: torch.Tensor, codebook_noise: torch.Tensor,
+                      gates_noise: torch.Tensor):
+        """Training forward: (z_q (B, vq_dim), indices (B,), new snapshot).
+
+        codebook_noise (K, vq_dim) and gates_noise (B, vq_dim) are the gumbel
+        noise of the codebook rows and of the logits z. z_q are the
+        gumbel-sigmoid'd codebook rows the prompts are assigned to,
+        differentiable in `embedding.weight`; the assignment (Sinkhorn over
+        the batch) and the new `embedding_gs` snapshot carry no gradient."""
+        embedding_gs = self.gumbel_sigmoid_trick(self.embedding.weight, codebook_noise)
+        with torch.no_grad():
+            scores = self._scores(self.gumbel_sigmoid_trick(z, gates_noise),
+                                  embedding_gs.detach())
+            indices = sinkhorn_assign(scores)
+        return embedding_gs[indices], indices, embedding_gs.detach()
 
     @torch.no_grad()
     def init_state(self) -> None:

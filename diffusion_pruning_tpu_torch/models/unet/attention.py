@@ -22,8 +22,10 @@ from diffusion_pruning_tpu_torch.ops.gates import channel_gate, match_batch
 
 class GatedAttention(nn.Module):
     """Multi-head attention with a per-head width gate. With `use_flash`,
-    attention runs through the gated flash kernel (its plain version for CPU
-    tensors); otherwise through the plain masked path."""
+    attention runs through `gated_flash_attention`: the inference kernel, or
+    under autograd the training forward and backward kernels, with the gate
+    kept f32 and differentiable (their plain versions for CPU tensors);
+    otherwise through the plain masked path."""
 
     def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None,
                  use_flash: bool = False):

@@ -66,6 +66,10 @@ class UNetConfig:
     # route attention on CUDA tensors through the hand-written gated flash
     # forward (ops/flash_attention.py); False = plain masked attention
     use_flash_attention: bool = False
+    # recompute each resnet and transformer subblock in the backward pass
+    # (torch.utils.checkpoint), trading step time for activation memory; the
+    # original APTP code's `gradient_checkpointing`
+    remat: bool = False
     # accepted for configuration compatibility with the JAX package; the
     # fused GroupNorm kernels are not ported yet, so these must stay False
     fused_norms: bool = False

@@ -3,7 +3,8 @@
 The per-prompt architecture is one flat `(B, vq_dim)` tensor `arch` (widths
 then depths, in `StructureSpec` order), sliced per subblock by `_GateReader`;
 `arch=None` runs the dense model. Public tensors keep the JAX package's
-layout — latents `(B, H, W, C)` — while the convolutions run NCHW inside.
+layout — latents and features `(B, H, W, C)` — while the convolutions run
+NCHW inside.
 Module names follow diffusers' `UNet2DConditionModel` state dict, so a
 diffusers checkpoint loads without a key map.
 """
@@ -15,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from diffusion_pruning_tpu_torch.core.structure import StructureSpec, SubBlock, build_structure
 from diffusion_pruning_tpu_torch.models.unet.blocks import (
@@ -154,12 +156,21 @@ class GatedUNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch, eps=cfg.norm_eps)
         self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
 
+    def _call(self, block: nn.Module, *args):
+        """Run a subblock, recomputed in the backward pass under `remat`."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                arch: Optional[torch.Tensor] = None) -> torch.Tensor:
+                arch: Optional[torch.Tensor] = None, return_features: bool = False):
         """sample: (B, H, W, C_in) latents; timesteps: (B,); encoder_hidden_states:
         (B, 77, cross_dim); arch: (B or B/2 under CFG, vq_dim) or None.
-        Returns (B, H, W, C_out) in the weights' dtype."""
+        Returns (B, H, W, C_out) in the weights' dtype; with `return_features`
+        also the block-distillation features {"d0".., "m", "u0"..}, NHWC: the
+        hidden state after each down level, after the mid block and after
+        each up level."""
         cfg, spec = self.cfg, self.spec
         dtype = self.conv_in.weight.dtype
         if arch is not None:
@@ -169,6 +180,8 @@ class GatedUNet(nn.Module):
                     f"{spec.vq_dim} ({spec.num_width} width + {spec.num_depth} depth)")
             arch = match_batch(arch, sample.shape[0])
         gates = _GateReader(spec, arch)
+        features = {}
+        call = self._call
 
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                    cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
@@ -181,21 +194,23 @@ class GatedUNet(nn.Module):
             cross = hasattr(block, "attentions")
             for j, res in enumerate(block.resnets):
                 wg, dg = gates.resnet(f"down.{i}.resnet.{j}")
-                h = res(h, temb, wg, dg)
+                h = call(res, h, temb, wg, dg)
                 if cross:
                     tg, tdg = gates.transformer(f"down.{i}.attn.{j}")
-                    h = block.attentions[j](h, ehs, tg, tdg)
+                    h = call(block.attentions[j], h, ehs, tg, tdg)
                 res_stack.append(h)
             if hasattr(block, "downsamplers"):
                 h = block.downsamplers[0](h)
                 res_stack.append(h)
+            features[f"d{i}"] = h
 
         wg, _ = gates.resnet("mid.resnet.0")
-        h = self.mid_block.resnets[0](h, temb, wg)
+        h = call(self.mid_block.resnets[0], h, temb, wg)
         tg, _ = gates.transformer("mid.attn.0")
-        h = self.mid_block.attentions[0](h, ehs, tg, None)
+        h = call(self.mid_block.attentions[0], h, ehs, tg, None)
         wg, _ = gates.resnet("mid.resnet.1")
-        h = self.mid_block.resnets[1](h, temb, wg)
+        h = call(self.mid_block.resnets[1], h, temb, wg)
+        features["m"] = h
 
         for i, block in enumerate(self.up_blocks):
             cross = hasattr(block, "attentions")
@@ -203,12 +218,15 @@ class GatedUNet(nn.Module):
                 identity = h
                 h = torch.cat([h, res_stack.pop()], dim=1)
                 wg, dg = gates.resnet(f"up.{i}.resnet.{j}")
-                h = res(h, temb, wg, dg, identity)
+                h = call(res, h, temb, wg, dg, identity)
                 if cross:
                     tg, tdg = gates.transformer(f"up.{i}.attn.{j}")
-                    h = block.attentions[j](h, ehs, tg, tdg)
+                    h = call(block.attentions[j], h, ehs, tg, tdg)
             if hasattr(block, "upsamplers"):
                 h = block.upsamplers[0](h)
+            features[f"u{i}"] = h
 
-        h = self.conv_out(F.silu(self.conv_norm_out(h)))
-        return h.permute(0, 2, 3, 1)
+        out = self.conv_out(F.silu(self.conv_norm_out(h))).permute(0, 2, 3, 1)
+        if return_features:
+            return out, {name: f.permute(0, 2, 3, 1) for name, f in features.items()}
+        return out

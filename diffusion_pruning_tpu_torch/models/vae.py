@@ -1,15 +1,17 @@
-"""The SD VAE's decoder half (`AutoencoderKL.decode`), NCHW inside.
+"""The SD VAE (`AutoencoderKL`), NCHW inside, latents and images NHWC.
 
-SD-2.1: 128/256/512/512 channels, 3 resnets per decoder block, one
-single-head mid attention at 512, latent dim 4, scale 0.18215, GroupNorm eps
-1e-6. Attribute names follow diffusers (`post_quant_conv`,
-`decoder.mid_block.attentions.0.to_q`, `decoder.up_blocks.0.upsamplers.0.conv`).
-The encoder belongs to training and is not ported yet.
+SD-2.1: 128/256/512/512 channels, 2 resnets per encoder block and 3 per
+decoder block, one single-head mid attention at 512 on each side, latent dim
+4, scale 0.18215, GroupNorm eps 1e-6. The encoder (frozen, for training)
+gives the diagonal-Gaussian latent moments; the decoder serves generation.
+Attribute names follow diffusers (`encoder.down_blocks.0.downsamplers.0.conv`,
+`quant_conv`, `post_quant_conv`, `decoder.mid_block.attentions.0.to_q`,
+`decoder.up_blocks.0.upsamplers.0.conv`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -85,6 +87,26 @@ class _Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
+class _Downsample(nn.Module):
+    """Pad right and bottom by one, then a 3×3 stride-2 conv (diffusers'
+    encoder downsample)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=0)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, resnets, downsample=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if downsample is not None:
+            self.downsamplers = nn.ModuleList([downsample])
+
+
 class _UpBlock(nn.Module):
     def __init__(self, resnets, upsample=None):
         super().__init__()
@@ -98,6 +120,38 @@ class _MidBlock(nn.Module):
         super().__init__()
         self.resnets = nn.ModuleList([_Resnet(ch, ch, groups), _Resnet(ch, ch, groups)])
         self.attentions = nn.ModuleList([_MidAttention(ch, groups)])
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        g = cfg.norm_num_groups
+        chs = cfg.block_out_channels
+        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList()
+        ch = chs[0]
+        for i, out in enumerate(chs):
+            resnets = []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(_Resnet(ch, out, g))
+                ch = out
+            self.down_blocks.append(
+                _DownBlock(resnets, _Downsample(ch) if i < len(chs) - 1 else None))
+        self.mid_block = _MidBlock(ch, g)
+        self.conv_norm_out = nn.GroupNorm(g, ch, eps=1e-6)
+        self.conv_out = nn.Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            for res in block.resnets:
+                h = res(h)
+            if hasattr(block, "downsamplers"):
+                h = block.downsamplers[0](h)
+        h = self.mid_block.resnets[0](h)
+        h = self.mid_block.attentions[0](h)
+        h = self.mid_block.resnets[1](h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -132,13 +186,33 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decode half of the SD VAE; latents and images are NHWC."""
+    """The SD VAE; latents and images are NHWC."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
         self.decoder = Decoder(cfg)
+
+    def encode_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, H, W, 3) images in about [-1, 1] → the UNSCALED latent
+        distribution (mean, logvar), each (B, H/8, W/8, 4), logvar clipped to
+        [-30, 20]; the latent-cache format."""
+        dtype = self.quant_conv.weight.dtype
+        h = self.quant_conv(self.encoder(x.to(dtype).permute(0, 3, 1, 2).contiguous()))
+        mean, logvar = h.permute(0, 2, 3, 1).chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Latents scaled by `scaling_factor`: a sample mean + exp(logvar/2)·eps
+        of the diagonal Gaussian with standard normals `eps` (B, H/8, W/8, 4),
+        or its mean without them."""
+        mean, logvar = self.encode_moments(x)
+        if eps is not None:
+            mean = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+        return mean * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, h, w, 4) scaled latents → (B, 8h, 8w, 3) images in about [-1, 1]."""

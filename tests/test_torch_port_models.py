@@ -166,17 +166,23 @@ def test_vae_decode_matches_jax():
 
 
 def test_vae_decoder_loads_diffusers_state_dict():
+    """The whole diffusers VAE state dict loads by name; the decoder and the
+    encoder's moments agree with the diffusers-layout ground truth."""
     torch.manual_seed(0)
     mini = MiniVAE(VAEConfig.tiny()).eval()
     vae = AutoencoderKL(VAEConfig.tiny()).eval()
-    sd = {k: v for k, v in mini.state_dict().items()
-          if k.startswith(("decoder.", "post_quant_conv."))}
-    vae.load_state_dict(sd, strict=True)
-    z = torch.randn(1, 4, 8, 8, generator=torch.Generator().manual_seed(1))
+    vae.load_state_dict(mini.state_dict(), strict=True)
+    g = torch.Generator().manual_seed(1)
+    z = torch.randn(1, 4, 8, 8, generator=g)
+    x = torch.randn(1, 3, 16, 16, generator=g)
     with torch.no_grad():
         want = mini.decode(z / VAEConfig.tiny().scaling_factor)
         got = vae.decode(z.permute(0, 2, 3, 1))
+        want_moments = mini.encode_moments(x)
+        got_moments = vae.encode_moments(x.permute(0, 2, 3, 1))
     torch.testing.assert_close(got.permute(0, 3, 1, 2), want, rtol=RTOL, atol=ATOL)
+    for g_, w_ in zip(got_moments, want_moments):
+        torch.testing.assert_close(g_.permute(0, 3, 1, 2), w_, rtol=RTOL, atol=ATOL)
 
 
 def test_random_init_scales_like_the_jax_convention():

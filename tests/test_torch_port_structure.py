@@ -121,8 +121,8 @@ def test_kernel_wrapper_routes_cpu_tensors_to_plain_version_without_building(mon
     def no_build(*a, **k):
         raise AssertionError("a CPU tensor must not build or load the CUDA kernel")
 
-    monkeypatch.setattr(fa, "build_kernel", no_build)
-    monkeypatch.setattr(fa, "_library", no_build)
+    monkeypatch.setattr(fa, "build_kernels", no_build)
+    monkeypatch.setattr(fa, "_fn", no_build)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 16, 3, 64, generator=g) for _ in range(3))
     gate = torch.rand(2, 3, generator=g)
@@ -135,9 +135,9 @@ def test_kernel_wrapper_routes_cpu_tensors_to_plain_version_without_building(mon
 
 @pytest.mark.parametrize("fails", [False, True])
 def test_kernel_build_runs_nvcc_per_source_and_caches_by_content(tmp_path, monkeypatch, fails):
-    """The build drives nvcc (here a stand-in script) on the kernel source
+    """The build drives nvcc (here a stand-in script) on each kernel source
     into the build directory, keeps its report, reuses an up-to-date library,
-    and raises with the compiler's output when the compile fails."""
+    and raises with the compiler's output when a compile fails."""
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'ptxas info    : Used 1 registers'\n"
                     + ("echo 'error: boom'; exit 2\n" if fails else
@@ -147,20 +147,28 @@ def test_kernel_build_runs_nvcc_per_source_and_caches_by_content(tmp_path, monke
     monkeypatch.setattr(fa, "BUILD_DIR", tmp_path / "build")
     if fails:
         with pytest.raises(RuntimeError, match="boom"):
-            fa.build_kernel()
-        assert not fa._library_path().exists()
+            fa.build_kernels()
+        assert not any(fa._library_path(s).exists() for s in fa.SOURCES)
         return
-    assert fa.build_kernel() >= 0.0
-    lib = fa._library_path()
-    assert lib.parent == tmp_path / "build" and lib.read_text() == "lib\n"
-    assert "registers" in (tmp_path / "build" / "gated_flash_fwd.ptxas.txt").read_text()
-    assert fa.build_kernel() is None
+    seconds = fa.build_kernels()
+    assert sorted(seconds) == ["gated_flash_bwd", "gated_flash_fwd"]
+    assert all(t >= 0.0 for t in seconds.values())
+    for source in fa.SOURCES:
+        lib = fa._library_path(source)
+        assert lib.parent == tmp_path / "build" and lib.read_text() == "lib\n"
+        assert "registers" in (tmp_path / "build" / f"{source.stem}.ptxas.txt").read_text()
+    assert all(t is None for t in fa.build_kernels().values())
 
 
 def test_kernel_wrapper_rejects_other_devices():
     q = torch.empty(1, 4, 1, 64, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fa.gated_flash_attention(q, q, q)
+    lse = torch.empty(1, 4, device="meta")
+    for call in (lambda: fa.gated_flash_attention(q, q, q),
+                 lambda: fa.gated_flash_forward_lse(q, q, q),
+                 lambda: fa.gated_flash_bwd_dq(q, q, q, None, q, lse, q),
+                 lambda: fa.gated_flash_bwd_dkv(q, q, q, None, lse, lse, q)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
 
 
 @pytest.mark.parametrize("override", [dict(fused_norms=True), dict(fused_norm_conv=True),
