@@ -49,13 +49,53 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   dropped, a planted fault, it must read below); seconds per
                   step, samples/s, stage times,
                   peak memory, and one step under torch.profiler;
+  9. fused-norm kernels — one-pass GroupNorm(+SiLU), GroupNorm→SiLU→conv3x3
+                  and GroupNorm→linear against their plain versions run in f32
+                  (TF32 off for matmuls and cuDNN) on the same bf16 inputs, at
+                  every distinct shape the SD-2.1 U-Net gives them at 256px
+                  with B_eff = 16 (read off the U-Net with hooks), plus the
+                  512px level-0 shapes (one slab there exceeds shared memory)
+                  and the output head (C_out = 4), and the conv and the linear
+                  kernel at the same shapes with the train step's B = 64 too
+                  (phase 11 launches them there); gate none, soft and hard (a
+                  closed group): relative L2 per batch element <= FUSED_REL_L2,
+                  and planted faults (x-space padding, ungated statistics, a
+                  dropped tap, the other norm's eps, an uncentred variance, a
+                  SiLU too many), emulated in plain torch, must read above it;
+                  timed beside the bound, the plain version and the library
+                  chain (F.group_norm + F.silu + F.conv2d / F.linear);
+ 10. fused U-Net — the full-width U-Net of phase 4 under `fused_norms`, then
+                  under `fused_norm_conv`, same weights, against an f32 U-Net
+                  (<= FUSED_UNET_REL_L2, with the unfused bf16 reading beside it)
+                  and against the unfused bf16 one; planted faults must read
+                  above the limit; 60, and 45 + 16, launches a forward, and no
+                  fused op is handed an activation it must convert to the
+                  layout its kernel reads;
+ 11. fused serving and training — one routed 256px call under `fused_norms`;
+                  under `fused_norm_conv` one warm-up and two timed calls in
+                  turns with the unfused pipeline (finite images in [0, 1],
+                  1125 + 400 launches a call), then one pretrain and one
+                  codebook step of the stage-1 trainer at B = 64 (finite
+                  losses, trainables changed, 90 conv and 32 linear launches
+                  a step) and the step's hypernet and codebook grads against
+                  the unfused step (cosine per leaf > FUSED_GRAD_COS), and the
+                  U-Net's d loss / d arch per gate site against the unfused
+                  U-Net's (with the fused conv op's gate gradient dropped, a
+                  planted fault, the resnet sites must read below the limit);
 then a `kernels` JSON line and, last, the device JSON line.
+
+Kernel and library times (`ms`, `library_ms`) are device times: the launches
+are captured into a CUDA graph whose replay is timed (`device_ms`). The same
+calls issued eagerly (`eager_ms`, `library_eager_ms`) read the larger of the
+device's time and the host's pace.
 
 Weights and inputs are random, from fixed seeds. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -89,6 +129,15 @@ DGATE_REL = 5e-2     # |dgate - reference| / RMS over the batch of the head's dg
 DEPTH_ORDER = (-1, -2, 0, 1, -3, -4, 2, 3, -5, -6, 4, 5, -7, 6)
 TRAIN_STEPS = 5      # one pretrain step, then codebook steps
 GRAD_COS = 0.999     # per-leaf cosine of kernel-path grads vs plain attention
+# phases 9-11: the fused-norm kernels; limits between the sound readings and
+# the planted faults' (PERF.md)
+PEAK_F32_FLOPS = 67e12    # H100 SXM f32 outside the tensor cores (GroupNorm's arithmetic)
+FUSED_REL_L2 = 1e-2       # per batch element, kernel vs its f32 plain version
+FUSED_B = 16              # B_eff of a 256px request of 8 prompts
+# a fused U-Net's output against the f32 U-Net's: a sound path reads 0.0133-0.0136,
+# as the unfused bf16 one (0.0144); the planted faults 0.0227 and 0.0322 (PERF.md)
+FUSED_UNET_REL_L2 = 2e-2
+FUSED_GRAD_COS = 0.99     # per-leaf cosine of the fused step's grads vs the unfused step's
 STEPS = 25
 GUIDANCE = 7.5
 # (prompts, resolution) per request; the first request of each resolution
@@ -110,7 +159,8 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one call, from CUDA events around `iters` calls."""
+    """Mean time of one call issued eagerly, from CUDA events around `iters`
+    calls: the larger of the device's time and the host's pace of issuing."""
     import torch
     for _ in range(warmup):
         fn()
@@ -119,6 +169,32 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call: `iters` calls are captured into one CUDA graph
+    and a replay of it is timed with CUDA events, so that the host's pace of
+    issuing launches (the wrapper's checks, ctypes, PyTorch's dispatcher) is
+    not in the reading, as it is in `time_ms` for a kernel of a few
+    microseconds. The calls run back to back on the same inputs: a small
+    input stays in the L2 cache, and such a reading can lie below the bound
+    taken from the memory rate."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -225,11 +301,21 @@ def check_attention_kernel(device):
             if gate_name == "soft":
                 gq, gk, gv = (t * soft[:, None, :, None].bfloat16() for t in (q, k, v))
                 n_iter = 20 if s_q * s_kv < 2 ** 22 else 10
-                row["ms"] = time_ms(lambda: gated_flash_attention(q, k, v, soft), n_iter)
+
+                def kernel():
+                    return gated_flash_attention(q, k, v, soft)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        gq.transpose(1, 2), gk.transpose(1, 2), gv.transpose(1, 2))
+
+                # device times (`device_ms`), and the same calls issued eagerly
+                row["ms"] = device_ms(kernel, n_iter)
+                row["eager_ms"] = time_ms(kernel, n_iter)
                 row["plain_ms"] = time_ms(lambda: gated_attention_reference(q, k, v, soft),
                                           max(n_iter // 4, 2))
-                row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                    gq.transpose(1, 2), gk.transpose(1, 2), gv.transpose(1, 2)), n_iter)
+                row["library_ms"] = device_ms(library, n_iter)
+                row["library_eager_ms"] = time_ms(library, n_iter)
                 flop_ms = attention_flops(b, h, s_q, s_kv) / PEAK_BF16_FLOPS * 1e3
                 byte_ms = attention_bytes(b, h, s_q, s_kv, 2) / PEAK_BYTES * 1e3
                 row["bound_ms"] = max(flop_ms, byte_ms)
@@ -379,21 +465,26 @@ def build_pipeline(unet, device, gen):
     return pipe, mpnet.eval()
 
 
-def serve(pipe, mpnet, device):
+def serve(pipe, mpnet, device, calls=SERVING_CALLS, per_forward=None, seed=SEED + 2,
+          phase="serving"):
+    """Routed requests through `pipe`, one per entry of `calls`; every launch
+    count is set to 0 first. `per_forward`: the launches each kernel must show
+    per U-Net forward (default: 32 of the lse-free attention forward, no
+    other). Returns the rows and the launch counts of the whole run."""
     import torch
     from diffusion_pruning_tpu_torch.models.text_encoders import mean_pool
-    from diffusion_pruning_tpu_torch.ops.flash_attention import gated_flash_attention
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    per_forward = {"gated_flash_fwd": 32, **(per_forward or {})}
+    gen = torch.Generator(device=device).manual_seed(seed)
     results = []
-    gated_flash_attention.launches = 0
-    for call, (b, res) in enumerate(SERVING_CALLS):
+    reset_launch_counts()
+    for call, (b, res) in enumerate(calls):
         ids = torch.randint(0, 49408, (b, 77), device=device, generator=gen)
         neg = torch.randint(0, 49408, (b, 77), device=device, generator=gen)
         mp_ids = torch.randint(0, 30527, (b, 128), device=device, generator=gen)
         lengths = torch.randint(8, 129, (b, 1), device=device, generator=gen)
         mask = (torch.arange(128, device=device)[None, :] < lengths).long()
-        before = gated_flash_attention.launches
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -403,10 +494,12 @@ def serve(pipe, mpnet, device):
                                        height=res, width=res)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = gated_flash_attention.launches - before
-        row = {"phase": "serving", "call": call, "prompts": b, "resolution": res,
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        launches = counts["gated_flash_fwd"]
+        row = {"phase": phase, "call": call, "prompts": b, "resolution": res,
                "steps": STEPS, "guidance": GUIDANCE, "seconds": seconds,
                "images_per_sec": b / seconds, "launches": launches,
+               "launches_by_kernel": counts,
                "expert_indices": indices.tolist(),
                "resource_ratios": [round(float(r), 4) for r in ratios],
                "image_min": float(images.min()), "image_max": float(images.max())}
@@ -417,10 +510,11 @@ def serve(pipe, mpnet, device):
             fail(f"images not finite in [0, 1]: {row}")
         if not bool(((indices >= 0) & (indices < pipe.quantizer.n_e)).all()):
             fail(f"expert indices out of range: {row['expert_indices']}")
-        if launches != 32 * STEPS:
-            fail(f"expected 800 kernel launches per {STEPS}-step call, got {launches}")
+        want = {k: STEPS * per_forward.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"expected {want} kernel launches per {STEPS}-step call, got {counts}")
         results.append(row)
-    return results, gated_flash_attention.launches
+    return results, launch_counts()
 
 
 def _category(name: str) -> str:
@@ -645,31 +739,39 @@ def check_training_kernels(device):
 
 
 def time_training_kernels(q, k, v, do, gate, o, lse):
-    """CUDA-event times of the three training kernels at one shape, of their
-    plain versions (bf16 inputs, as a CPU-less caller would run them), and of
-    PyTorch's SDPA on pre-masked bf16 q/k/v: its forward under autograd
-    (which keeps the lse) and its backward (dq, dk, dv; no dgate)."""
+    """Device times (`device_ms`) of the three training kernels at one shape
+    and of PyTorch's SDPA on pre-masked bf16 q/k/v: its forward under autograd
+    (which keeps the lse) and its backward (dq, dk, dv; no dgate), taken as a
+    forward and backward replayed together less the forward alone. The same
+    calls issued eagerly are under `*_eager_ms`. The plain versions (bf16
+    inputs, as a caller without the kernels would run them) are timed eagerly
+    by CUDA events."""
     import torch
     import torch.nn.functional as F
     from diffusion_pruning_tpu_torch.ops import flash_attention as fa
 
     n = 10 if q.shape[1] * k.shape[1] >= 2 ** 20 else 20
     _, delta, _ = fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do)
-    out = {"fwd_lse_ms": time_ms(lambda: fa.gated_flash_forward_lse(q, k, v, gate), n),
-           "dq_ms": time_ms(lambda: fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do), n),
-           "dkv_ms": time_ms(lambda: fa.gated_flash_bwd_dkv(q, k, v, gate, lse, delta, do), n),
-           "fwd_lse_plain_ms": time_ms(
-               lambda: fa.gated_attention_reference_lse(q, k, v, gate), 3, warmup=1),
-           "bwd_plain_ms": time_ms(
-               lambda: fa.gated_flash_backward_reference(q, k, v, gate, o, lse, do), 3,
-               warmup=1)}
     g = gate[:, None, :, None].to(q.dtype)
     gq, gk, gv = ((t * g).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    out["fwd_lse_library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(gq, gk, gv), n)
-    lib_out = F.scaled_dot_product_attention(gq, gk, gv)
     gdo = do.transpose(1, 2)
-    out["bwd_library_ms"] = time_ms(
-        lambda: torch.autograd.grad(lib_out, (gq, gk, gv), gdo, retain_graph=True), n)
+    calls = {"fwd_lse": lambda: fa.gated_flash_forward_lse(q, k, v, gate),
+             "dq": lambda: fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do),
+             "dkv": lambda: fa.gated_flash_bwd_dkv(q, k, v, gate, lse, delta, do),
+             "fwd_lse_library": lambda: F.scaled_dot_product_attention(gq, gk, gv),
+             "step_library": lambda: torch.autograd.grad(
+                 F.scaled_dot_product_attention(gq, gk, gv), (gq, gk, gv), gdo)}
+    out = {}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = device_ms(fn, n)
+        out[f"{name}_eager_ms"] = time_ms(fn, n)
+    for key in ("ms", "eager_ms"):
+        out[f"bwd_library_{key}"] = (out.pop(f"step_library_{key}")
+                                     - out[f"fwd_lse_library_{key}"])
+    out["fwd_lse_plain_ms"] = time_ms(
+        lambda: fa.gated_attention_reference_lse(q, k, v, gate), 3, warmup=1)
+    out["bwd_plain_ms"] = time_ms(
+        lambda: fa.gated_flash_backward_reference(q, k, v, gate, o, lse, do), 3, warmup=1)
     return out
 
 
@@ -704,23 +806,38 @@ def trainables(mods):
             + [("codebook", mods.quantizer.embedding.weight)])
 
 
-def launch_counts():
+def kernel_wrappers():
+    """Every kernel wrapper of the port, by the name its launches are reported under."""
     from diffusion_pruning_tpu_torch.ops import flash_attention as fa
-    return {"gated_flash_fwd": fa.gated_flash_attention.launches,
-            "gated_flash_fwd_lse": fa.gated_flash_forward_lse.launches,
-            "gated_flash_bwd_dq": fa.gated_flash_bwd_dq.launches,
-            "gated_flash_bwd_dkv": fa.gated_flash_bwd_dkv.launches}
+    from diffusion_pruning_tpu_torch.ops import group_norm as gn
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    return {"gated_flash_fwd": fa.gated_flash_attention,
+            "gated_flash_fwd_lse": fa.gated_flash_forward_lse,
+            "gated_flash_bwd_dq": fa.gated_flash_bwd_dq,
+            "gated_flash_bwd_dkv": fa.gated_flash_bwd_dkv,
+            "group_norm_silu": gn.group_norm_silu_forward,
+            "norm_conv3x3": nc.norm_conv3x3,
+            "norm_linear": nc.norm_linear}
+
+
+ATTENTION_PER_STEP = {"gated_flash_fwd": 32, "gated_flash_fwd_lse": 32,
+                      "gated_flash_bwd_dq": 32, "gated_flash_bwd_dkv": 32}
+
+
+def launch_counts():
+    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
 
 
 def reset_launch_counts():
-    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
-    for wrapper in fa.KERNEL_WRAPPERS:
+    for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
 
 
-def train(mods, cfg, opt, device):
-    """TRAIN_STEPS full-width steps from random pixels, ids and MPNet
-    embeddings: per-step seconds, stage times and launches, peak memory."""
+def train(mods, cfg, opt, device, n_steps=TRAIN_STEPS, per_step=None, phase="train_step"):
+    """`n_steps` full-width steps (one pretrain step, then codebook steps) from
+    random pixels, ids and MPNet embeddings: per-step seconds, stage times and
+    launches, peak memory. `per_step`: the launches each kernel must show in
+    a step (default: 32 of each attention kernel, no other)."""
     import torch
     from diffusion_pruning_tpu_torch.training import make_pruner_step
 
@@ -736,8 +853,9 @@ def train(mods, cfg, opt, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    per_step = {**ATTENTION_PER_STEP, **(per_step or {})}
     rows = []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         pretrain = i == 0
         counts = launch_counts()
         marks = [("start", torch.cuda.Event(enable_timing=True))]
@@ -753,7 +871,7 @@ def train(mods, cfg, opt, device):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: v - counts[k] for k, v in launch_counts().items()}
-        row = {"phase": "train_step", "step": i, "pretrain": pretrain, "batch": b,
+        row = {"phase": phase, "step": i, "pretrain": pretrain, "batch": b,
                "resolution": res, "seconds": seconds,
                "stages_ms": {name: marks[j - 1][1].elapsed_time(ev)
                              for j, (name, ev) in enumerate(marks) if j},
@@ -764,19 +882,19 @@ def train(mods, cfg, opt, device):
         terms = [k for k in metrics if k != "skipped"]
         if row["skipped"] or not all(math.isfinite(row[k]) for k in terms):
             fail(f"train step {i} gave a non-finite loss or was skipped: {row}")
-        if launches != {k: 32 for k in launches}:
-            fail(f"expected 32 launches of each attention kernel per step: {launches}")
+        if launches != {k: per_step.get(k, 0) for k in launches}:
+            fail(f"expected {per_step} launches per step, got {launches}")
         rows.append(row)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     changed = {name: not torch.equal(p.detach(), before[name]) for name, p in trainables(mods)}
     if not (all(changed.values())):
-        fail(f"trainables that did not change over {TRAIN_STEPS} steps: "
+        fail(f"trainables that did not change over {n_steps} steps: "
              f"{[n for n, c in changed.items() if not c]}")
     warm = [r["seconds"] for r in rows[1:]]
     median = statistics.median(warm)
     stages = {name: statistics.median(r["stages_ms"][name] for r in rows[1:])
               for name in rows[-1]["stages_ms"]}
-    summary = {"phase": "train_summary", "batch": b, "resolution": res,
+    summary = {"phase": phase.replace("step", "summary"), "batch": b, "resolution": res,
                "seconds_per_step_median_warm": median, "seconds_warm": warm,
                "samples_per_sec": b / median, "stages_ms_median_warm": stages,
                "peak_memory_gib": peak_gib, "remat": mods.unet.cfg.remat,
@@ -897,11 +1015,694 @@ def training_entry(rows, kind: str, plain_key: str, library_key: str) -> dict:
     ops = sum(r[f"{kind}_bound_ms"] * r["sites_per_256px_forward"] for r in rows
               if r[f"{kind}_bound_by"] == "operations")
     bound = total(f"{kind}_bound_ms")
-    return {"ms": total(f"{kind}_ms"), "plain_ms": total(plain_key), "bound_ms": bound,
+    return {"ms": total(f"{kind}_ms"), "eager_ms": total(f"{kind}_eager_ms"),
+            "plain_ms": total(plain_key), "bound_ms": bound,
             "bound_by": "operations" if ops >= bound / 2 else "bytes",
             "library_ms": total(library_key),
+            "library_eager_ms": total(library_key.replace("_ms", "_eager_ms")),
             "shapes": "the 32 attention sites of one student U-Net pass of the stage-1 "
                       "step at 256px, B = 64, bf16, soft gates"}
+
+
+# ---------------------------------------------------------------- phase 9
+
+def fused_twin(unet, **flags):
+    """A U-Net under the given fused flags on the same parameter tensors."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    with torch.device("meta"):
+        twin = GatedUNet(dataclasses.replace(unet.cfg, **flags))
+    twin.load_state_dict(unet.state_dict(), assign=True)
+    return twin.requires_grad_(False).eval()
+
+
+def unet_inputs(unet, device, seed=SEED + 1, b=FUSED_B // 2):
+    """The inputs of phase 4: B_eff = 2·b latents, timesteps, text states, b arch rows."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cfg = unet.cfg
+    x = torch.randn(2 * b, cfg.sample_size, cfg.sample_size, 4, device=device, generator=gen)
+    t = torch.randint(0, 1000, (2 * b,), device=device, generator=gen)
+    ehs = torch.randn(2 * b, 77, cfg.cross_attention_dim, device=device, generator=gen)
+    return x, t, ehs, random_arch(unet.spec, b, gen)
+
+
+def fused_sites(unet, device):
+    """The shapes the U-Net gives the fused-norm ops in one 256px forward, read
+    off its resnets, transformers and output head with forward hooks:
+    {"gn": {(C, H, W, silu, eps): sites}, "conv": {(C_in, C_out, H, W, gated):
+    sites}, "linear": {(S, C): sites}}."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.blocks import (GatedResnetBlock,
+                                                                GatedTransformer2D)
+    sites = {k: collections.Counter() for k in ("gn", "conv", "linear")}
+
+    def resnet_hook(block, args, kwargs):
+        x = args[0]
+        gated = (args[2] if len(args) > 2 else kwargs.get("gate")) is not None
+        cin, (h, w), cout = x.shape[1], x.shape[2:], block.conv1.out_channels
+        eps = block.norm1.eps
+        sites["gn"][(cin, h, w, True, eps)] += 1
+        sites["gn"][(cout, h, w, True, eps)] += 1
+        sites["conv"][(cin, cout, h, w, False)] += 1
+        sites["conv"][(cout, cout, h, w, gated)] += 1
+
+    def transformer_hook(block, args, kwargs):
+        c, h, w = args[0].shape[1:]
+        sites["gn"][(c, h, w, False, block.norm.eps)] += 1
+        sites["linear"][(h * w, c)] += 1
+
+    def head_hook(conv, args):
+        cin, h, w = args[0].shape[1:]
+        sites["conv"][(cin, conv.out_channels, h, w, False)] += 1
+
+    hooks = [unet.conv_out.register_forward_pre_hook(head_hook)]
+    for m in unet.modules():
+        if isinstance(m, GatedResnetBlock):
+            hooks.append(m.register_forward_pre_hook(resnet_hook, with_kwargs=True))
+        elif isinstance(m, GatedTransformer2D):
+            hooks.append(m.register_forward_pre_hook(transformer_hook, with_kwargs=True))
+    x, t, ehs, arch = unet_inputs(unet, device)
+    with torch.inference_mode():
+        unet(x, t, ehs, arch=arch)
+    for hook in hooks:
+        hook.remove()
+    return sites
+
+
+# the 512px level-0 shapes (B_eff = 4 for 2 prompts); none is a site of the 256px forward
+GN_512 = ((320, 64, 64, True, 1e-5), (640, 64, 64, True, 1e-5), (960, 64, 64, True, 1e-5),
+          (320, 64, 64, False, 1e-6))
+CONV_512 = ((320, 320, 64, 64, True), (960, 320, 64, 64, False), (640, 320, 64, 64, False),
+            (320, 4, 64, 64, False))
+LINEAR_512 = ((4096, 320),)
+
+
+def per_sample_rel_l2(out, ref):
+    """||out - ref|| / ||ref|| for each batch element."""
+    dims = tuple(range(1, out.dim()))
+    err = (out.float() - ref.float()).square().sum(dim=dims).sqrt()
+    return err / ref.float().square().sum(dim=dims).sqrt().clamp_min(1e-30)
+
+
+def fused_inputs(b, c, h, w, gen, groups=32):
+    """A bf16 channels_last activation whose groups differ in scale over three
+    decades (std 1e-3 to 1, mean half a std), so that the epsilon matters in
+    some of them; a GroupNorm affine; a soft and a hard per-channel gate (the
+    hard one closes the first group of every row and ~40 % of the others)."""
+    import torch
+    device = gen.device
+    std = 10 ** (-3 * torch.rand(b, groups, device=device, generator=gen))
+    std_c = std.repeat_interleave(c // groups, dim=1)[:, :, None, None]
+    x = ((torch.randn(b, c, h, w, device=device, generator=gen) + 0.5) * std_c).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    scale = 1.0 + 0.1 * torch.randn(c, device=device, generator=gen)
+    bias = 0.1 * torch.randn(c, device=device, generator=gen)
+    soft = torch.rand(b, groups, device=device, generator=gen)
+    hard = (torch.rand(b, groups, device=device, generator=gen) < 0.6).float()
+    hard[:, 0] = 0.0
+    expand = lambda g: g.repeat_interleave(c // groups, dim=1)  # noqa: E731
+    return x, scale, bias, {"none": None, "soft": expand(soft), "hard": expand(hard)}
+
+
+def bound_ms(flops: float, peak_flops: float, nbytes: float):
+    flop_ms, byte_ms = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
+
+
+class FusedCheck:
+    """Readings of one fused-norm kernel over its cases: the worst sound
+    reading, the least reading of each planted fault, and the timed rows.
+    In a timed row `ms` and `library_ms` are device times (`device_ms`),
+    `eager_ms` and `library_eager_ms` the same calls issued eagerly
+    (`time_ms`: the larger of the host's pace and the device's), `op_ms` the
+    public op issued eagerly, phase 1 included."""
+
+    def __init__(self, name):
+        self.name = name
+        self.worst = {"rel_l2": 0.0, "max_abs_err": 0.0, "rel_l2_vs_unfused": 0.0}
+        self.least_fault = {}
+        self.rows = []
+        self.batches = set()
+
+    def take(self, row, out, ref, unfused, faults):
+        """Hold one case to the limit and its planted faults above it."""
+        import torch
+        row.update(phase="fused_kernel_check", kernel=self.name,
+                   rel_l2=per_sample_rel_l2(out, ref).max().item(),
+                   rel_l2_vs_unfused=per_sample_rel_l2(out, unfused).max().item(),
+                   max_abs_err=(out.float() - ref).abs().max().item(),
+                   ref_mean_abs=ref.abs().mean().item(),
+                   planted_faults={k: per_sample_rel_l2(v, ref).max().item()
+                                   for k, v in faults.items()})
+        sound = (bool(torch.isfinite(out).all()) and row["rel_l2"] <= FUSED_REL_L2
+                 and row["rel_l2_vs_unfused"] <= FUSED_REL_L2)
+        if not sound:
+            emit(row)
+            fail(f"{self.name} disagrees with its plain version: {row}")
+        caught = [k for k, v in row["planted_faults"].items() if not v > FUSED_REL_L2]
+        if caught:
+            emit(row)
+            fail(f"planted faults read within the limit {FUSED_REL_L2} ({caught}): {row}")
+        self.batches.add(row["b"])
+        for key in self.worst:
+            self.worst[key] = max(self.worst[key], row[key])
+        for key, value in row["planted_faults"].items():
+            self.least_fault[key] = min(self.least_fault.get(key, math.inf), value)
+
+    def entry(self):
+        """The kernel's times summed over the sites of one 256px forward."""
+        def total(key):
+            return sum(r[key] * r["sites"] for r in self.rows)
+        ops = sum(r["bound_ms"] * r["sites"] for r in self.rows if r["bound_by"] == "operations")
+        return {"ms": total("ms"), "eager_ms": total("eager_ms"), "op_ms": total("op_ms"),
+                "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
+                "library_eager_ms": total("library_eager_ms"), "bound_ms": total("bound_ms"),
+                "bound_by": "operations" if ops >= total("bound_ms") / 2 else "bytes",
+                "launches_per_forward": sum(r["sites"] for r in self.rows),
+                "max_abs_err": self.worst["max_abs_err"], "rel_l2_worst": self.worst["rel_l2"]}
+
+
+def check_group_norm_kernel(sites, device, check):
+    import torch
+    import torch.nn.functional as F
+    from diffusion_pruning_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    cases = [(FUSED_B, key, n) for key, n in sorted(sites.items())] + [(4, k, 0) for k in GN_512]
+    for b, (c, h, w, silu, eps), n in cases:
+        x0, scale, bias, gates = fused_inputs(b, c, h, w, gen)
+        for gate_name, gate_c in gates.items():
+            x = x0 if gate_c is None else x0 * gate_c[:, :, None, None].bfloat16()
+            out = gn.group_norm_silu_forward(x, scale, bias, 32, eps, silu)
+            xf = x.float()
+            ref = gn.group_norm_silu_plain(xf, scale, bias, 32, eps, silu)
+            unfused = gn.group_norm_silu_unfused(xf, scale, bias, 32, eps, silu)
+            # the other norm's eps; a variance that forgets mean²
+            xg = xf.reshape(b, 32, c // 32, h * w)
+            uncentred = (xg - xg.mean(dim=(2, 3), keepdim=True)) * torch.rsqrt(
+                (xg * xg).mean(dim=(2, 3), keepdim=True) + eps)
+            uncentred = uncentred.reshape(x.shape) * scale[None, :, None, None] \
+                + bias[None, :, None, None]
+            faults = {"other_eps": gn.group_norm_silu_plain(xf, scale, bias, 32,
+                                                            1e-6 if eps > 5e-6 else 1e-5, silu),
+                      "uncentred_variance": F.silu(uncentred) if silu else uncentred}
+            row = {"b": b, "c": c, "h": h, "w": w, "silu": silu, "eps": eps, "gate": gate_name,
+                   "sites": n}
+            check.take(row, out, ref, unfused, faults)
+            if gate_name == "hard":  # the closed group: variance 0, act(bias)
+                want = bias[: c // 32]
+                want = want * torch.sigmoid(want) if silu else want
+                row["closed_group_max_abs_err"] = (
+                    out[:, : c // 32].float() - want[None, :, None, None]).abs().max().item()
+                if not row["closed_group_max_abs_err"] <= 1e-2:
+                    emit(row)
+                    fail(f"a closed group does not give act(bias): {row}")
+            if gate_name == "none":
+                sb, bb = scale.bfloat16(), bias.bfloat16()
+                act = F.silu if silu else (lambda y: y)
+                iters = 20
+
+                def kernel():
+                    return gn.group_norm_silu_forward(x, scale, bias, 32, eps, silu)
+
+                def library():
+                    return act(F.group_norm(x, 32, sb, bb, eps))
+
+                row["ms"] = device_ms(kernel, iters)
+                row["eager_ms"] = time_ms(kernel, iters)
+                row["op_ms"] = time_ms(
+                    lambda: gn.group_norm_silu(x, scale, bias, 32, eps, silu), iters)
+                row["plain_ms"] = time_ms(
+                    lambda: gn.group_norm_silu_plain(x, scale, bias, 32, eps, silu), 3, warmup=1)
+                row["library_ms"] = device_ms(library, iters)
+                row["library_eager_ms"] = time_ms(library, iters)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    10.0 * x.numel(), PEAK_F32_FLOPS, 4.0 * x.numel() + 8.0 * c)
+                check.rows.append(row)
+            emit(row)
+        del x0, x, out, xf, ref, unfused, xg, uncentred, faults
+    torch.cuda.empty_cache()
+
+
+def check_norm_conv_kernel(sites, device, check):
+    import torch
+    import torch.nn.functional as F
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    eps = 1e-5
+    cases = ([(FUSED_B, key, n, True) for key, n in sorted(sites.items())]
+             + [(4, key, 0, True) for key in CONV_512]
+             + [(TRAIN_B, key, 0, False) for key in sorted(sites)])
+    for b, (cin, cout, h, w, gated), n, timed in cases:
+        x, scale, bias, gates = fused_inputs(b, cin, h, w, gen)
+        weight = (torch.randn(cout, cin, 3, 3, device=device, generator=gen)
+                  * (9 * cin) ** -0.5).bfloat16()
+        cbias = 0.1 * torch.randn(cout, device=device, generator=gen)
+        packed = nc.pack_conv_weight(weight, torch.bfloat16)
+        xf, wf = x.float(), packed.float()
+        for gate_name, gate_c in gates.items():
+            a, bb = nc.affine_coeffs(x, scale, bias, 32, eps, gate_c)
+            out = nc.norm_conv3x3(x, a, bb, packed, cbias, True)
+            ref = nc.norm_conv3x3_plain(xf, a, bb, wf, cbias, True)
+            unfused = nc.norm_conv_unfused(xf, scale, bias, weight.float(), cbias, gate_c, 32,
+                                           eps, True)
+            # zero padding applied to x, before the affine and the activation
+            y_pad = nc.affine_act(F.pad(xf, (1, 1, 1, 1)), a, bb, True)
+            no_tap = wf.clone()
+            no_tap[:, 2, 2] = 0
+            a6, b6 = nc.affine_coeffs(x, scale, bias, 32, 1e-6, gate_c)
+            faults = {"x_space_padding": F.conv2d(y_pad, wf.permute(0, 3, 1, 2), cbias),
+                      "dropped_tap": nc.norm_conv3x3_plain(xf, a, bb, no_tap, cbias, True),
+                      "other_eps": nc.norm_conv3x3_plain(xf, a6, b6, wf, cbias, True)}
+            if gate_c is not None:  # the gate folded into a, the statistics of the ungated x
+                a0, b0 = nc.affine_coeffs(x, scale, bias, 32, eps, None)
+                faults["ungated_statistics"] = nc.norm_conv3x3_plain(xf, a0 * gate_c, b0, wf,
+                                                                     cbias, True)
+            row = {"b": b, "c_in": cin, "c_out": cout, "h": h, "w": w, "gate": gate_name,
+                   "site_gated": gated, "sites": n}
+            check.take(row, out, ref, unfused, faults)
+            if timed and gate_name == ("soft" if gated else "none"):
+                w_cl = weight.contiguous(memory_format=torch.channels_last)
+                sb, bb16, cb16 = scale.bfloat16(), bias.bfloat16(), cbias.bfloat16()
+                g4 = None if gate_c is None else gate_c[:, :, None, None].bfloat16()
+
+                def library():
+                    y = x if g4 is None else x * g4
+                    return F.conv2d(F.silu(F.group_norm(y, 32, sb, bb16, eps)), w_cl, cb16,
+                                    padding=1)
+
+                def kernel():
+                    return nc.norm_conv3x3(x, a, bb, packed, cbias, True)
+
+                iters, holder = 10, nc.PackedWeight()
+                row["ms"] = device_ms(kernel, iters)
+                row["eager_ms"] = time_ms(kernel, iters)
+                row["op_ms"] = time_ms(lambda: nc.group_norm_silu_conv3x3(
+                    x, scale, bias, weight, cbias, gate_c, 32, eps, True, packed=holder), iters)
+                row["plain_ms"] = time_ms(
+                    lambda: nc.norm_conv3x3_plain(x, a, bb, packed, cbias, True), 3, warmup=1)
+                row["library_ms"] = device_ms(library, iters)
+                row["library_eager_ms"] = time_ms(library, iters)
+                m = b * h * w
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2.0 * m * cout * 9 * cin, PEAK_BF16_FLOPS,
+                    2.0 * (m * cin + 9 * cin * cout + m * cout) + 8.0 * b * cin + 4.0 * cout)
+                check.rows.append(row)
+            emit(row)
+        del x, xf, wf, weight, packed, out, ref, unfused, y_pad, no_tap, faults
+        torch.cuda.empty_cache()
+
+
+def check_norm_linear_kernel(sites, device, check):
+    import torch
+    import torch.nn.functional as F
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    eps = 1e-6
+    cases = ([(FUSED_B, key, n, True) for key, n in sorted(sites.items())]
+             + [(4, key, 0, True) for key in LINEAR_512]
+             + [(TRAIN_B, key, 0, False) for key in sorted(sites)])
+    for b, (s_len, c), n, timed in cases:
+        x4, scale, bias, gates = fused_inputs(b, c, s_len, 1, gen)
+        x = x4[:, :, :, 0].transpose(1, 2).contiguous()         # (B, S, C) tokens
+        weight = (torch.randn(c, c, device=device, generator=gen) * c ** -0.5).bfloat16()
+        lbias = 0.1 * torch.randn(c, device=device, generator=gen)
+        xf, wf = x.float(), weight.float()
+        for gate_name, gate_c in gates.items():
+            a, bb = nc.affine_coeffs(x.transpose(1, 2), scale, bias, 32, eps, gate_c)
+            out = nc.norm_linear(x, a, bb, weight, lbias)
+            ref = nc.norm_linear_plain(xf, a, bb, wf, lbias)
+            unfused = nc.norm_linear_unfused(xf, scale, bias, wf, lbias, gate_c, 32, eps)
+            a5, b5 = nc.affine_coeffs(x.transpose(1, 2), scale, bias, 32, 1e-5, gate_c)
+            y = a[:, None, :] * xf + bb[:, None, :]
+            faults = {"other_eps": nc.norm_linear_plain(xf, a5, b5, wf, lbias),
+                      "silu_applied": F.linear(F.silu(y), wf, lbias)}
+            if gate_c is not None:
+                a0, b0 = nc.affine_coeffs(x.transpose(1, 2), scale, bias, 32, eps, None)
+                faults["ungated_statistics"] = nc.norm_linear_plain(xf, a0 * gate_c, b0, wf,
+                                                                    lbias)
+            row = {"b": b, "s": s_len, "c": c, "gate": gate_name, "sites": n}
+            check.take(row, out, ref, unfused, faults)
+            if timed and gate_name == "none":  # the U-Net's transformers pass no gate
+                sb, bb16, lb16 = scale.bfloat16(), bias.bfloat16(), lbias.bfloat16()
+                xc = x.transpose(1, 2)                           # (B, C, S), as F.group_norm reads it
+                iters = 20
+
+                def kernel():
+                    return nc.norm_linear(x, a, bb, weight, lbias)
+
+                def library():
+                    return F.linear(F.group_norm(xc, 32, sb, bb16, eps).transpose(1, 2), weight,
+                                    lb16)
+
+                row["ms"] = device_ms(kernel, iters)
+                row["eager_ms"] = time_ms(kernel, iters)
+                row["op_ms"] = time_ms(lambda: nc.group_norm_linear(
+                    x, scale, bias, weight, lbias, None, 32, eps), iters)
+                row["plain_ms"] = time_ms(
+                    lambda: nc.norm_linear_plain(x, a, bb, weight, lbias), 3, warmup=1)
+                row["library_ms"] = device_ms(library, iters)
+                row["library_eager_ms"] = time_ms(library, iters)
+                m = b * s_len
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2.0 * m * c * c, PEAK_BF16_FLOPS,
+                    2.0 * (2 * m * c + c * c) + 8.0 * b * c + 4.0 * c)
+                check.rows.append(row)
+            emit(row)
+    torch.cuda.empty_cache()
+
+
+def check_fused_kernels(unet, device):
+    """Phase 9: the three kernels at the shapes of the 256px forward (B_eff
+    16, timed) and the 512px extras (B_eff 4, timed); the conv and the linear
+    kernel, which the train step of phase 11 launches, at the same shapes with
+    the train step's batch of 64 as well (not timed). Returns {kernel name:
+    FusedCheck}."""
+    sites = fused_sites(unet, device)
+    emit({"phase": "fused_sites", "launches_per_forward": {k: sum(v.values())
+                                                           for k, v in sites.items()},
+          "distinct_shapes": {k: len(v) for k, v in sites.items()}})
+    checks = {name: FusedCheck(name) for name in ("group_norm_silu", "norm_conv3x3",
+                                                  "norm_linear")}
+    check_group_norm_kernel(sites["gn"], device, checks["group_norm_silu"])
+    check_norm_conv_kernel(sites["conv"], device, checks["norm_conv3x3"])
+    check_norm_linear_kernel(sites["linear"], device, checks["norm_linear"])
+    for name, check in checks.items():
+        emit({"phase": "fused_kernel_check_summary", "kernel": name, "limit": FUSED_REL_L2,
+              "batches": sorted(check.batches), "worst": check.worst, "least_planted_fault": check.least_fault,
+              "per_256px_forward": check.entry()})
+    return checks
+
+
+# ---------------------------------------------------------------- phase 10
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def layout_watch():
+    """Count the U-Net's calls of the fused ops, and those whose activation is
+    not yet in the layout the kernel reads: the public ops convert such an
+    input silently, one hidden pass over it a site."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet import blocks
+    seen = collections.Counter(calls=0, converted=0)
+
+    def watch(stack, name, dense):
+        real = getattr(blocks, name)
+
+        def op(x, *args, **kwargs):
+            seen["calls"] += 1
+            seen["converted"] += not dense(x)
+            return real(x, *args, **kwargs)
+
+        stack.enter_context(patched(blocks, name, op))
+
+    def channels_last(x):
+        return x.is_contiguous(memory_format=torch.channels_last)
+
+    with contextlib.ExitStack() as stack:
+        watch(stack, "group_norm_silu", channels_last)
+        watch(stack, "group_norm_silu_conv3x3", channels_last)
+        watch(stack, "group_norm_linear", torch.Tensor.is_contiguous)
+        yield seen
+
+
+def faulty_norm_conv(x, a, b, packed, conv_bias, silu):
+    """A planted fault: a conv kernel that pads x with zeros before the
+    affine and the activation (x-space padding), emulated in plain torch."""
+    import torch.nn.functional as F
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    y = nc.affine_act(F.pad(x, (1, 1, 1, 1)), a, b, silu).to(x.dtype)
+    return F.conv2d(y, packed.permute(0, 3, 1, 2), conv_bias.to(x.dtype))
+
+
+def faulty_group_norm(x, scale, bias, groups, eps, silu):
+    """A planted fault: a GroupNorm kernel whose variance forgets mean²,
+    emulated in plain torch."""
+    import torch
+    import torch.nn.functional as F
+    b, c = x.shape[:2]
+    xg = x.float().reshape(b, groups, c // groups, -1)
+    y = (xg - xg.mean(dim=(2, 3), keepdim=True)) * torch.rsqrt(
+        (xg * xg).mean(dim=(2, 3), keepdim=True) + eps)
+    y = y.reshape(x.shape) * scale[None, :, None, None] + bias[None, :, None, None]
+    y = F.silu(y) if silu else y
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def check_fused_unet(unet, device):
+    """Phase 10: the full-width U-Net under each fused flag against an f32
+    copy of itself and against the unfused bf16 forward, with launch counts,
+    forward times and the host's time to enqueue a forward."""
+    import copy
+    import torch
+    from diffusion_pruning_tpu_torch.ops import group_norm as gn
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    from diffusion_pruning_tpu_torch.ops.flash_attention import gated_attention_reference
+
+    x, t, ehs, arch = unet_inputs(unet, device)
+    twins = {"fused_norms": fused_twin(unet, fused_norms=True),
+             "fused_norm_conv": fused_twin(unet, fused_norm_conv=True)}
+    expected = {"fused_norms": {"group_norm_silu": 60},
+                "fused_norm_conv": {"norm_conv3x3": 45, "norm_linear": 16}}
+    faults = {"fused_norms": (gn, "group_norm_silu_forward", faulty_group_norm),
+              "fused_norm_conv": (nc, "norm_conv3x3", faulty_norm_conv)}
+
+    def forward_times(model):
+        ms = time_ms(lambda: model(x, t, ehs, arch=arch), 10)
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x, t, ehs, arch=arch)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return ms, sorted(enqueue)[2]
+
+    with torch.inference_mode():
+        f32 = copy.deepcopy(unet).float()
+        with unet_attention(gated_attention_reference):
+            ref = f32(x, t, ehs, arch=arch).float()
+        del f32
+        torch.cuda.empty_cache()
+        plain = unet(x, t, ehs, arch=arch).float()
+
+        def rel(a, b=ref):
+            return ((a - b).norm() / b.norm()).item()
+
+        row = {"phase": "fused_unet", "resolution": unet.cfg.sample_size * 8, "b_eff": x.shape[0],
+               "limit": FUSED_UNET_REL_L2, "unfused_rel_l2_vs_f32": rel(plain)}
+        # in turns: unfused, each fused flag, unfused again
+        row["unfused_forward_ms"], row["unfused_host_enqueue_ms"] = forward_times(unet)
+        for flag, twin in twins.items():
+            reset_launch_counts()
+            with layout_watch() as layout:
+                out = twin(x, t, ehs, arch=arch).float()
+            counts = {k: v for k, v in launch_counts().items() if k != "gated_flash_fwd"}
+            module, name, faulty = faults[flag]
+            with patched(module, name, faulty):
+                bad = twin(x, t, ehs, arch=arch).float()
+            ms, enqueue = forward_times(twin)
+            row[flag] = {"rel_l2_vs_f32": rel(out), "rel_l2_vs_unfused_bf16": rel(out, plain),
+                         "planted_fault": faulty.__name__,
+                         "planted_fault_rel_l2_vs_f32": rel(bad),
+                         "planted_fault_rel_l2_vs_unfused_bf16": rel(bad, plain),
+                         "launches_per_forward": {k: v for k, v in counts.items() if v},
+                         "fused_op_calls": layout["calls"],
+                         "fused_op_calls_that_converted_the_layout": layout["converted"],
+                         "finite": bool(torch.isfinite(out).all()),
+                         "forward_ms": ms, "host_enqueue_ms_median": enqueue}
+            want = {k: expected[flag].get(k, 0) for k in counts}
+            if counts != want:
+                emit(row)
+                fail(f"{flag}: expected {expected[flag]} launches per forward, got {counts}")
+            if layout["calls"] != sum(expected[flag].values()) or layout["converted"]:
+                emit(row)
+                fail(f"{flag}: {layout['converted']} of {layout['calls']} fused ops were handed "
+                     f"an activation in another layout than the kernel reads")
+        row["unfused_forward_ms_again"], _ = forward_times(unet)
+    row["packed_weights_mib"] = sum(
+        p._packed.numel() * p._packed.element_size() for m in twins["fused_norm_conv"].modules()
+        for p in (*getattr(m, "_packed", ()), getattr(m, "_packed_out", None))
+        if p is not None and p._packed is not None) / 2 ** 20
+    emit(row)
+    for flag in twins:
+        r = row[flag]
+        if not r["finite"] or not r["rel_l2_vs_f32"] <= FUSED_UNET_REL_L2:
+            fail(f"the U-Net under {flag} disagrees with the f32 U-Net: {r}")
+        if not r["planted_fault_rel_l2_vs_f32"] > FUSED_UNET_REL_L2:
+            fail(f"{flag}: the planted fault reads within the limit {FUSED_UNET_REL_L2}: {r}")
+    return twins, row
+
+
+# ---------------------------------------------------------------- phase 11
+
+def fused_pipeline(pipe, unet, device):
+    from diffusion_pruning_tpu_torch.pipelines import PruningPipeline
+    return PruningPipeline(unet, pipe.vae, pipe.text_encoder, pipe.hypernet, pipe.quantizer,
+                           device=device)
+
+
+def serve_fused(pipe, mpnet, twins, device):
+    """One routed 256px request under `fused_norms`; under `fused_norm_conv`
+    a warm-up and two timed requests, in turns with the unfused pipeline on
+    the same prompts. Returns the summary row and the launch counts."""
+    call = ((8, 256),)
+    _, counts_gn = serve(fused_pipeline(pipe, twins["fused_norms"], device), mpnet, device, call,
+                         {"group_norm_silu": 60}, SEED + 11, "serving_fused_norms")
+    fused = fused_pipeline(pipe, twins["fused_norm_conv"], device)
+    per_forward = {"norm_conv3x3": 45, "norm_linear": 16}
+    seconds = {"fused_norm_conv": [], "unfused": []}
+    counts_nc = collections.Counter()
+    for turn in range(3):  # the first turn warms up
+        rows, counts = serve(fused, mpnet, device, call, per_forward, SEED + 12 + turn,
+                             "serving_fused_norm_conv")
+        counts_nc.update(counts)
+        plain_rows, _ = serve(pipe, mpnet, device, call, None, SEED + 12 + turn,
+                              "serving_unfused_in_turn")
+        if turn:
+            seconds["fused_norm_conv"].append(rows[0]["seconds"])
+            seconds["unfused"].append(plain_rows[0]["seconds"])
+    row = {"phase": "serving_fused_summary", "prompts": 8, "resolution": 256,
+           "seconds_timed_calls": seconds,
+           "img_per_sec": {k: 8 / statistics.mean(v) for k, v in seconds.items()},
+           "launches_fused_norms_call": {k: v for k, v in counts_gn.items() if v},
+           "launches_fused_norm_conv_3_calls": {k: v for k, v in counts_nc.items() if v}}
+    emit(row)
+    return row, counts_gn, dict(counts_nc)
+
+
+@contextlib.contextmanager
+def without_fused_gate_grad():
+    """A planted fault: the fused conv op's gate gradient dropped."""
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    real = nc.GroupNormSiLUConv3x3.backward
+
+    def faulty(ctx, grad_out):
+        grads = list(real(ctx, grad_out))
+        if grads[5] is not None:
+            grads[5] = grads[5].zero_()
+        return tuple(grads)
+
+    nc.GroupNormSiLUConv3x3.backward = staticmethod(faulty)
+    try:
+        yield
+    finally:
+        nc.GroupNormSiLUConv3x3.backward = staticmethod(real)
+
+
+def unet_arch_grad(model, x, t, ehs, arch):
+    """d/d arch of the U-Net's mean-square output and block features."""
+    arch = arch.clone().requires_grad_()
+    out, feats = model(x, t, ehs, arch=arch, return_features=True)
+    loss = out.float().square().mean() + sum(f.float().square().mean() for f in feats.values())
+    loss.backward()
+    return arch.grad.float()
+
+
+def check_fused_gate_grads(unet, twin, device):
+    """The gradient that trains the router, held directly: d loss / d arch of
+    one full-width forward (B_eff 16 on 8 soft arch rows, so the CFG tiling is
+    differentiated too) through the fused ops' recompute backward against the
+    unfused U-Net's, cosine per gate site; with the fused conv op's gate
+    gradient dropped, a planted fault, the resnet sites must read below the
+    limit."""
+    import torch
+    x, t, ehs, _ = unet_inputs(unet, device, SEED + 14)
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    arch = torch.rand(x.shape[0] // 2, unet.spec.vq_dim, device=device, generator=gen)
+    want = unet_arch_grad(unet, x, t, ehs, arch)
+    got = unet_arch_grad(twin, x, t, ehs, arch)
+    with without_fused_gate_grad():
+        bad = unet_arch_grad(twin, x, t, ehs, arch)
+
+    def cosines(g):
+        out = {}
+        for sb in unet.spec.subblocks:
+            for i, site in enumerate(sb.sites):
+                cols = slice(site.start, site.start + site.width)
+                a, b = g[:, cols].flatten(), want[:, cols].flatten()
+                out[f"{sb.name}.{i}"] = (torch.dot(a, b) / (a.norm() * b.norm()).clamp_min(1e-30)
+                                         ).item()
+        nw = unet.spec.num_width
+        out["depth"] = (torch.dot(g[:, nw:].flatten(), want[:, nw:].flatten())
+                        / (g[:, nw:].norm() * want[:, nw:].norm()).clamp_min(1e-30)).item()
+        return out
+
+    cos, cos_bad = cosines(got), cosines(bad)
+    resnet_bad = {k: v for k, v in cos_bad.items() if "resnet" in k}
+    worst = min(cos, key=cos.get)
+    row = {"phase": "fused_gate_grad_check", "limit": FUSED_GRAD_COS, "sites": len(cos),
+           "min_cos": cos[worst], "min_cos_site": worst,
+           "median_cos": statistics.median(cos.values()),
+           "resnet_sites": len(resnet_bad),
+           "planted_fault_no_gate_grad_max_cos_resnet_sites": max(resnet_bad.values()),
+           "arch_grad_rms": want.square().mean().sqrt().item()}
+    emit(row)
+    if not row["min_cos"] > FUSED_GRAD_COS:
+        fail(f"the fused U-Net's gate gradients disagree with the unfused U-Net's: {row}")
+    if not row["planted_fault_no_gate_grad_max_cos_resnet_sites"] <= FUSED_GRAD_COS:
+        fail(f"the planted fault reads within the limit {FUSED_GRAD_COS}: {row}")
+    return row
+
+
+def train_fused(pipe, twins, device, gen):
+    """One pretrain and one codebook step under `fused_norm_conv`, then the
+    step's grads against the unfused step's on the same batch and draws."""
+    import torch
+    from diffusion_pruning_tpu_torch.training.pruner import complete_draws
+
+    unfused_pipe = pipe
+    pipe = fused_pipeline(pipe, twins["fused_norm_conv"], device)
+    mods, cfg, opt = build_trainer(pipe, device, gen)
+    per_step = {"norm_conv3x3": 90, "norm_linear": 32}  # teacher + student
+    batch, summary = train(mods, cfg, opt, device, 2, per_step, "train_fused_step")
+    plain_mods = dataclasses.replace(mods, unet=unfused_pipe.unet)
+    draws = complete_draws(mods, cfg, batch, None,
+                           torch.Generator(device=device).manual_seed(SEED + 13))
+    out = {"phase": "train_fused_grad_check", "limit": FUSED_GRAD_COS}
+    for pretrain in (True, False):
+        fused = step_grads(mods, cfg, batch, draws, pretrain)
+        plain = step_grads(plain_mods, cfg, batch, draws, pretrain)
+        cos = leaf_cosines(fused, plain)
+        worst = min(cos, key=cos.get)
+        entry = {"leaves": len(cos), "min_cos": cos[worst], "min_cos_leaf": worst,
+                 "median_cos": statistics.median(cos.values()),
+                 "codebook_cos": cos.get("codebook")}
+        if pretrain:
+            with without_fused_gate_grad():
+                cos_fault = leaf_cosines(step_grads(mods, cfg, batch, draws, pretrain), plain)
+            worst_fault = min(cos_fault, key=cos_fault.get)
+            entry.update(planted_fault_no_gate_grad_min_cos=cos_fault[worst_fault],
+                         planted_fault_leaf=worst_fault)
+        out["pretrain" if pretrain else "codebook"] = entry
+    emit(out)
+    for phase in ("pretrain", "codebook"):
+        if not out[phase]["min_cos"] > FUSED_GRAD_COS:
+            fail(f"fused-step grads disagree with the unfused step's ({phase}): {out}")
+    # the whole step's leaves mix the U-Net's gradient with the resource and
+    # contrastive terms', so the planted fault is held where it acts alone
+    check_fused_gate_grads(unfused_pipe.unet, mods.unet, device)
+    return summary
+
+
+def fused_kernel_entry(check, name, source, replaces, also, library_call, launches_by_path):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "also_replaces": also, "launches": sum(launches_by_path.values()),
+            "launches_by_path": launches_by_path, **check.entry(),
+            "least_planted_fault_rel_l2": check.least_fault, "library_call": library_call,
+            "shapes": "the sites of one SD-2.1 U-Net forward at 256px, B_eff 16, bf16"}
 
 
 # ---------------------------------------------------------------- main
@@ -912,7 +1713,7 @@ def main() -> None:
         fail("no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+        from diffusion_pruning_tpu_torch.ops import build
     except ImportError as e:
         fail(f"the port's package is not beside this script ({e})")
     device = torch.device("cuda")
@@ -931,10 +1732,10 @@ def main() -> None:
 
     # 2. build
     t0 = time.perf_counter()
-    nvcc_s = fa.build_kernels()
+    nvcc_s = build.build_kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": nvcc_s})
-    for source in fa.SOURCES:
-        report = fa.BUILD_DIR / f"{source.stem}.ptxas.txt"
+    for source in build.SOURCES:
+        report = build.BUILD_DIR / f"{source.stem}.ptxas.txt"
         if report.exists():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -960,7 +1761,8 @@ def main() -> None:
     log("phase 5 runs with PyTorch's TF32 defaults (cuDNN on, matmul off)")
     t0 = time.perf_counter()
     pipe, mpnet = build_pipeline(unet, device, gen)
-    calls, launches = serve(pipe, mpnet, device)
+    calls, serve_counts = serve(pipe, mpnet, device)
+    launches = serve_counts["gated_flash_fwd"]
     log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
     s256 = sorted(c["seconds"] for c in calls[1:4])
     emit({"phase": "serving_summary", "img_per_sec_256px_median": 8 / s256[1],
@@ -984,11 +1786,36 @@ def main() -> None:
     profile_train_step(mods, cfg, opt, batch, device)
     log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
 
+    # 9. fused-norm kernels vs their plain versions (TF32 stays off for matmuls
+    # and cuDNN: the f32 references of phases 9-10 run in full f32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    fused_checks = check_fused_kernels(unet, device)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
+
+    # 10. the U-Net under each fused flag
+    t0 = time.perf_counter()
+    twins, _ = check_fused_unet(unet, device)
+    log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
+
+    # 11. serving and two train steps under the fused flags; the VAE and CLIP,
+    # which phase 8 turned to bf16, serve in f32 again as in phase 5
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    pipe.vae.float()
+    pipe.text_encoder.float()
+    fused_serving, counts_gn, counts_nc = serve_fused(pipe, mpnet, twins, device)
+    torch.backends.cudnn.allow_tf32 = False
+    fused_train = train_fused(pipe, twins, device, gen)
+    log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
+
     # kernels line: inference times summed over the 32 sites of one 256px
     # forward (B_eff 16), training times over the 32 sites of one student
     # pass of the train step (B = 64)
     agg = {key: sum(r[key] * r["sites_per_256px_forward"] for r in rows)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "eager_ms", "plain_ms", "library_ms", "library_eager_ms",
+                       "bound_ms")}
     ops_share = sum(r["bound_ms"] * r["sites_per_256px_forward"] for r in rows
                     if r["bound_by"] == "operations") / agg["bound_ms"]
     train_launches = train_summary["launches"]
@@ -1007,10 +1834,10 @@ def main() -> None:
                              "train_student_lse": train_launches["gated_flash_fwd_lse"]},
         "max_abs_err": worst["max_abs_err"],
         "rel_l2_worst_head": worst["rel_l2_worst_head"],
-        "ms": agg["ms"], "kernel_ms": agg["ms"], "plain_ms": agg["plain_ms"],
+        "ms": agg["ms"], "eager_ms": agg["eager_ms"], "plain_ms": agg["plain_ms"],
         "bound_ms": agg["bound_ms"],
         "bound_by": "operations" if ops_share >= 0.5 else "bytes",
-        "library_ms": agg["library_ms"],
+        "library_ms": agg["library_ms"], "library_eager_ms": agg["library_eager_ms"],
         "shapes": "the 32 attention sites of one SD-2.1 U-Net forward at 256px, "
                   "B_eff 16, bf16, soft gates",
         "training_forward": {**training_entry(train_rows, "fwd_lse", "fwd_lse_plain_ms",
@@ -1041,12 +1868,33 @@ def main() -> None:
         "rel_l2_worst_head": max(train_check["worst"]["dk"], train_check["worst"]["dv"]),
         "dgate_rel_worst": train_check["worst"]["dgate"],
         **training_entry(train_rows, "dkv", "bwd_plain_ms", "bwd_library_ms"),
-    }]})
+    }, fused_kernel_entry(
+        fused_checks["group_norm_silu"], "group_norm_silu",
+        "diffusion_pruning_tpu_torch/csrc/group_norm.cu",
+        "diffusion_pruning_tpu/ops/group_norm.py:26", [], "F.group_norm, then F.silu",
+        {"serving_fused_norms": counts_gn["group_norm_silu"]}),
+        fused_kernel_entry(
+        fused_checks["norm_conv3x3"], "norm_conv3x3",
+        "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
+        "diffusion_pruning_tpu/ops/norm_conv.py:98",
+        ["diffusion_pruning_tpu/ops/norm_conv.py:140"],
+        "gate multiply, F.group_norm, F.silu, F.conv2d (channels_last, bf16)",
+        {"serving_fused_norm_conv": counts_nc["norm_conv3x3"],
+         "train_fused_norm_conv": fused_train["launches"]["norm_conv3x3"]}),
+        fused_kernel_entry(
+        fused_checks["norm_linear"], "norm_linear",
+        "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
+        "diffusion_pruning_tpu/ops/norm_conv.py:279", [], "F.group_norm, then F.linear",
+        {"serving_fused_norm_conv": counts_nc["norm_linear"],
+         "train_fused_norm_conv": fused_train["launches"]["norm_linear"]}),
+    ]})
     log(f"total {time.perf_counter() - t_start:.1f}s; 256px img/s (median of 3) "
         f"{8 / s256[1]:.4f}; 512px seconds {calls[5]['seconds']:.4f}; train step "
         f"{train_summary['seconds_per_step_median_warm']:.4f} s "
-        f"({train_summary['samples_per_sec']:.2f} samples/s)")
-    # 8. last line
+        f"({train_summary['samples_per_sec']:.2f} samples/s); under fused_norm_conv "
+        f"{fused_serving['img_per_sec']['fused_norm_conv']:.4f} img/s against "
+        f"{fused_serving['img_per_sec']['unfused']:.4f} in turns")
+    # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

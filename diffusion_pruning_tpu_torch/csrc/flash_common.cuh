@@ -1,6 +1,7 @@
 // Building blocks shared by the gated flash attention kernels
-// (gated_flash_fwd.cu, gated_flash_bwd.cu): cp.async tile staging and the
-// warp-level bf16 products on mma.sync m16n8k16 with f32 accumulators.
+// (gated_flash_fwd.cu, gated_flash_bwd.cu): tile staging and the warp-level
+// bf16 products, on the cp.async and mma.sync m16n8k16 primitives of
+// mma_common.cuh.
 //
 // Tiles are 64 rows of one (batch, head) slab of a (B, S, H, 64) tensor, kept
 // in shared memory with rows padded to kSRow elements (144 bytes), which makes
@@ -11,11 +12,11 @@
 // tg = lane % 4.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace gfa {
+
+using namespace hopper;
 
 constexpr int kD = 64;          // head dim
 constexpr int kBlock = 64;      // rows per tile, queries and kv alike
@@ -25,39 +26,6 @@ constexpr int kSRow = kD + 8;   // padded shared row
 constexpr int kTileElems = kBlock * kSRow;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> one register of two bf16, the first in the low half
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // Stage rows [row0, row0 + 64) of one (batch, head) slab into shared memory;
 // rows at or past n_rows are zero-filled and their source is never read.

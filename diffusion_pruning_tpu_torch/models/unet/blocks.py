@@ -1,4 +1,6 @@
-"""Gated U-Net building blocks (NCHW inside the U-Net).
+"""Gated U-Net building blocks (logical NCHW inside the U-Net; under a fused
+flag the tensors are in `torch.channels_last` strides, the layout the
+fused-norm kernels read).
 
 Gate placement follows the JAX package's `models/unet/blocks.py`:
   * resnet width gate: after conv1 + time-emb add, before norm2 — the gate
@@ -7,7 +9,9 @@ Gate placement follows the JAX package's `models/unet/blocks.py`:
   * depth gate: out = (1-m)·identity + m·block_out, with the identity given
     explicitly (for up-blocks it is the hidden state before the skip concat).
 Attribute names follow diffusers (`norm1`, `conv1`, `time_emb_proj`,
-`proj_in`, `transformer_blocks.0`, ...).
+`proj_in`, `transformer_blocks.0`, ...). The fused paths (`fused_norms`,
+`fused_norm_conv`) read the same `nn.GroupNorm`/`nn.Conv2d`/`nn.Linear`
+parameters, so the state dict does not depend on the flags.
 """
 from __future__ import annotations
 
@@ -18,14 +22,40 @@ import torch.nn.functional as F
 
 from diffusion_pruning_tpu_torch.models.unet.attention import GatedTransformerBlock
 from diffusion_pruning_tpu_torch.ops.gates import channel_mask, depth_lerp
+from diffusion_pruning_tpu_torch.ops.group_norm import group_norm_silu
+from diffusion_pruning_tpu_torch.ops.norm_conv import (
+    PackedWeight,
+    group_norm_linear,
+    group_norm_silu_conv3x3,
+)
+
+
+def norm_silu_conv(x, norm: nn.GroupNorm, conv: nn.Conv2d, gate, fused_norms: bool,
+                   fused_norm_conv: bool, packed: PackedWeight):
+    """conv(silu(norm(gate·x))) with the grouped gate (B, width) or None:
+    through the fused norm→conv op under `fused_norm_conv` (the gate folds
+    into the normalisation affine), else with the one-pass GroupNorm kernel
+    under `fused_norms`, else unfused."""
+    if fused_norm_conv:
+        gate_c = None if gate is None else channel_mask(gate, x.shape[1], x.shape[0])
+        return group_norm_silu_conv3x3(x, norm.weight, norm.bias, conv.weight, conv.bias, gate_c,
+                                       norm.num_groups, norm.eps, True, packed=packed)
+    if gate is not None:
+        x = x * channel_mask(gate, x.shape[1], x.shape[0])[:, :, None, None].to(x.dtype)
+    if fused_norms:
+        return conv(group_norm_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps, True))
+    return conv(F.silu(norm(x)))
 
 
 class GatedResnetBlock(nn.Module):
     """SD resnet block with an optional grouped width gate and depth gate."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
-                 groups: int = 32, eps: float = 1e-5):
+                 groups: int = 32, eps: float = 1e-5, fused_norms: bool = False,
+                 fused_norm_conv: bool = False):
         super().__init__()
+        self.fused = (fused_norms, fused_norm_conv)
+        self._packed = (PackedWeight(), PackedWeight())
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels)
@@ -37,11 +67,9 @@ class GatedResnetBlock(nn.Module):
     def forward(self, x, temb, gate=None, depth_gate=None, identity=None):
         """x: (B, C, H, W). identity: what a closed depth gate returns (the
         hidden part of an up-block's concat); defaults to x."""
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = norm_silu_conv(x, self.norm1, self.conv1, None, *self.fused, self._packed[0])
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        if gate is not None:
-            h = h * channel_mask(gate, h.shape[1], h.shape[0])[:, :, None, None].to(h.dtype)
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = norm_silu_conv(h, self.norm2, self.conv2, gate, *self.fused, self._packed[1])
         shortcut = x if self.conv_shortcut is None else self.conv_shortcut(x)
         out = shortcut + h
         if depth_gate is not None:
@@ -55,8 +83,10 @@ class GatedTransformer2D(nn.Module):
     the input."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, groups: int = 32,
-                 use_flash: bool = False):
+                 use_flash: bool = False, fused_norms: bool = False,
+                 fused_norm_conv: bool = False):
         super().__init__()
+        self.fused_norms, self.fused_norm_conv = fused_norms, fused_norm_conv
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList([
@@ -68,7 +98,15 @@ class GatedTransformer2D(nn.Module):
         possibly None), or None."""
         b, c, hh, ww = x.shape
         residual = x
-        y = self.proj_in(self.norm(x).permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+        norm = self.norm
+        if self.fused_norm_conv:  # norm (no SiLU) folded into proj_in's input read
+            y = group_norm_linear(x.permute(0, 2, 3, 1).reshape(b, hh * ww, c), norm.weight,
+                                  norm.bias, self.proj_in.weight, self.proj_in.bias, None,
+                                  norm.num_groups, norm.eps)
+        else:
+            y = (group_norm_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps, False)
+                 if self.fused_norms else norm(x))
+            y = self.proj_in(y.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
         g1, g2, gf = gates[0] if gates is not None else (None, None, None)
         y = self.transformer_blocks[0](y, context, g1, g2, gf)
         y = self.proj_out(y).reshape(b, hh, ww, c).permute(0, 3, 1, 2)

@@ -70,15 +70,16 @@ class UNetConfig:
     # (torch.utils.checkpoint), trading step time for activation memory; the
     # original APTP code's `gradient_checkpointing`
     remat: bool = False
-    # accepted for configuration compatibility with the JAX package; the
-    # fused GroupNorm kernels are not ported yet, so these must stay False
+    # route every resnet norm (+SiLU) and transformer norm through the
+    # one-pass GroupNorm kernel (ops/group_norm.py)
     fused_norms: bool = False
+    # fold GroupNorm(+gate)+SiLU into the input read of the consumer product
+    # (ops/norm_conv.py): the resnets' norm→conv3x3 pairs, conv_norm_out→
+    # conv_out and the transformers' norm→proj_in; wins over `fused_norms`
+    # wherever it applies. Both flags keep the unfused state dict
     fused_norm_conv: bool = False
 
     def __post_init__(self):
-        if self.fused_norms or self.fused_norm_conv:
-            raise NotImplementedError(
-                "fused_norms / fused_norm_conv have no CUDA kernel yet")
         if not self.use_linear_projection:
             raise NotImplementedError("only linear proj_in/out (SD-2.x) is ported")
 

@@ -4,7 +4,9 @@ The per-prompt architecture is one flat `(B, vq_dim)` tensor `arch` (widths
 then depths, in `StructureSpec` order), sliced per subblock by `_GateReader`;
 `arch=None` runs the dense model. Public tensors keep the JAX package's
 layout — latents and features `(B, H, W, C)` — while the convolutions run
-NCHW inside.
+on logical NCHW tensors inside: contiguous by default, converted once to
+`torch.channels_last` after `conv_in` under `fused_norms` or
+`fused_norm_conv`, whose kernels read that layout (every later op keeps it).
 Module names follow diffusers' `UNet2DConditionModel` state dict, so a
 diffusers checkpoint loads without a key map.
 """
@@ -24,9 +26,11 @@ from diffusion_pruning_tpu_torch.models.unet.blocks import (
     GatedResnetBlock,
     GatedTransformer2D,
     Upsample,
+    norm_silu_conv,
 )
 from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
 from diffusion_pruning_tpu_torch.ops.gates import match_batch
+from diffusion_pruning_tpu_torch.ops.norm_conv import PackedWeight
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -108,11 +112,13 @@ class GatedUNet(nn.Module):
         L = cfg.num_levels
 
         def resnet(cin, cout):
-            return GatedResnetBlock(cin, cout, temb, g, cfg.norm_eps)
+            return GatedResnetBlock(cin, cout, temb, g, cfg.norm_eps, cfg.fused_norms,
+                                    cfg.fused_norm_conv)
 
         def transformer(c, heads):
             return GatedTransformer2D(c, heads, cfg.cross_attention_dim, g,
-                                      cfg.use_flash_attention)
+                                      cfg.use_flash_attention, cfg.fused_norms,
+                                      cfg.fused_norm_conv)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = _TimeEmbedding(b0, temb)
@@ -155,6 +161,7 @@ class GatedUNet(nn.Module):
 
         self.conv_norm_out = nn.GroupNorm(g, ch, eps=cfg.norm_eps)
         self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
+        self._packed_out = PackedWeight()
 
     def _call(self, block: nn.Module, *args):
         """Run a subblock, recomputed in the backward pass under `remat`."""
@@ -189,6 +196,8 @@ class GatedUNet(nn.Module):
         ehs = encoder_hidden_states.to(dtype)
 
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous())
+        if cfg.fused_norms or cfg.fused_norm_conv:
+            h = h.contiguous(memory_format=torch.channels_last)
         res_stack = [h]
         for i, block in enumerate(self.down_blocks):
             cross = hasattr(block, "attentions")
@@ -226,7 +235,10 @@ class GatedUNet(nn.Module):
                 h = block.upsamplers[0](h)
             features[f"u{i}"] = h
 
-        out = self.conv_out(F.silu(self.conv_norm_out(h))).permute(0, 2, 3, 1)
+        # the output head's norm stays unfused under `fused_norms`, as in the
+        # JAX package
+        out = norm_silu_conv(h, self.conv_norm_out, self.conv_out, None, False,
+                             cfg.fused_norm_conv, self._packed_out).permute(0, 2, 3, 1)
         if return_features:
             return out, {name: f.permute(0, 2, 3, 1) for name, f in features.items()}
         return out

@@ -25,103 +25,21 @@ plain versions (`gated_attention_reference`, `gated_attention_reference_lse`,
 raises. On the card the kernels take bf16 q/k/v, the dtype the U-Net runs in;
 their checks hold them against the plain versions in f32 on the same inputs.
 
-Each source is compiled with nvcc for sm_90a at first use into
-`build/torch_kernels/` of the checkout (all sources at once, one nvcc each)
-and loaded with ctypes.
+The sources are compiled and loaded at first use by `ops/build.py`.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "gated_flash_fwd.cu", CSRC / "gated_flash_bwd.cu")
-HEADERS = (CSRC / "flash_common.cuh",)
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+from diffusion_pruning_tpu_torch.ops import build
+from diffusion_pruning_tpu_torch.ops.build import ptr as _ptr
+from diffusion_pruning_tpu_torch.ops.build import require_cuda as _device
+
 HEAD_DIM = 64
 TILE = 64  # rows per tile of every kernel, queries and kv alike
 _LOG2E = 1.4426950408889634
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {  # C function -> (source stem, argtypes)
-    "gated_flash_fwd": ("gated_flash_fwd", [_P] * 6 + [_I] * 4 + [_F, _P]),
-    "gated_flash_bwd_dq": ("gated_flash_bwd", [_P] * 10 + [_I] * 4 + [_F, _P]),
-    "gated_flash_bwd_dkv": ("gated_flash_bwd", [_P] * 10 + [_I] * 4 + [_F, _P]),
-}
-_fns: Dict[str, ctypes._CFuncPtr] = {}
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise FileNotFoundError("nvcc not found (set CUDA_HOME); the CUDA kernels are "
-                            "built from source at first use")
-
-
-def _library_path(source: Path) -> Path:
-    text = source.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
-    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}-{digest}.so"
-
-
-def _compile(source: Path) -> Optional[float]:
-    out = _library_path(source)
-    if out.exists():
-        return None
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    seconds = time.perf_counter() - t0
-    (BUILD_DIR / f"{source.stem}.ptxas.txt").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc exited {proc.returncode} on {source.name}:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return seconds
-
-
-def build_kernels() -> Dict[str, Optional[float]]:
-    """Compile every kernel source that has no up-to-date library, one nvcc
-    per source, all started together. Returns each source's compile wall
-    seconds (None where the library was already built). The compiler's
-    register/spill report lands in `BUILD_DIR` as `<stem>.ptxas.txt`. Raises
-    with the compiler's output if a compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        seconds = list(pool.map(_compile, SOURCES))
-    return {s.stem: t for s, t in zip(SOURCES, seconds)}
-
-
-def _fn(name: str):
-    """The C entry point `name`, its library built and loaded at first use."""
-    if name not in _fns:
-        stem, argtypes = _SIGNATURES[name]
-        build_kernels()
-        fn = getattr(ctypes.CDLL(str(_library_path(CSRC / f"{stem}.cu"))), name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        rc = _fn(name)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 # ---------------------------------------------------------------- plain versions
@@ -239,19 +157,10 @@ def _check_rows(name, t, b, h, s_q, device):
                          f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _device(q):
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 def _forward(q, k, v, gate, lse):
     b, s_q, h, d = q.shape
     o = torch.empty_like(q)
-    _launch("gated_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(gate),
+    build.launch("gated_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(gate),
             o.data_ptr(), _ptr(lse), b, h, s_q, k.shape[1], d ** -0.5 * _LOG2E)
     return o
 
@@ -288,7 +197,7 @@ def gated_flash_bwd_dq(q, k, v, gate, o, lse, do):
     delta = torch.empty(b * h, s_q, device=q.device, dtype=torch.float32)
     part = None if gate is None else torch.empty(
         b * h, -(-s_q // TILE), device=q.device, dtype=torch.float32)
-    _launch("gated_flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    build.launch("gated_flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(gate), dq.data_ptr(),
             delta.data_ptr(), _ptr(part), b, h, s_q, k.shape[1], d ** -0.5)
     gated_flash_bwd_dq.launches += 1
@@ -311,7 +220,7 @@ def gated_flash_bwd_dkv(q, k, v, gate, lse, delta, do):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     part = None if gate is None else torch.empty(
         b * h, -(-s_kv // TILE), device=q.device, dtype=torch.float32)
-    _launch("gated_flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    build.launch("gated_flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(gate), dk.data_ptr(),
             dv.data_ptr(), _ptr(part), b, h, s_q, s_kv, d ** -0.5)
     gated_flash_bwd_dkv.launches += 1
@@ -379,5 +288,3 @@ gated_flash_attention.launches = 0
 gated_flash_forward_lse.launches = 0
 gated_flash_bwd_dq.launches = 0
 gated_flash_bwd_dkv.launches = 0
-KERNEL_WRAPPERS = (gated_flash_attention, gated_flash_forward_lse, gated_flash_bwd_dq,
-                   gated_flash_bwd_dkv)

@@ -1,11 +1,14 @@
-"""The gated flash attention CUDA kernels (the forward, with and without lse,
-and the dq and dk/dv backward kernels) against their plain versions, on a
-CUDA card. Imports only torch and the port, so that it runs on a machine without
+"""The port's CUDA kernels against their plain versions, on a CUDA card: gated
+flash attention (the forward, with and without lse, and the dq and dk/dv
+backward kernels) and the fused-norm kernels (one-pass GroupNorm(+SiLU),
+GroupNorm→SiLU→conv3x3, GroupNorm→linear). Imports only torch and the port, so that it runs on a machine without
 JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 Without a card every test here skips."""
+import functools
+
 import pytest
 import torch
 
@@ -19,6 +22,9 @@ from diffusion_pruning_tpu_torch.ops.flash_attention import (
     gated_flash_bwd_dq,
     gated_flash_forward_lse,
 )
+
+from diffusion_pruning_tpu_torch.ops import group_norm as gn
+from diffusion_pruning_tpu_torch.ops import norm_conv as nc
 
 pytestmark = [pytest.mark.cuda,
               pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")]
@@ -144,3 +150,163 @@ def test_cuda_autograd_function_runs_the_training_kernels():
     assert [f.launches - n for f, n in zip(kinds, before)] == [1, 1, 1, 1]
     assert q.grad is not None and gate.grad is not None and k.grad is None
     assert torch.isfinite(gate.grad).all()
+
+
+# ---------------------------------------------------------------- fused norms
+
+# per batch element ||kernel - reference|| / ||reference|| against the plain
+# version in f32 on the same bf16 inputs: the kernels round y and the output
+# to bf16 (about 2e-3 relative each); x-space padding, ungated statistics or a
+# dropped tap read 3e-2 or more
+NORM_REL_L2 = 1e-2
+
+
+def per_sample_rel_l2(out, ref):
+    dims = tuple(range(1, out.dim()))
+    err = (out.float() - ref.float()).square().sum(dim=dims).sqrt()
+    return err / ref.float().square().sum(dim=dims).sqrt().clamp_min(1e-30)
+
+
+class _no_tf32:
+    def __enter__(self):
+        self.saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = self.saved
+
+
+def _norm_inputs(b, c, h, w, seed, groups=32):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(b, c, h, w, device="cuda", generator=g) * 1.5 + 0.5).bfloat16()
+    x = x.contiguous(memory_format=torch.channels_last)
+    scale = 1.0 + 0.1 * torch.randn(c, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    gate = torch.rand(b, groups, device="cuda", generator=g)
+    gate[0, 0] = 0.0  # one closed group
+    gate_c = gate.repeat_interleave(c // groups, dim=1)
+    return x, scale, bias, gate_c, g
+
+
+# C/G = 10, 40 and 80 (vector widths 2, 8, 8); the last slab exceeds shared memory
+@pytest.mark.parametrize("b,c,h,w", [(16, 320, 32, 32), (16, 1280, 16, 16), (16, 2560, 8, 8),
+                                     (2, 960, 64, 64)])
+@pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)])
+def test_cuda_group_norm_kernel_matches_plain_version(b, c, h, w, silu, eps):
+    x, scale, bias, gate_c, _ = _norm_inputs(b, c, h, w, seed=c + h)
+    x = x * gate_c[:, :, None, None].bfloat16()  # a zero group: variance 0
+    before = gn.group_norm_silu_forward.launches
+    out = gn.group_norm_silu(x, scale, bias, 32, eps, silu)
+    torch.cuda.synchronize()
+    assert gn.group_norm_silu_forward.launches == before + 1
+    assert out.shape == x.shape and out.is_contiguous(memory_format=torch.channels_last)
+    ref = gn.group_norm_silu_plain(x.float(), scale, bias, 32, eps, silu)
+    assert torch.isfinite(out).all()
+    assert per_sample_rel_l2(out, ref).max().item() <= NORM_REL_L2
+    want = bias[:10].bfloat16().float()
+    want = (want * torch.sigmoid(want) if silu else want).bfloat16()
+    torch.testing.assert_close(out[0, :10, 0, 0], want, rtol=2e-2, atol=1e-3)
+
+
+# B = 64 is the stage-1 train step's batch: 65,536 pixels of 960 channels at the
+# 32×32 map, eight blocks a column at the 4×4 map
+@pytest.mark.parametrize("b,cin,cout,h,w", [(16, 320, 320, 32, 32), (16, 2560, 1280, 4, 4),
+                                            (3, 320, 4, 32, 32), (2, 72, 24, 5, 7),
+                                            (64, 960, 320, 32, 32), (64, 2560, 1280, 4, 4)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_cuda_norm_conv_kernel_matches_plain_version(b, cin, cout, h, w, gated):
+    groups = 32 if cin % 32 == 0 else 8
+    x, scale, bias, gate_c, g = _norm_inputs(b, cin, h, w, seed=cin + cout, groups=groups)
+    weight = (torch.randn(cout, cin, 3, 3, device="cuda", generator=g) * (9 * cin) ** -0.5
+              ).bfloat16()
+    cbias = 0.1 * torch.randn(cout, device="cuda", generator=g)
+    gate_c = gate_c if gated else None
+    before = nc.norm_conv3x3.launches
+    out = nc.group_norm_silu_conv3x3(x, scale, bias, weight, cbias, gate_c, groups, 1e-5, True,
+                                     packed=nc.PackedWeight())
+    torch.cuda.synchronize()
+    assert nc.norm_conv3x3.launches == before + 1
+    assert out.shape == (b, cout, h, w)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    with _no_tf32():
+        a, bb = nc.affine_coeffs(x, scale, bias, groups, 1e-5, gate_c)
+        ref = nc.norm_conv3x3_plain(x.float(), a, bb, nc.pack_conv_weight(weight, torch.float32),
+                                    cbias, True)
+        unfused = nc.norm_conv_unfused(x.float(), scale, bias, weight.float(), cbias, gate_c,
+                                       groups, 1e-5, True)
+    assert per_sample_rel_l2(out, ref).max().item() <= NORM_REL_L2
+    assert per_sample_rel_l2(out, unfused).max().item() <= NORM_REL_L2
+
+
+@pytest.mark.parametrize("b,s,c", [(16, 1024, 320), (16, 16, 1280), (3, 100, 72),
+                                   (64, 1024, 320), (64, 16, 1280)])
+def test_cuda_norm_linear_kernel_matches_plain_version(b, s, c):
+    groups = 32 if c % 32 == 0 else 8
+    x, scale, bias, gate_c, g = _norm_inputs(b, c, s, 1, seed=s + c, groups=groups)
+    x = x[:, :, :, 0].transpose(1, 2).contiguous()           # (B, S, C)
+    weight = (torch.randn(c, c, device="cuda", generator=g) * c ** -0.5).bfloat16()
+    lbias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    before = nc.norm_linear.launches
+    out = nc.group_norm_linear(x, scale, bias, weight, lbias, gate_c, groups, 1e-6)
+    torch.cuda.synchronize()
+    assert nc.norm_linear.launches == before + 1 and out.shape == (b, s, c)
+    with _no_tf32():
+        a, bb = nc.affine_coeffs(x.transpose(1, 2), scale, bias, groups, 1e-6, gate_c)
+        ref = nc.norm_linear_plain(x.float(), a, bb, weight.float(), lbias)
+        unfused = nc.norm_linear_unfused(x.float(), scale, bias, weight.float(), lbias, gate_c,
+                                         groups, 1e-6)
+    assert per_sample_rel_l2(out, ref).max().item() <= NORM_REL_L2
+    assert per_sample_rel_l2(out, unfused).max().item() <= NORM_REL_L2
+
+
+def test_cuda_fused_norm_wrappers_reject_what_the_kernels_do_not_take():
+    x, scale, bias, _, g = _norm_inputs(2, 64, 8, 8, seed=0)
+    a = torch.ones(2, 64, device="cuda")
+    packed = torch.zeros(16, 3, 3, 64, device="cuda", dtype=torch.bfloat16)
+    cbias = torch.zeros(16, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        gn.group_norm_silu_forward(x.float(), scale, bias, 32, 1e-5, True)
+    with pytest.raises(ValueError, match="channels_last"):
+        gn.group_norm_silu_forward(x.contiguous(), scale, bias, 32, 1e-5, True)
+    with pytest.raises(ValueError, match="scale"):
+        gn.group_norm_silu_forward(x, scale.bfloat16(), bias, 32, 1e-5, True)
+    with pytest.raises(ValueError, match="scale"):
+        gn.group_norm_silu_forward(x, scale.cpu(), bias, 32, 1e-5, True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        nc.norm_conv3x3(x.float(), a, a, packed, cbias, True)
+    with pytest.raises(ValueError, match="channels_last"):
+        nc.norm_conv3x3(x.contiguous(), a, a, packed, cbias, True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        nc.norm_conv3x3(x, a, a, packed.float(), cbias, True)
+    with pytest.raises(ValueError, match="weight must be"):
+        nc.norm_conv3x3(x, a, a, packed[:, :, :, :32].contiguous(), cbias, True)
+    with pytest.raises(ValueError, match="float32"):
+        nc.norm_conv3x3(x, a.bfloat16(), a, packed, cbias, True)
+    x12 = x[:, :12].contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="C_in % 8"):
+        nc.norm_conv3x3(x12, a[:, :12].contiguous(), a[:, :12].contiguous(),
+                        packed[..., :12].contiguous(), cbias, True)
+    tokens = x.flatten(2).transpose(1, 2)[:, ::2]            # (B, S, C), rows strided
+    weight = torch.zeros(64, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        nc.norm_linear(tokens, a, a, weight, torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError, match="on cpu"):
+        nc.norm_linear(tokens.contiguous(), a, a, weight.cpu(), torch.zeros(64, device="cuda"))
+
+
+def test_cuda_fused_norm_functions_backpropagate_through_the_unfused_composition():
+    """Forward through the kernels, gradients for x and the gate from the
+    recompute, equal to autograd of the unfused composition on the same
+    inputs."""
+    x, scale, bias, gate_c, g = _norm_inputs(2, 64, 8, 8, seed=3)
+    weight = (torch.randn(32, 64, 3, 3, device="cuda", generator=g) / 24).bfloat16()
+    cbias = torch.zeros(32, device="cuda")
+    grads = []
+    fused = functools.partial(nc.group_norm_silu_conv3x3, packed=nc.PackedWeight())
+    for fn in (fused, nc.norm_conv_unfused):
+        xr, gr = x.clone().requires_grad_(), gate_c.clone().requires_grad_()
+        out = fn(xr, scale, bias, weight, cbias, gr, 32, 1e-5, True)
+        out.float().square().sum().backward()
+        grads.append((xr.grad, gr.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)

@@ -19,8 +19,11 @@ from diffusion_pruning_tpu_torch.core.estimators import hard_concrete
 from diffusion_pruning_tpu_torch.core.resource import ResourceModel
 from diffusion_pruning_tpu_torch.core.structure import build_structure
 from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+from diffusion_pruning_tpu_torch.ops import build
 from diffusion_pruning_tpu_torch.ops import flash_attention as fa
 from diffusion_pruning_tpu_torch.ops import gates
+from diffusion_pruning_tpu_torch.ops import group_norm as gn
+from diffusion_pruning_tpu_torch.ops import norm_conv as nc
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,8 +124,8 @@ def test_kernel_wrapper_routes_cpu_tensors_to_plain_version_without_building(mon
     def no_build(*a, **k):
         raise AssertionError("a CPU tensor must not build or load the CUDA kernel")
 
-    monkeypatch.setattr(fa, "build_kernels", no_build)
-    monkeypatch.setattr(fa, "_fn", no_build)
+    monkeypatch.setattr(build, "build_kernels", no_build)
+    monkeypatch.setattr(build, "_fn", no_build)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 16, 3, 64, generator=g) for _ in range(3))
     gate = torch.rand(2, 3, generator=g)
@@ -131,6 +134,23 @@ def test_kernel_wrapper_routes_cpu_tensors_to_plain_version_without_building(mon
     assert fa.gated_flash_attention.launches == before
     torch.testing.assert_close(out, fa.gated_attention_reference(q, k, v, gate),
                                rtol=0, atol=0)
+    # the fused-norm wrappers likewise
+    x = torch.randn(2, 16, 4, 4, generator=g)
+    scale, bias = torch.rand(16, generator=g) + 0.5, torch.randn(16, generator=g)
+    a, b = torch.rand(2, 16, generator=g), torch.randn(2, 16, generator=g)
+    packed, w = torch.randn(8, 3, 3, 16, generator=g), torch.randn(8, 16, generator=g)
+    cb = torch.randn(8, generator=g)
+    wrappers = (gn.group_norm_silu_forward, nc.norm_conv3x3, nc.norm_linear)
+    before = [f.launches for f in wrappers]
+    torch.testing.assert_close(gn.group_norm_silu_forward(x, scale, bias, 4, 1e-5, True),
+                               gn.group_norm_silu_plain(x, scale, bias, 4, 1e-5, True),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(nc.norm_conv3x3(x, a, b, packed, cb, True),
+                               nc.norm_conv3x3_plain(x, a, b, packed, cb, True), rtol=0, atol=0)
+    tokens = x.flatten(2).transpose(1, 2).contiguous()
+    torch.testing.assert_close(nc.norm_linear(tokens, a, b, w, cb),
+                               nc.norm_linear_plain(tokens, a, b, w, cb), rtol=0, atol=0)
+    assert [f.launches for f in wrappers] == before
 
 
 @pytest.mark.parametrize("fails", [False, True])
@@ -143,21 +163,24 @@ def test_kernel_build_runs_nvcc_per_source_and_caches_by_content(tmp_path, monke
                     + ("echo 'error: boom'; exit 2\n" if fails else
                        'while [ "$1" != "-o" ]; do shift; done; echo lib > "$2"\n'))
     fake.chmod(0o755)
-    monkeypatch.setattr(fa, "_nvcc", lambda: str(fake))
-    monkeypatch.setattr(fa, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     if fails:
         with pytest.raises(RuntimeError, match="boom"):
-            fa.build_kernels()
-        assert not any(fa._library_path(s).exists() for s in fa.SOURCES)
+            build.build_kernels()
+        assert not any(build._library_path(s).exists() for s in build.SOURCES)
         return
-    seconds = fa.build_kernels()
-    assert sorted(seconds) == ["gated_flash_bwd", "gated_flash_fwd"]
+    seconds = build.build_kernels()
+    assert sorted(seconds) == ["gated_flash_bwd", "gated_flash_fwd", "group_norm", "norm_conv"]
     assert all(t >= 0.0 for t in seconds.values())
-    for source in fa.SOURCES:
-        lib = fa._library_path(source)
+    for source in build.SOURCES:
+        lib = build._library_path(source)
         assert lib.parent == tmp_path / "build" and lib.read_text() == "lib\n"
         assert "registers" in (tmp_path / "build" / f"{source.stem}.ptxas.txt").read_text()
-    assert all(t is None for t in fa.build_kernels().values())
+    assert all(t is None for t in build.build_kernels().values())
+    # every C entry point names a source of the build, and every header exists
+    assert {stem for stem, _ in build.SIGNATURES.values()} == set(seconds)
+    assert all(h.exists() for h in build.HEADERS)
 
 
 def test_kernel_wrapper_rejects_other_devices():
@@ -166,13 +189,26 @@ def test_kernel_wrapper_rejects_other_devices():
     for call in (lambda: fa.gated_flash_attention(q, q, q),
                  lambda: fa.gated_flash_forward_lse(q, q, q),
                  lambda: fa.gated_flash_bwd_dq(q, q, q, None, q, lse, q),
-                 lambda: fa.gated_flash_bwd_dkv(q, q, q, None, lse, lse, q)):
+                 lambda: fa.gated_flash_bwd_dkv(q, q, q, None, lse, lse, q),
+                 lambda: gn.group_norm_silu_forward(q, lse, lse, 1, 1e-5, True),
+                 lambda: gn.group_norm_silu(q, lse, lse, 1),
+                 lambda: nc.norm_conv3x3(q, lse, lse, q, lse, True),
+                 lambda: nc.norm_linear(lse, lse, lse, lse, lse)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
 
 
-@pytest.mark.parametrize("override", [dict(fused_norms=True), dict(fused_norm_conv=True),
-                                      dict(use_linear_projection=False)])
+@pytest.mark.parametrize("override", [dict(use_linear_projection=False)])
 def test_unported_config_options_are_refused(override):
     with pytest.raises(NotImplementedError):
         UNetConfig.tiny(**override)
+
+
+@pytest.mark.parametrize("override", [dict(fused_norms=True), dict(fused_norm_conv=True),
+                                      dict(fused_norms=True, fused_norm_conv=True)])
+def test_fused_norm_flags_build_and_keep_the_state_dict(override):
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    plain = GatedUNet(UNetConfig.tiny())
+    fused = GatedUNet(UNetConfig.tiny(**override))
+    assert ({k: v.shape for k, v in fused.state_dict().items()}
+            == {k: v.shape for k, v in plain.state_dict().items()})
