@@ -8,9 +8,12 @@ Phases, each of which passes or ends the run with a non-zero exit:
   1. device     — require CUDA; print the card's name and power limit;
   2. build      — compile the CUDA kernels from `diffusion_pruning_tpu_torch/csrc/`
                   with nvcc into `build/torch_kernels/`, one nvcc per source,
-                  all started together;
-  3. kernels    — the bf16 kernel against its plain PyTorch version run in f32
-                  (TF32 off) on the same bf16 inputs, at the SD-2.1 shapes:
+                  all started together; ptxas's register report and the
+                  HGMMA/HMMA/UTMALDG count of each kernel's SASS;
+  3. kernels    — the bf16 forward against its plain PyTorch version run in f32
+                  (TF32 off) on the same bf16 inputs, at the SD-2.1 shapes
+                  (S_q > 64 runs the wgmma kernel, S_q <= 64 the mma.sync one;
+                  S_kv = 77 at B = 16 holds the batch boundary of TMA boxes):
                   relative L2 per (batch, head) <= REL_L2, and two planted
                   faults, emulated in plain torch, must read above that limit;
                   also within atol/rtol 3e-2 of the bf16 plain version;
@@ -37,7 +40,7 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   relative to the head's RMS dgate over the batch; planted
                   faults, emulated in plain torch, must read above each
                   limit; timed beside the plain versions, the bound and the
-                  backward of PyTorch's SDPA;
+                  forward and backward of PyTorch's SDPA;
   8. train step — the stage-1 pruning step at full width (SD-2.1 U-Net at
                   256px in bf16, CLIP ViT-H text, SD VAE, hypernet 768→1620,
                   K = 8, B = 64, the coco yaml's losses and optimiser): one
@@ -63,7 +66,13 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   dropped tap, the other norm's eps, an uncentred variance, a
                   SiLU too many), emulated in plain torch, must read above it;
                   timed beside the bound, the plain version and the library
-                  chain (F.group_norm + F.silu + F.conv2d / F.linear);
+                  chain (F.group_norm + F.silu + F.conv2d / F.linear); the
+                  conv under its plan (`conv_plan`: patch, BN, split over K),
+                  a split plan's reduction kernel against its plain version;
+                  and the conv's activation alone (identity centre tap, y over
+                  [−8, 8]) within one bf16 ulp, with SiLU's tanh.approx form,
+                  a planted fault, above; the conv's time under each split
+                  over K at five shapes of the small maps (the plan's rule);
  10. fused U-Net — the full-width U-Net of phase 4 under `fused_norms`, then
                   under `fused_norm_conv`, same weights, against an f32 U-Net
                   (<= FUSED_UNET_REL_L2, with the unfused bf16 reading beside it)
@@ -82,12 +91,16 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   U-Net's d loss / d arch per gate site against the unfused
                   U-Net's (with the fused conv op's gate gradient dropped, a
                   planted fault, the resnet sites must read below the limit);
-then a `kernels` JSON line and, last, the device JSON line.
+then a `kernels` JSON line (every kernel of the paths, each with its
+launches in the runs of phases 5, 8 and 11) and, last, the device JSON line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
-are captured into a CUDA graph whose replay is timed (`device_ms`). The same
-calls issued eagerly (`eager_ms`, `library_eager_ms`) read the larger of the
-device's time and the host's pace.
+are captured into a CUDA graph whose replay is timed (`device_ms`); they run
+back to back on one input, which a small shape keeps in L2. `cold_ms` and
+`library_cold_ms` (`cold_device_ms`) cycle the launches over enough copies of
+the operands that each finds them in device memory. The same calls issued
+eagerly (`eager_ms`, `library_eager_ms`) read the larger of the device's time
+and the host's pace.
 
 Weights and inputs are random, from fixed seeds. Imports nothing of JAX.
 """
@@ -200,6 +213,40 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_BYTES = 50e6  # the H100's L2
+
+
+def cold_device_ms(fn, args, out_bytes: float = 0.0) -> float:
+    """Device time of `fn(*args)` with its operands in device memory, not in
+    L2: enough clones of the tensors among `args` that one pass over them
+    (with the `out_bytes` each call writes, its outputs kept) touches more
+    than twice the 50 MB L2 are cycled through in one CUDA graph, whose
+    replay is timed; a call then finds what it reads evicted by the calls
+    before it, as a caller that moves on to other tensors does. Mean per call."""
+    import torch
+    nbytes = out_bytes + sum(a.numel() * a.element_size() for a in args if torch.is_tensor(a))
+    n = max(3, math.ceil(2 * L2_BYTES / max(nbytes, 1.0)) + 1)
+    copies = [tuple(a.clone() if torch.is_tensor(a) else a for a in args) for _ in range(n)]
+    for c in copies[:2]:
+        fn(*c)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    outs = []
+    with torch.cuda.graph(graph):
+        for c in copies:
+            outs.append(fn(*c))
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    del graph, outs, copies
+    return ms
+
+
 # ---------------------------------------------------------------- phase 3
 
 def attention_flops(b: int, h: int, s_q: int, s_kv: int, d: int = 64) -> float:
@@ -256,7 +303,7 @@ def check_attention_kernel(device):
     import torch
     import torch.nn.functional as F
     from diffusion_pruning_tpu_torch.ops.flash_attention import (
-        gated_attention_reference, gated_flash_attention)
+        forward_kernel, gated_attention_reference, gated_flash_attention)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = []
@@ -280,7 +327,7 @@ def check_attention_kernel(device):
                 if bad is not None:
                     faults[fault] = per_head_rel_l2(bad, ref).max().item()
             row = {"phase": "kernel_check", "case": label, "b": b, "s_q": s_q, "s_kv": s_kv,
-                   "h": h, "gate": gate_name,
+                   "h": h, "gate": gate_name, "kernel": forward_kernel(s_q),
                    "max_abs_err": (out.float() - ref).abs().max().item(),
                    "ref_mean_abs": ref.abs().mean().item(),
                    "rel_l2": ((out.float() - ref).norm() / ref.norm()).item(),
@@ -305,16 +352,23 @@ def check_attention_kernel(device):
                 def kernel():
                     return gated_flash_attention(q, k, v, soft)
 
-                def library():
-                    return F.scaled_dot_product_attention(
-                        gq.transpose(1, 2), gk.transpose(1, 2), gv.transpose(1, 2))
+                def sdpa(a, b_, c):
+                    return F.scaled_dot_product_attention(a.transpose(1, 2), b_.transpose(1, 2),
+                                                          c.transpose(1, 2))
 
-                # device times (`device_ms`), and the same calls issued eagerly
+                def library():
+                    return sdpa(gq, gk, gv)
+
+                # device times (`device_ms`), the same with operands in device
+                # memory (`cold_device_ms`), and the calls issued eagerly
                 row["ms"] = device_ms(kernel, n_iter)
+                row["cold_ms"] = cold_device_ms(gated_flash_attention, (q, k, v, soft),
+                                                q.numel() * 2)
                 row["eager_ms"] = time_ms(kernel, n_iter)
                 row["plain_ms"] = time_ms(lambda: gated_attention_reference(q, k, v, soft),
                                           max(n_iter // 4, 2))
                 row["library_ms"] = device_ms(library, n_iter)
+                row["library_cold_ms"] = cold_device_ms(sdpa, (gq, gk, gv), q.numel() * 2)
                 row["library_eager_ms"] = time_ms(library, n_iter)
                 flop_ms = attention_flops(b, h, s_q, s_kv) / PEAK_BF16_FLOPS * 1e3
                 byte_ms = attention_bytes(b, h, s_q, s_kv, 2) / PEAK_BYTES * 1e3
@@ -510,8 +564,9 @@ def serve(pipe, mpnet, device, calls=SERVING_CALLS, per_forward=None, seed=SEED 
             fail(f"images not finite in [0, 1]: {row}")
         if not bool(((indices >= 0) & (indices < pipe.quantizer.n_e)).all()):
             fail(f"expert indices out of range: {row['expert_indices']}")
-        want = {k: STEPS * per_forward.get(k, 0) for k in counts}
-        if counts != want:
+        checked = wrapper_counts(counts)
+        want = {k: STEPS * per_forward.get(k, 0) for k in checked}
+        if checked != want:
             fail(f"expected {want} kernel launches per {STEPS}-step call, got {counts}")
         results.append(row)
     return results, launch_counts()
@@ -765,6 +820,15 @@ def time_training_kernels(q, k, v, do, gate, o, lse):
     for name, fn in calls.items():
         out[f"{name}_ms"] = device_ms(fn, n)
         out[f"{name}_eager_ms"] = time_ms(fn, n)
+    # with the operands in device memory (`cold_device_ms`); each output is
+    # the size of q (o; dq; dk and dv of k's size)
+    nq = q.numel() * 2
+    out["fwd_lse_cold_ms"] = cold_device_ms(fa.gated_flash_forward_lse, (q, k, v, gate), nq)
+    out["dq_cold_ms"] = cold_device_ms(fa.gated_flash_bwd_dq, (q, k, v, gate, o, lse, do), nq)
+    out["dkv_cold_ms"] = cold_device_ms(fa.gated_flash_bwd_dkv, (q, k, v, gate, lse, delta, do),
+                                        2 * k.numel() * 2)
+    out["fwd_lse_library_cold_ms"] = cold_device_ms(
+        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c), (gq, gk, gv), nq)
     for key in ("ms", "eager_ms"):
         out[f"bwd_library_{key}"] = (out.pop(f"step_library_{key}")
                                      - out[f"fwd_lse_library_{key}"])
@@ -824,13 +888,39 @@ ATTENTION_PER_STEP = {"gated_flash_fwd": 32, "gated_flash_fwd_lse": 32,
                       "gated_flash_bwd_dq": 32, "gated_flash_bwd_dkv": 32}
 
 
+def kernel_counters():
+    """Launches of the kernels that no wrapper counts alone, by kernel name:
+    the two forward kernels the attention wrappers choose between by query
+    length (`forward_launches`), and the reduction a split conv plan adds."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    return {"kernel:gated_flash_fwd_wgmma": (fa.forward_launches, "gated_flash_fwd_wgmma"),
+            "kernel:gated_flash_fwd": (fa.forward_launches, "gated_flash_fwd"),
+            "conv_split_reduce": (vars(nc.conv_split_reduce), "launches")}
+
+
 def launch_counts():
-    return {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    """Every wrapper's count (exact per forward and per step, checked) and
+    every kernel counter's."""
+    counts = {name: wrapper.launches for name, wrapper in kernel_wrappers().items()}
+    counts.update({name: holder[key] for name, (holder, key) in kernel_counters().items()})
+    return counts
 
 
 def reset_launch_counts():
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+    for holder, key in kernel_counters().values():
+        holder[key] = 0
+
+
+def wrapper_counts(counts):
+    """The wrappers' entries of `counts`, whose launches per forward or step
+    are fixed; the forward kernels' add up to the attention wrappers'."""
+    if (counts["kernel:gated_flash_fwd_wgmma"] + counts["kernel:gated_flash_fwd"]
+            != counts["gated_flash_fwd"] + counts["gated_flash_fwd_lse"]):
+        fail(f"the forward kernels' launches do not add up to their wrappers': {counts}")
+    return {k: v for k, v in counts.items() if k in kernel_wrappers()}
 
 
 def train(mods, cfg, opt, device, n_steps=TRAIN_STEPS, per_step=None, phase="train_step"):
@@ -882,7 +972,8 @@ def train(mods, cfg, opt, device, n_steps=TRAIN_STEPS, per_step=None, phase="tra
         terms = [k for k in metrics if k != "skipped"]
         if row["skipped"] or not all(math.isfinite(row[k]) for k in terms):
             fail(f"train step {i} gave a non-finite loss or was skipped: {row}")
-        if launches != {k: per_step.get(k, 0) for k in launches}:
+        checked = wrapper_counts(launches)
+        if checked != {k: per_step.get(k, 0) for k in checked}:
             fail(f"expected {per_step} launches per step, got {launches}")
         rows.append(row)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1015,7 +1106,11 @@ def training_entry(rows, kind: str, plain_key: str, library_key: str) -> dict:
     ops = sum(r[f"{kind}_bound_ms"] * r["sites_per_256px_forward"] for r in rows
               if r[f"{kind}_bound_by"] == "operations")
     bound = total(f"{kind}_bound_ms")
-    return {"ms": total(f"{kind}_ms"), "eager_ms": total(f"{kind}_eager_ms"),
+    extra = {}
+    if kind == "fwd_lse":
+        extra["library_cold_ms"] = total("fwd_lse_library_cold_ms")
+    return {"ms": total(f"{kind}_ms"), "cold_ms": total(f"{kind}_cold_ms"),
+            "eager_ms": total(f"{kind}_eager_ms"), **extra,
             "plain_ms": total(plain_key), "bound_ms": bound,
             "bound_by": "operations" if ops >= bound / 2 else "bytes",
             "library_ms": total(library_key),
@@ -1175,7 +1270,9 @@ class FusedCheck:
         def total(key):
             return sum(r[key] * r["sites"] for r in self.rows)
         ops = sum(r["bound_ms"] * r["sites"] for r in self.rows if r["bound_by"] == "operations")
-        return {"ms": total("ms"), "eager_ms": total("eager_ms"), "op_ms": total("op_ms"),
+        cold = {key: total(key) for key in ("cold_ms", "library_cold_ms")
+                if all(key in r for r in self.rows)}
+        return {"ms": total("ms"), **cold, "eager_ms": total("eager_ms"), "op_ms": total("op_ms"),
                 "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
                 "library_eager_ms": total("library_eager_ms"), "bound_ms": total("bound_ms"),
                 "bound_by": "operations" if ops >= total("bound_ms") / 2 else "bytes",
@@ -1245,10 +1342,85 @@ def check_group_norm_kernel(sites, device, check):
     torch.cuda.empty_cache()
 
 
+def time_split_reduce(row, plan, cbias, check):
+    """The split plan's reduction kernel at one timed conv shape, on a random
+    workspace: held against its plain version (f32 sums in the same slice
+    order, so it must agree to the bf16 rounding) and timed. Adds its times
+    to `row` under `reduce_*`."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    gen = torch.Generator(device=cbias.device).manual_seed(SEED + 16)
+    ws = torch.randn(plan.workspace_shape, device=cbias.device, generator=gen)
+    b, h, w = row["b"], row["h"], row["w"]
+
+    def kernel(ws_):
+        out = torch.empty((b, plan.cout, h, w), device=ws_.device, dtype=torch.bfloat16,
+                          memory_format=torch.channels_last)
+        return nc.conv_split_reduce(ws_, cbias, out)
+
+    got = kernel(ws).permute(0, 2, 3, 1).reshape(plan.m, plan.cout).float()
+    want = nc.conv_split_reduce_plain(ws, cbias, torch.float32)
+    err = (got - want).abs().max().item()
+    # the kernel's sum in slice order, rounded once: within half a bf16 ulp of the f32 sum
+    ulp = (got - want).abs().div(want.abs().clamp_min(1e-30)).max().item()
+    check["max_abs_err"] = max(check["max_abs_err"], err)
+    check["max_rel_err"] = max(check["max_rel_err"], ulp)
+    if not ulp <= 2.0 ** -8:
+        fail(f"conv_split_reduce disagrees with its plain version: {ulp} > 2^-8 at {row}")
+    row["reduce_ms"] = device_ms(lambda: kernel(ws), 20)
+    row["reduce_cold_ms"] = cold_device_ms(kernel, (ws,), 2.0 * plan.m * plan.cout)
+    row["reduce_plain_ms"] = time_ms(
+        lambda: nc.conv_split_reduce_plain(ws, cbias, torch.bfloat16), 5, warmup=1)
+    row["reduce_bound_ms"] = (4.0 * ws.numel() + 4.0 * plan.cout
+                              + 2.0 * plan.m * plan.cout) / PEAK_BYTES * 1e3
+    row["reduce_max_rel_err"] = ulp
+
+
+SPLIT_SWEEP = ((16, 1280, 1280, 4, 4), (16, 2560, 1280, 4, 4), (16, 1280, 1280, 8, 8),
+               (64, 2560, 1280, 4, 4), (16, 640, 640, 16, 16))
+
+
+def sweep_conv_splits(device):
+    """Device ms of the conv kernel (with its reduction) under each split over
+    K at a few shapes of the small maps, the rest of `conv_plan`'s plan
+    kept: the measurement behind its rule (one full wave, never a second)."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import build
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    gen = torch.Generator(device=device).manual_seed(SEED + 18)
+    for b, cin, cout, h, w in SPLIT_SWEEP:
+        x = torch.randn(b, cin, h, w, device=device, generator=gen).bfloat16()
+        x = x.contiguous(memory_format=torch.channels_last)
+        a = torch.ones(b, cin, device=device)
+        shift = torch.zeros(b, cin, device=device)
+        packed = (torch.randn(cout, 3, 3, cin, device=device, generator=gen)
+                  * (9 * cin) ** -0.5).bfloat16()
+        cbias = torch.zeros(cout, device=device)
+        plan = nc.conv_plan(b, h, w, cin, cout)
+
+        def conv(split):
+            p = dataclasses.replace(plan, split=split)
+            out = torch.empty((b, cout, h, w), device=device, dtype=torch.bfloat16,
+                              memory_format=torch.channels_last)
+            ws = nc.conv_workspace(p, device)
+            build.launch("norm_conv3x3", device, x.data_ptr(), a.data_ptr(), shift.data_ptr(),
+                         packed.data_ptr(), cbias.data_ptr(), out.data_ptr(), build.ptr(ws), b,
+                         h, w, cin, cout, 1, p.patch[0], p.bn, split)
+            return out if ws is None else nc.conv_split_reduce(ws, cbias, out)
+
+        splits = sorted({1, 2, 4, 8, 16, plan.split} & set(range(1, plan.chunks + 1)))
+        emit({"phase": "conv_split_sweep", "b": b, "c_in": cin, "c_out": cout, "h": h, "w": w,
+              "plan_split": plan.split, "base_blocks": plan.m_tiles * plan.n_tiles,
+              "ms_by_split": {sp: device_ms(lambda: conv(sp), 10) for sp in splits}})
+    torch.cuda.empty_cache()
+
+
 def check_norm_conv_kernel(sites, device, check):
     import torch
     import torch.nn.functional as F
     from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+
+    reduce_check = check.reduce = {"max_abs_err": 0.0, "max_rel_err": 0.0}
 
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     eps = 1e-5
@@ -1280,24 +1452,34 @@ def check_norm_conv_kernel(sites, device, check):
                 a0, b0 = nc.affine_coeffs(x, scale, bias, 32, eps, None)
                 faults["ungated_statistics"] = nc.norm_conv3x3_plain(xf, a0 * gate_c, b0, wf,
                                                                      cbias, True)
+            plan = nc.conv_plan(b, h, w, cin, cout)
             row = {"b": b, "c_in": cin, "c_out": cout, "h": h, "w": w, "gate": gate_name,
-                   "site_gated": gated, "sites": n}
+                   "site_gated": gated, "sites": n,
+                   "plan": {"patch": plan.patch, "bn": plan.bn, "split": plan.split,
+                            "blocks": plan.blocks, "workspace_bytes": plan.workspace_bytes}}
             check.take(row, out, ref, unfused, faults)
             if timed and gate_name == ("soft" if gated else "none"):
                 w_cl = weight.contiguous(memory_format=torch.channels_last)
                 sb, bb16, cb16 = scale.bfloat16(), bias.bfloat16(), cbias.bfloat16()
                 g4 = None if gate_c is None else gate_c[:, :, None, None].bfloat16()
 
-                def library():
-                    y = x if g4 is None else x * g4
-                    return F.conv2d(F.silu(F.group_norm(y, 32, sb, bb16, eps)), w_cl, cb16,
+                def chain(x_, w_, g_):
+                    y = x_ if g_ is None else x_ * g_
+                    return F.conv2d(F.silu(F.group_norm(y, 32, sb, bb16, eps)), w_, cb16,
                                     padding=1)
+
+                def library():
+                    return chain(x, w_cl, g4)
 
                 def kernel():
                     return nc.norm_conv3x3(x, a, bb, packed, cbias, True)
 
                 iters, holder = 10, nc.PackedWeight()
+                out_bytes = 2.0 * b * h * w * cout
                 row["ms"] = device_ms(kernel, iters)
+                row["cold_ms"] = cold_device_ms(
+                    lambda *t: nc.norm_conv3x3(*t, cbias, True), (x, a, bb, packed), out_bytes)
+                row["library_cold_ms"] = cold_device_ms(chain, (x, w_cl, g4), out_bytes)
                 row["eager_ms"] = time_ms(kernel, iters)
                 row["op_ms"] = time_ms(lambda: nc.group_norm_silu_conv3x3(
                     x, scale, bias, weight, cbias, gate_c, 32, eps, True, packed=holder), iters)
@@ -1309,6 +1491,8 @@ def check_norm_conv_kernel(sites, device, check):
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     2.0 * m * cout * 9 * cin, PEAK_BF16_FLOPS,
                     2.0 * (m * cin + 9 * cin * cout + m * cout) + 8.0 * b * cin + 4.0 * cout)
+                if plan.split > 1:
+                    time_split_reduce(row, plan, cbias, reduce_check)
                 check.rows.append(row)
             emit(row)
         del x, xf, wf, weight, packed, out, ref, unfused, y_pad, no_tap, faults
@@ -1375,6 +1559,78 @@ def check_norm_linear_kernel(sites, device, check):
     torch.cuda.empty_cache()
 
 
+IDENTITY_TAP_CASES = ((16, 320, 32, 32), (16, 1280, 4, 4))  # (B, C, H, W): unsplit and split
+
+
+def ulp_reading(out, ref):
+    """max |out − ref| / (2^-7·|ref| + 1e-6): at most 1 when every element is
+    within one bf16 ulp of the reference."""
+    return ((out.float() - ref.float()).abs() / (ref.float().abs() * 2.0 ** -7 + 1e-6)).max().item()
+
+
+def check_conv_identity_tap(device):
+    """The activation alone, through the conv kernel: C_out = C_in, the centre
+    tap the identity, the other taps and the bias 0, so out = bf16(act(a·x +
+    b)) exactly; y spans [−8, 8] (gated: a carries the gate, b is random), so
+    that the cancellation of SiLU's tanh.approx form near y = −5 shows. Each
+    element within one bf16 ulp of the plain version; the tanh.approx form,
+    emulated by rounding tanh(y/2) to 11 significant bits (its documented
+    error is about 2^-11), must read above."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    rows = []
+    for b, c, h, w in IDENTITY_TAP_CASES:
+        x = (torch.rand(b, c, h, w, device=device, generator=gen) * 2 - 1).bfloat16()
+        x = x.contiguous(memory_format=torch.channels_last)
+        packed = torch.zeros(c, 3, 3, c, device=device, dtype=torch.bfloat16)
+        packed[:, 1, 1] = torch.eye(c, device=device, dtype=torch.bfloat16)
+        zero = torch.zeros(c, device=device)
+        g = torch.rand(b, c, device=device, generator=gen) * 0.75 + 0.25
+        g[:, : c // 32] = 0.0  # a closed group
+        coeffs = {"none": (torch.full((b, c), 8.0, device=device), torch.zeros(b, c, device=device)),
+                  "soft": (8.0 * g, torch.rand(b, c, device=device, generator=gen) * 2 - 1)}
+        for gate_name, (a, bb) in coeffs.items():
+            for silu in (True, False):
+                out = nc.norm_conv3x3(x, a, bb, packed, zero, silu)
+                # the plain version's operand, bf16(act(y)), is its output here:
+                # exact, where a cuDNN f32 conv of it may take a Winograd path
+                ref = nc.affine_act(x, a, bb, silu)
+                row = {"phase": "conv_identity_tap", "b": b, "c": c, "h": h, "w": w,
+                       "gate": gate_name, "silu": silu,
+                       "split": nc.conv_plan(b, h, w, c, c).split,
+                       "ulp_reading": ulp_reading(out, ref), "limit": 1.0}
+                if silu:
+                    y = (a[:, :, None, None] * x.float() + bb[:, :, None, None]).bfloat16().float()
+                    t = torch.tanh(y / 2).half().float()
+                    fault = (y * (0.5 + 0.5 * t)).bfloat16()
+                    row["planted_fault_tanh_approx_ulp_reading"] = ulp_reading(fault, ref)
+                emit(row)
+                if not row["ulp_reading"] <= 1.0:
+                    fail(f"the conv kernel's activation is off by more than one bf16 ulp: {row}")
+                if silu and not row["planted_fault_tanh_approx_ulp_reading"] > 1.0:
+                    fail(f"the tanh.approx form reads within one bf16 ulp: {row}")
+                rows.append(row)
+    return {"worst_ulp_reading": max(r["ulp_reading"] for r in rows),
+            "least_planted_fault_ulp_reading": min(r["planted_fault_tanh_approx_ulp_reading"]
+                                                   for r in rows if r["silu"])}
+
+
+def split_reduce_entry(check):
+    """conv_split_reduce's times summed over the conv sites of one 256px
+    forward whose plan splits K."""
+    rows = [r for r in check.rows if "reduce_ms" in r]
+
+    def total(key):
+        return sum(r[key] * r["sites"] for r in rows)
+    return {"ms": total("reduce_ms"), "cold_ms": total("reduce_cold_ms"),
+            "plain_ms": total("reduce_plain_ms"), "bound_ms": total("reduce_bound_ms"),
+            "bound_by": "bytes", "library_ms": None,
+            "launches_per_forward": sum(r["sites"] for r in rows),
+            "max_abs_err": check.reduce["max_abs_err"],
+            "max_rel_err": check.reduce["max_rel_err"]}
+
+
 def check_fused_kernels(unet, device):
     """Phase 9: the three kernels at the shapes of the 256px forward (B_eff
     16, timed) and the 512px extras (B_eff 4, timed); the conv and the linear
@@ -1389,6 +1645,8 @@ def check_fused_kernels(unet, device):
                                                   "norm_linear")}
     check_group_norm_kernel(sites["gn"], device, checks["group_norm_silu"])
     check_norm_conv_kernel(sites["conv"], device, checks["norm_conv3x3"])
+    checks["norm_conv3x3"].identity_tap = check_conv_identity_tap(device)
+    sweep_conv_splits(device)
     check_norm_linear_kernel(sites["linear"], device, checks["norm_linear"])
     for name, check in checks.items():
         emit({"phase": "fused_kernel_check_summary", "kernel": name, "limit": FUSED_REL_L2,
@@ -1509,7 +1767,9 @@ def check_fused_unet(unet, device):
             reset_launch_counts()
             with layout_watch() as layout:
                 out = twin(x, t, ehs, arch=arch).float()
-            counts = {k: v for k, v in launch_counts().items() if k != "gated_flash_fwd"}
+            all_counts = launch_counts()
+            counts = {k: v for k, v in wrapper_counts(all_counts).items()
+                      if k != "gated_flash_fwd"}
             module, name, faulty = faults[flag]
             with patched(module, name, faulty):
                 bad = twin(x, t, ehs, arch=arch).float()
@@ -1518,7 +1778,7 @@ def check_fused_unet(unet, device):
                          "planted_fault": faulty.__name__,
                          "planted_fault_rel_l2_vs_f32": rel(bad),
                          "planted_fault_rel_l2_vs_unfused_bf16": rel(bad, plain),
-                         "launches_per_forward": {k: v for k, v in counts.items() if v},
+                         "launches_per_forward": {k: v for k, v in all_counts.items() if v},
                          "fused_op_calls": layout["calls"],
                          "fused_op_calls_that_converted_the_layout": layout["converted"],
                          "finite": bool(torch.isfinite(out).all()),
@@ -1697,12 +1957,76 @@ def train_fused(pipe, twins, device, gen):
     return summary
 
 
+def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches):
+    """One forward kernel's line: its share of the phase-3 sites (by
+    `forward_kernel`) and of the phase-7 training sites, its launches in the
+    serving and train-step runs."""
+    from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
+    mine = [r for r in rows if r["kernel"] == name]
+    mine_train = [r for r in train_rows if forward_kernel(r["s_q"]) == name]
+    agg = {key: sum(r[key] * r["sites_per_256px_forward"] for r in mine)
+           for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "library_ms", "library_cold_ms",
+                       "library_eager_ms", "bound_ms")}
+    ops = sum(r["bound_ms"] * r["sites_per_256px_forward"] for r in mine
+              if r["bound_by"] == "operations")
+    key = f"kernel:{name}"
+    by_path = {"serving": serve_counts[key], "train_step": train_launches[key]}
+    wgmma = name == "gated_flash_fwd_wgmma"
+    return {
+        "name": name, "route": "cuda",
+        "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_fwd.cu",
+        "replaces": "diffusion_pruning_tpu/ops/flash_attention.py:148",
+        "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:181",
+                          "diffusion_pruning_tpu/ops/flash_attention.py:215",
+                          "diffusion_pruning_tpu/ops/flash_attention.py:284"],
+        "dispatch": "S_q > 64 (wgmma, TMA)" if wgmma else "S_q <= 64 (mma.sync, cp.async)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "rel_l2_worst_head": max(r["rel_l2_worst_head"] for r in mine),
+        "rel_l2_worst_head_all_gates": worst["rel_l2_worst_head"],
+        **agg, "bound_by": "operations" if ops >= agg["bound_ms"] / 2 else "bytes",
+        "library_call": "F.scaled_dot_product_attention of pre-masked q/k/v",
+        "shapes": "its attention sites of one SD-2.1 U-Net forward at 256px, B_eff 16, bf16, "
+                  "soft gates",
+        "training_forward": {**training_entry(mine_train, "fwd_lse", "fwd_lse_plain_ms",
+                                              "fwd_lse_library_ms"),
+                             "lse_max_abs_err": train_check["worst"]["lse_max_abs"],
+                             "library_call": "F.scaled_dot_product_attention forward of "
+                                             "pre-masked q/k/v under autograd"},
+    }
+
+
 def fused_kernel_entry(check, name, source, replaces, also, library_call, launches_by_path):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "also_replaces": also, "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path, **check.entry(),
+            **({"identity_tap_silu": check.identity_tap} if hasattr(check, "identity_tap") else {}),
             "least_planted_fault_rel_l2": check.least_fault, "library_call": library_call,
             "shapes": "the sites of one SD-2.1 U-Net forward at 256px, B_eff 16, bf16"}
+
+
+def sass_counts(build):
+    """Tensor-core and TMA instructions in each built kernel's SASS
+    (`cuobjdump --dump-sass`): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA
+    tile loads), by source and kernel function."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not measured"
+    out = {}
+    for source in build.SOURCES:
+        lib = build._library_path(source)
+        sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                              text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                out[f"{source.stem}:{fn}"] = dict.fromkeys(("HGMMA", "HMMA", "UTMALDG"), 0)
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA", "UTMALDG"):
+                    out[f"{source.stem}:{fn}"][op] += f" {op}." in line or f" {op} " in line
+    return out
 
 
 # ---------------------------------------------------------------- main
@@ -1740,6 +2064,7 @@ def main() -> None:
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"ptxas {source.name}: {line.strip()}")
+    emit({"phase": "sass", "instructions_by_kernel": sass_counts(build)})
 
     # 3. kernel vs plain version
     t0 = time.perf_counter()
@@ -1810,43 +2135,15 @@ def main() -> None:
     fused_train = train_fused(pipe, twins, device, gen)
     log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
 
-    # kernels line: inference times summed over the 32 sites of one 256px
-    # forward (B_eff 16), training times over the 32 sites of one student
-    # pass of the train step (B = 64)
-    agg = {key: sum(r[key] * r["sites_per_256px_forward"] for r in rows)
-           for key in ("ms", "eager_ms", "plain_ms", "library_ms", "library_eager_ms",
-                       "bound_ms")}
-    ops_share = sum(r["bound_ms"] * r["sites_per_256px_forward"] for r in rows
-                    if r["bound_by"] == "operations") / agg["bound_ms"]
+    # kernels line: inference times summed over the sites of one 256px
+    # forward (B_eff 16) that each forward kernel serves (S_q > 64: wgmma,
+    # else mma.sync), training times over the sites of one student pass of
+    # the train step (B = 64)
     train_launches = train_summary["launches"]
-    emit({"kernels": [{
-        "name": "gated_flash_fwd",
-        "route": "cuda",
-        "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_fwd.cu",
-        "replaces": "diffusion_pruning_tpu/ops/flash_attention.py:148",
-        "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:181",
-                          "diffusion_pruning_tpu/ops/flash_attention.py:215",
-                          "diffusion_pruning_tpu/ops/flash_attention.py:284"],
-        "launches": launches + train_launches["gated_flash_fwd"]
-                    + train_launches["gated_flash_fwd_lse"],
-        "launches_by_path": {"serving": launches,
-                             "train_teacher": train_launches["gated_flash_fwd"],
-                             "train_student_lse": train_launches["gated_flash_fwd_lse"]},
-        "max_abs_err": worst["max_abs_err"],
-        "rel_l2_worst_head": worst["rel_l2_worst_head"],
-        "ms": agg["ms"], "eager_ms": agg["eager_ms"], "plain_ms": agg["plain_ms"],
-        "bound_ms": agg["bound_ms"],
-        "bound_by": "operations" if ops_share >= 0.5 else "bytes",
-        "library_ms": agg["library_ms"], "library_eager_ms": agg["library_eager_ms"],
-        "shapes": "the 32 attention sites of one SD-2.1 U-Net forward at 256px, "
-                  "B_eff 16, bf16, soft gates",
-        "training_forward": {**training_entry(train_rows, "fwd_lse", "fwd_lse_plain_ms",
-                                              "fwd_lse_library_ms"),
-                             "launches": train_launches["gated_flash_fwd_lse"],
-                             "lse_max_abs_err": train_check["worst"]["lse_max_abs"],
-                             "library_call": "F.scaled_dot_product_attention forward of "
-                                             "pre-masked q/k/v under autograd"},
-    }, {
+    forward_entries = [
+        forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches)
+        for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd")]
+    kernels = [*forward_entries, {
         "name": "gated_flash_bwd_dq",
         "route": "cuda",
         "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu",
@@ -1887,7 +2184,22 @@ def main() -> None:
         "diffusion_pruning_tpu/ops/norm_conv.py:279", [], "F.group_norm, then F.linear",
         {"serving_fused_norm_conv": counts_nc["norm_linear"],
          "train_fused_norm_conv": fused_train["launches"]["norm_linear"]}),
-    ]})
+        {"name": "conv_split_reduce", "route": "cuda",
+         "source": "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
+         "replaces": "diffusion_pruning_tpu/ops/norm_conv.py:98",
+         "role": "the fixed-order sum of norm_conv3x3's K slices where its plan splits K",
+         "launches": counts_nc["conv_split_reduce"]
+                     + fused_train["launches"]["conv_split_reduce"],
+         "launches_by_path": {"serving_fused_norm_conv": counts_nc["conv_split_reduce"],
+                              "train_fused_norm_conv":
+                                  fused_train["launches"]["conv_split_reduce"]},
+         **split_reduce_entry(fused_checks["norm_conv3x3"]),
+         "shapes": "the split conv sites of one SD-2.1 U-Net forward at 256px, B_eff 16"},
+    ]
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        fail(f"kernels of the path launched no time in its run: {idle}")
+    emit({"kernels": kernels})
     log(f"total {time.perf_counter() - t_start:.1f}s; 256px img/s (median of 3) "
         f"{8 / s256[1]:.4f}; 512px seconds {calls[5]['seconds']:.4f}; train step "
         f"{train_summary['seconds_per_step_median_warm']:.4f} s "

@@ -3,7 +3,10 @@
 Each source under `csrc/` is compiled with nvcc for sm_90a at first use into
 `build/torch_kernels/` of the checkout (all sources at once, one nvcc each)
 and loaded with ctypes. A library's file name carries a hash of its source,
-the shared headers and the compiler flags, so an edit rebuilds it.
+the shared headers and the compiler flags, so an edit rebuilds it. No
+library links against the driver (libcuda): the kernels that take TMA tensor
+maps find `cuTensorMapEncodeTiled` in the already-loaded driver with dlsym
+(`csrc/sm90_common.cuh`; hence `-ldl`).
 
 `SIGNATURES` lists every C entry point with the source that holds it;
 `launch` calls one on PyTorch's current stream and raises on a refused
@@ -28,18 +31,20 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
     "gated_flash_fwd", "gated_flash_bwd", "group_norm", "norm_conv"))
-HEADERS = (CSRC / "mma_common.cuh", CSRC / "flash_common.cuh")
+HEADERS = (CSRC / "mma_common.cuh", CSRC / "flash_common.cuh", CSRC / "sm90_common.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 SIGNATURES = {  # C function -> (source stem, argtypes); the stream comes last
     "gated_flash_fwd": ("gated_flash_fwd", [_P] * 6 + [_I] * 4 + [_F, _P]),
+    "gated_flash_fwd_wgmma": ("gated_flash_fwd", [_P] * 6 + [_I] * 4 + [_F, _P]),
     "gated_flash_bwd_dq": ("gated_flash_bwd", [_P] * 10 + [_I] * 4 + [_F, _P]),
     "gated_flash_bwd_dkv": ("gated_flash_bwd", [_P] * 10 + [_I] * 4 + [_F, _P]),
     "group_norm_silu": ("group_norm", [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
-    "norm_conv3x3": ("norm_conv", [_P] * 6 + [_I] * 6 + [_P]),
+    "norm_conv3x3": ("norm_conv", [_P] * 7 + [_I] * 9 + [_P]),
+    "conv_split_reduce": ("norm_conv", [_P] * 3 + [_L, _I, _I, _P]),
     "norm_linear": ("norm_conv", [_P] * 6 + [_I] * 4 + [_P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}

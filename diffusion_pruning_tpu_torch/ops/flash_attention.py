@@ -6,12 +6,16 @@ With gate g per (batch, head),
 
     masked SDPA(q·g, k·g, v·g) == softmax(q·kᵀ · d^-½ · g²) · v · g
 
-so the kernels scale the logits by g² and the output by g. Three kernels, two
+so the kernels scale the logits by g² and the output by g. Four kernels, two
 sources in `csrc/`:
 
-* `gated_flash_fwd` (gated_flash_fwd.cu) replaces all four inference forwards
-  of the JAX package's Pallas flash attention; with an lse output it is also
-  the training forward (f32 log-sum-exp of each row's logits, natural log);
+* the forward (gated_flash_fwd.cu) replaces all four inference forwards of
+  the JAX package's Pallas flash attention; with an lse output it is also
+  the training forward (f32 log-sum-exp of each row's logits, natural log).
+  It is two kernels, chosen by the query length: `gated_flash_fwd_wgmma`
+  (wgmma, K/V by TMA, 128 query rows a block) at S_q > SMALL_Q_ROWS, and the
+  first version `gated_flash_fwd` (mma.sync, 64 rows a block) at
+  S_q <= SMALL_Q_ROWS, where a 128-row tile would leave most rows idle;
 * `gated_flash_bwd_dq` and `gated_flash_bwd_dkv` (gated_flash_bwd.cu) replace
   the four Pallas backward bodies: dq, dk, dv, and dgate[b, h] =
   Σ dq'∘q + Σ dk'∘k + Σ dv'∘v, summed here from per-block partials.
@@ -38,7 +42,8 @@ from diffusion_pruning_tpu_torch.ops.build import ptr as _ptr
 from diffusion_pruning_tpu_torch.ops.build import require_cuda as _device
 
 HEAD_DIM = 64
-TILE = 64  # rows per tile of every kernel, queries and kv alike
+TILE = 64  # rows per tile of the mma.sync kernels, queries and kv alike
+SMALL_Q_ROWS = 64  # the forward runs the mma.sync kernel at S_q <= this, wgmma above
 _LOG2E = 1.4426950408889634
 
 
@@ -157,11 +162,19 @@ def _check_rows(name, t, b, h, s_q, device):
                          f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def forward_kernel(s_q: int) -> str:
+    """The forward kernel that runs a query length: `gated_flash_fwd_wgmma`
+    above SMALL_Q_ROWS rows, the mma.sync `gated_flash_fwd` at or below."""
+    return "gated_flash_fwd_wgmma" if s_q > SMALL_Q_ROWS else "gated_flash_fwd"
+
+
 def _forward(q, k, v, gate, lse):
     b, s_q, h, d = q.shape
     o = torch.empty_like(q)
-    build.launch("gated_flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(gate),
-            o.data_ptr(), _ptr(lse), b, h, s_q, k.shape[1], d ** -0.5 * _LOG2E)
+    name = forward_kernel(s_q)
+    build.launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(gate),
+                 o.data_ptr(), _ptr(lse), b, h, s_q, k.shape[1], d ** -0.5 * _LOG2E)
+    forward_launches[name] += 1
     return o
 
 
@@ -169,8 +182,9 @@ def gated_flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             gate: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (o, lse (B·H, S_q) f32, natural log). CPU tensors
-    run `gated_attention_reference_lse`; CUDA tensors launch gated_flash_fwd
-    with its lse output (counted in `.launches`)."""
+    run `gated_attention_reference_lse`; CUDA tensors launch the forward
+    kernel `forward_kernel` picks, with its lse output (counted in
+    `.launches`)."""
     if q.device.type == "cpu":
         return gated_attention_reference_lse(q, k, v, gate)
     _device(q)
@@ -284,6 +298,9 @@ def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+# launches of each forward kernel, by either wrapper (the wrappers' own
+# `.launches` count their calls)
+forward_launches = {"gated_flash_fwd_wgmma": 0, "gated_flash_fwd": 0}
 gated_flash_attention.launches = 0
 gated_flash_forward_lse.launches = 0
 gated_flash_bwd_dq.launches = 0

@@ -30,7 +30,10 @@ copy beside the module and rebuilds it when the parameter changed. The linear
 form takes (B, S, C) tokens and `nn.Linear`'s (C_out, C_in) weight as it is.
 
 A CPU tensor takes the plain versions; a CUDA tensor must be bf16 with
-C_in % 8 == 0 and goes to the kernels or raises. The backward recomputes
+C_in % 8 == 0 and goes to the kernels or raises. The conv kernel's plan (patch
+shape, output-channel tile, split over K) is chosen per shape by `conv_plan`;
+a split plan writes f32 partial sums to a workspace the wrapper allocates,
+and a second kernel adds them in a fixed order. The backward recomputes
 through the unfused composition (`norm_conv_unfused`, `norm_linear_unfused`)
 under autograd and returns gradients for x, scale, bias, the weight, its bias
 and `gate_c`, as the JAX ops' custom_vjps do; there is no backward kernel on
@@ -38,6 +41,7 @@ either side.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -128,6 +132,89 @@ def norm_linear_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight:
     return F.linear(y, weight.float(), lbias.float()).to(x.dtype)
 
 
+# ---------------------------------------------------------------- the conv kernel's plan
+
+CONV_CHUNK = 64        # channels per K chunk of norm_conv3x3 (one 128-byte weight row)
+CONV_BLOCK_PIXELS = 128
+SM_COUNT = 132         # H100 SXM
+# (patch width, patch height, patches a block) by the map's width: 128 pixels a block
+_PATCHES = ((8, (16, 8, 1)), (4, (8, 8, 2)), (0, (4, 4, 8)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How norm_conv3x3 cuts one shape: `patch` (TW, TH) pixels, `patches`
+    of them a block (128 output pixels), `bn` output channels a block, and
+    `split` slices of the `chunks` 64-channel chunks of K, one slice per
+    blockIdx.z; `m` = B·H·W output pixels."""
+    patch: Tuple[int, int]
+    patches: int
+    bn: int
+    split: int
+    chunks: int
+    m_tiles: int
+    n_tiles: int
+    m: int
+    cin: int
+    cout: int
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles * self.split
+
+    @property
+    def slices(self) -> Tuple[Tuple[int, int], ...]:
+        """The input channels [lo, hi) of each K slice, in slice order (the
+        kernel's k_lo = z·chunks / split, k_hi = (z + 1)·chunks / split)."""
+        out = []
+        for z in range(self.split):
+            lo, hi = z * self.chunks // self.split, (z + 1) * self.chunks // self.split
+            out.append((lo * CONV_CHUNK, min(hi * CONV_CHUNK, self.cin)))
+        return tuple(out)
+
+    @property
+    def workspace_shape(self) -> Optional[Tuple[int, int, int]]:
+        """(split, B·H·W, C_out) f32 partial sums, or None when unsplit."""
+        return (self.split, self.m, self.cout) if self.split > 1 else None
+
+    @property
+    def workspace_bytes(self) -> int:
+        return 4 * self.split * self.m * self.cout if self.split > 1 else 0
+
+
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
+    """The plan of norm_conv3x3 for x (B, C_in, H, W) and C_out outputs.
+
+    * patches: 8×16 pixels at maps wider than 8, two of 8×8 at 5-8, eight of
+      4×4 below (a block at a 4×4 map spans eight images);
+    * bn = 160 output channels (every C_out of the SD-2.1 U-Net is a
+      multiple), 8 at C_out <= 8 (the output head);
+    * where M tiles × N tiles leaves at least half of the 132 SMs idle (the
+      8×8 and 4×4 maps), the channel chunks of K (never the taps) are split
+      into as many slices as still fit in one wave (one block a SM: a block
+      takes 130-170 KB of shared memory), at most one chunk a slice. Measured
+      on the H100 (`PERF.md` §6), one full wave beats every split that spills
+      into a second, and a grid of 128-256 blocks runs faster unsplit. A
+      split needs C_out % 4 == 0 (the reduction's four-column stores)."""
+    tw, th, npatch = next(p for wmin, p in _PATCHES if w > wmin)
+    patches = b * -(-h // th) * -(-w // tw)
+    m_tiles = -(-patches // npatch)
+    bn = 8 if cout <= 8 else 160
+    n_tiles = -(-cout // bn)
+    chunks = -(-cin // CONV_CHUNK)
+    base = m_tiles * n_tiles
+    split = max(1, min(chunks, SM_COUNT // base)) if cout % 4 == 0 else 1
+    return ConvPlan(patch=(tw, th), patches=npatch, bn=bn, split=split, chunks=chunks,
+                    m_tiles=m_tiles, n_tiles=n_tiles, m=b * h * w, cin=cin, cout=cout)
+
+
+def conv_workspace(plan: ConvPlan, device: torch.device) -> Optional[torch.Tensor]:
+    """The f32 workspace of a split plan (uninitialised: every element is
+    written by its slice), None when unsplit."""
+    shape = plan.workspace_shape
+    return None if shape is None else torch.empty(shape, device=device, dtype=torch.float32)
+
+
 def _check_operands(x, a, b, weight, w_shape, out_bias, cin, cout):
     if cin % 8:
         raise ValueError(f"the kernel takes C_in % 8 == 0, got {cin}")
@@ -150,8 +237,9 @@ def norm_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, packed: torc
     """The conv kernel's wrapper. x: (B, C_in, H, W) channels_last; a, b:
     (B, C_in) f32; packed: (C_out, 3, 3, C_in) in x's dtype; conv_bias:
     (C_out,) f32. Returns (B, C_out, H, W) channels_last. CPU tensors run
-    `norm_conv3x3_plain`; CUDA tensors launch norm_conv3x3 (counted in
-    `.launches`) or raise."""
+    `norm_conv3x3_plain`; CUDA tensors launch norm_conv3x3 under
+    `conv_plan` (counted in `.launches`), and with a split plan
+    `conv_split_reduce` after it, or raise."""
     if x.device.type == "cpu":
         return norm_conv3x3_plain(x, a, b, packed, conv_bias, silu)
     build.require_cuda(x)
@@ -163,10 +251,48 @@ def norm_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, packed: torc
     _check_operands(x, a, b, packed, (cout, 3, 3, cin), conv_bias, cin, cout)
     out = torch.empty((bsz, cout, h, w), device=x.device, dtype=x.dtype,
                       memory_format=torch.channels_last)
+    plan = conv_plan(bsz, h, w, cin, cout)
+    ws = conv_workspace(plan, x.device)
     build.launch("norm_conv3x3", x.device, x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 packed.data_ptr(), conv_bias.data_ptr(), out.data_ptr(), bsz, h, w, cin, cout,
-                 int(silu))
+                 packed.data_ptr(), conv_bias.data_ptr(), out.data_ptr(), build.ptr(ws), bsz,
+                 h, w, cin, cout, int(silu), plan.patch[0], plan.bn, plan.split)
     norm_conv3x3.launches += 1
+    if ws is not None:
+        conv_split_reduce(ws, conv_bias, out)
+    return out
+
+
+def conv_split_reduce_plain(ws: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype
+                            ) -> torch.Tensor:
+    """The reduction kernel's plain version: the (split, M, C_out) f32
+    partial sums added in slice order, + bias in f32, rounded once; (M, C_out)."""
+    total = ws[0].clone()
+    for part in ws[1:]:
+        total += part
+    return (total + bias.float()).to(dtype)
+
+
+def conv_split_reduce(ws: torch.Tensor, bias: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The reduction kernel's wrapper, the second launch of a split plan:
+    out (B, C_out, H, W) channels_last ← Σ_s ws[s] + bias, the slices added in
+    order (deterministic). ws: (split, B·H·W, C_out) f32. CPU tensors run
+    `conv_split_reduce_plain`; CUDA tensors launch conv_split_reduce (counted
+    in `.launches`) or raise."""
+    split, m, cout = ws.shape
+    if out.shape[0] * out.shape[2] * out.shape[3] != m or out.shape[1] != cout:
+        raise ValueError(f"out {tuple(out.shape)} does not hold the workspace's {m} × {cout}")
+    if ws.device.type == "cpu":
+        nhwc = out.permute(0, 2, 3, 1)
+        nhwc.copy_(conv_split_reduce_plain(ws, bias, out.dtype).view(nhwc.shape))
+        return out
+    build.require_cuda(ws)
+    if ws.dtype != torch.float32 or not ws.is_contiguous() or ws.data_ptr() % 16 or cout % 4:
+        raise ValueError("ws must be contiguous 16-byte aligned float32 with C_out % 4 == 0")
+    check_activation("out", out, channels_last=True)
+    check_vector("bias", bias, cout, ws.device)
+    build.launch("conv_split_reduce", ws.device, ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 m, cout, split)
+    conv_split_reduce.launches += 1
     return out
 
 
@@ -193,6 +319,7 @@ def norm_linear(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight: torch
 
 
 norm_conv3x3.launches = 0
+conv_split_reduce.launches = 0
 norm_linear.launches = 0
 
 

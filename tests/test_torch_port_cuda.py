@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from diffusion_pruning_tpu_torch.ops.flash_attention import (
+    forward_kernel,
+    forward_launches,
     gated_attention_reference,
     gated_attention_reference_lse,
     gated_flash_attention,
@@ -65,16 +67,24 @@ def _f32_reference(fn, *args):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+# S_q > 64 runs the wgmma kernel, S_q <= 64 the mma.sync one; S_kv = 77 (no
+# tile's multiple) at B = 3, so that a TMA box past S_kv must stay inside its
+# batch element
 @pytest.mark.parametrize("s_q,s_kv,h", [(1024, 1024, 5), (256, 77, 10), (16, 16, 20),
-                                        (100, 77, 3), (4096, 4096, 1)])
+                                        (100, 77, 3), (4096, 4096, 1), (1024, 77, 5),
+                                        (64, 77, 20), (4096, 77, 5)])
 def test_cuda_kernel_matches_plain_version(s_q, s_kv, h):
     """The bf16 kernel against the plain version in f32 (TF32 off) on the
     same bf16 inputs."""
-    q, k, v, gate = _inputs(2, s_q, s_kv, h, seed=s_q + h)
+    q, k, v, gate = _inputs(3 if s_kv == 77 else 2, s_q, s_kv, h, seed=s_q + h)
     before = gated_flash_attention.launches
+    kernel = forward_kernel(s_q)
+    before_kernel = forward_launches[kernel]
     out = gated_flash_attention(q, k, v, gate)
     torch.cuda.synchronize()
     assert gated_flash_attention.launches == before + 1
+    assert forward_launches[kernel] == before_kernel + 1
+    assert kernel == ("gated_flash_fwd_wgmma" if s_q > 64 else "gated_flash_fwd")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -100,6 +110,13 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         gated_flash_attention(q, k, v, gate.bfloat16())
     with pytest.raises(TypeError, match="bfloat16"):  # the training path takes bf16 too
         gated_flash_attention(q.float().requires_grad_(), k.float(), v.float(), gate)
+    # TMA reads from 16-byte aligned bases: a view one element in is refused
+    q2, k2, v2, _ = _inputs(1, 200, 200, 2, seed=1)
+    shifted = [t.flatten()[1:1 + t.numel() - 128].view(1, 199, 2, 64) for t in (q2, k2, v2)]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gated_flash_attention(*shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gated_flash_forward_lse(*shifted)
 
 
 # the 8 attention shapes of the SD-2.1 U-Net at 256px, and a ragged odd-head one
@@ -208,11 +225,15 @@ def test_cuda_group_norm_kernel_matches_plain_version(b, c, h, w, silu, eps):
     torch.testing.assert_close(out[0, :10, 0, 0], want, rtol=2e-2, atol=1e-3)
 
 
+# one shape per plan (`conv_plan`): the 32×32 maps unsplit, the 8×8 and 4×4
+# maps split over K, the output head (C_out = 4, BN = 8, split), a ragged one;
 # B = 64 is the stage-1 train step's batch: 65,536 pixels of 960 channels at the
-# 32×32 map, eight blocks a column at the 4×4 map
+# 32×32 map, eight images a block at the 4×4 map
 @pytest.mark.parametrize("b,cin,cout,h,w", [(16, 320, 320, 32, 32), (16, 2560, 1280, 4, 4),
                                             (3, 320, 4, 32, 32), (2, 72, 24, 5, 7),
-                                            (64, 960, 320, 32, 32), (64, 2560, 1280, 4, 4)])
+                                            (64, 960, 320, 32, 32), (64, 2560, 1280, 4, 4),
+                                            (16, 1280, 1280, 8, 8), (16, 1280, 1280, 4, 4),
+                                            (16, 320, 4, 32, 32)])
 @pytest.mark.parametrize("gated", [False, True])
 def test_cuda_norm_conv_kernel_matches_plain_version(b, cin, cout, h, w, gated):
     groups = 32 if cin % 32 == 0 else 8
@@ -236,6 +257,38 @@ def test_cuda_norm_conv_kernel_matches_plain_version(b, cin, cout, h, w, gated):
                                        groups, 1e-5, True)
     assert per_sample_rel_l2(out, ref).max().item() <= NORM_REL_L2
     assert per_sample_rel_l2(out, unfused).max().item() <= NORM_REL_L2
+    if cin == cout:
+        _identity_tap_case(x, gate_c, g)
+
+
+def _ulp_reading(out, ref):
+    """max |out − ref| / (2^-7·|ref| + 1e-6): <= 1 within one bf16 ulp."""
+    return ((out.float() - ref.float()).abs() / (ref.float().abs() * 2.0 ** -7 + 1e-6)).max()
+
+
+def _identity_tap_case(x, gate_c, g):
+    """The activation alone: the centre tap the identity, the other taps and
+    the bias 0, so out = bf16(act(a·x + b)); a and b put y over [−8, 8]
+    (the gate, where there is one, folded into a). Within one bf16 ulp of the
+    plain version per element, for SiLU and the identity; SiLU's tanh.approx
+    form (tanh(y/2) rounded to 11 significant bits, about its documented
+    error) reads above."""
+    b, c = x.shape[:2]
+    u = (torch.rand(x.shape, device="cuda", generator=g) * 2 - 1).bfloat16()
+    u = u.contiguous(memory_format=torch.channels_last)
+    packed = torch.zeros(c, 3, 3, c, device="cuda", dtype=torch.bfloat16)
+    packed[:, 1, 1] = torch.eye(c, device="cuda", dtype=torch.bfloat16)
+    zero = torch.zeros(c, device="cuda")
+    a = torch.full((b, c), 8.0, device="cuda") if gate_c is None else 8.0 * gate_c
+    shift = (torch.zeros(b, c, device="cuda") if gate_c is None
+             else torch.rand(b, c, device="cuda", generator=g) * 2 - 1)
+    for silu in (True, False):
+        out = nc.norm_conv3x3(u, a, shift, packed, zero, silu)
+        # the plain version's operand bf16(act(y)) is its output here, exactly
+        assert _ulp_reading(out, nc.affine_act(u, a, shift, silu)).item() <= 1.0
+    y = (a[:, :, None, None] * u.float() + shift[:, :, None, None]).bfloat16().float()
+    fault = (y * (0.5 + 0.5 * torch.tanh(y / 2).half().float())).bfloat16()
+    assert _ulp_reading(fault, nc.affine_act(u, a, shift, True)).item() > 1.0
 
 
 @pytest.mark.parametrize("b,s,c", [(16, 1024, 320), (16, 16, 1280), (3, 100, 72),
@@ -282,6 +335,17 @@ def test_cuda_fused_norm_wrappers_reject_what_the_kernels_do_not_take():
         nc.norm_conv3x3(x, a, a, packed[:, :, :, :32].contiguous(), cbias, True)
     with pytest.raises(ValueError, match="float32"):
         nc.norm_conv3x3(x, a.bfloat16(), a, packed, cbias, True)
+    # the TMA weight descriptor needs a 16-byte aligned base
+    w_shifted = torch.zeros(packed.numel() + 1, device="cuda", dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        nc.norm_conv3x3(x, a, a, w_shifted.view(packed.shape), cbias, True)
+    out = torch.empty(2, 16, 8, 8, device="cuda", dtype=torch.bfloat16,
+                      memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="float32"):
+        nc.conv_split_reduce(torch.zeros(2, 128, 16, device="cuda", dtype=torch.float64),
+                             cbias, out)
+    with pytest.raises(ValueError, match="does not hold"):
+        nc.conv_split_reduce(torch.zeros(2, 100, 16, device="cuda"), cbias, out)
     x12 = x[:, :12].contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="C_in % 8"):
         nc.norm_conv3x3(x12, a[:, :12].contiguous(), a[:, :12].contiguous(),
