@@ -9,7 +9,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
   2. build      — compile the CUDA kernels from `diffusion_pruning_tpu_torch/csrc/`
                   with nvcc into `build/torch_kernels/`, one nvcc per source,
                   all started together; ptxas's register report and the
-                  HGMMA/HMMA/UTMALDG count of each kernel's SASS;
+                  HGMMA/HMMA/UTMALDG count of each kernel's SASS; each
+                  backward kernel must show HGMMA and UTMALDG and no HMMA
+                  (its registers, spills and ptxas notes reported);
   3. kernels    — the bf16 forward against its plain PyTorch version run in f32
                   (TF32 off) on the same bf16 inputs, at the SD-2.1 shapes
                   (S_q > 64 runs the wgmma kernel, S_q <= 64 the mma.sync one;
@@ -31,23 +33,32 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   800 kernel launches per call, finite images in [0, 1];
   6. profile    — one more 256px call under torch.profiler: stage times, device
                   kernel time by category, the device's busy share;
-  7. training kernels — the training forward (with lse) and the dq and dk/dv
-                  backward kernels against their plain versions run in f32
-                  (TF32 off) on the same bf16 inputs, at the 8 attention shapes
-                  of the SD-2.1 U-Net at 256px with the train step's B = 64,
+  7. training kernels — the training forward (with lse) and the backward
+                  (the route `backward_plan` picks: one pass at S_kv <= 80,
+                  with its reduction where it splits the query range, else
+                  the dq and dk/dv kernels) against their plain versions run
+                  in f32 (TF32 off) on the same bf16 inputs, at the 8
+                  attention shapes of the SD-2.1 U-Net at 256px with the
+                  train step's B = 64 and one ragged shape of each route,
                   gate none, soft and hard: lse by max-abs error, dq/dk/dv by
                   relative L2 per (batch, head), dgate per (batch, head)
-                  relative to the head's RMS dgate over the batch; planted
+                  relative to the head's RMS dgate over the batch; a second
+                  backward on the same inputs must repeat every bit; planted
                   faults, emulated in plain torch, must read above each
-                  limit; timed beside the plain versions, the bound and the
-                  forward and backward of PyTorch's SDPA;
+                  limit; the backward as the caller runs it and each of its
+                  kernels timed beside the plain versions, the bound (of the
+                  function and of each kernel's own work) and the forward
+                  and backward of PyTorch's SDPA, per shape and summed over
+                  the 32 sites;
   8. train step — the stage-1 pruning step at full width (SD-2.1 U-Net at
                   256px in bf16, CLIP ViT-H text, SD VAE, hypernet 768→1620,
                   K = 8, B = 64, the coco yaml's losses and optimiser): one
                   pretrain step, then four codebook steps; finite losses,
-                  trainables changed, 32 launches of each attention kernel
-                  per step, and the step's hypernet and codebook grads through
-                  the kernels against the same step with plain attention
+                  trainables changed, 32 launches of each attention forward
+                  per step and the backward kernels of each site's plan (22
+                  one-pass, 5 reductions, 10 dq, 10 dk/dv), and the step's
+                  hypernet and codebook grads through the kernels against
+                  the same step with plain attention
                   (cosine per leaf, > GRAD_COS; with the kernels' dgate
                   dropped, a planted fault, it must read below); seconds per
                   step, samples/s, stage times,
@@ -129,12 +140,15 @@ BF16_TOL = 3e-2
 # attention: any rounding-level change to the attention reads about 0.016
 # through the bf16 network, a dropped kv tile about 0.11 (PERF.md)
 UNET_REL_L2 = 2e-2
-KV_TILE = 64  # the kernel's kv tile, for the planted fault that drops one
+KV_TILE = 64  # the forward's kv tile, for the planted fault that drops one
 # phase 7: the training kernels at the train step's batch; limits between the
 # sound readings and the planted faults' (PERF.md)
 TRAIN_B = 64
 TRAIN_CASES = ((1024, 1024, 5, 5), (1024, 77, 5, 5), (256, 256, 10, 5), (256, 77, 10, 5),
                (64, 64, 20, 5), (64, 77, 20, 5), (16, 16, 20, 1), (16, 77, 20, 1))
+# one ragged case of each backward route (two kernels; one pass, S_q > 64 and
+# S_q <= 64), checked, not timed
+RAGGED_TRAIN_CASES = ((200, 200, 3, 0), (100, 77, 3, 0), (40, 50, 3, 0))
 LSE_ATOL = 1e-3      # max |lse - reference|, natural log
 GRAD_REL_L2 = 1e-2   # dq, dk, dv: relative L2 per (batch, head)
 DGATE_REL = 5e-2     # |dgate - reference| / RMS over the batch of the head's dgate
@@ -574,7 +588,8 @@ def serve(pipe, mpnet, device, calls=SERVING_CALLS, per_forward=None, seed=SEED 
 
 def _category(name: str) -> str:
     n = name.lower()
-    for kernel in ("gated_flash_fwd", "gated_flash_bwd_dq", "gated_flash_bwd_dkv"):
+    for kernel in ("gated_flash_fwd", "gated_flash_bwd_fused", "gated_flash_bwd_reduce",
+                   "gated_flash_bwd_dq", "gated_flash_bwd_dkv"):
         if kernel + "_" in n:
             return kernel
     if "conv" in n or "fprop" in n or "dgrad" in n or "implicit" in n:
@@ -663,42 +678,75 @@ def dgate_rel(dgate, ref):
     return (dgate - ref).abs() / ref.square().mean(dim=0).sqrt().clamp_min(1e-30)
 
 
-def training_bytes(kind: str, s_q: int, s_kv: int) -> float:
-    """Bytes per (batch, head) that each training kernel must move: bf16 rows
-    of 64 (128 bytes) and f32 lse/δ per query row, each read or written once."""
+def training_bytes(kind: str, b: int, h: int, s_q: int, s_kv: int) -> float:
+    """Bytes per (batch, head) that each training kernel (or the backward as
+    one function, "bwd") must move: bf16 rows of 64 (128 bytes), f32 lse,
+    δ and row stats per query row, each read or written once."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    plan = fa.backward_plan(b, h, s_q, s_kv)
     if kind == "fwd_lse":  # q, k, v in; o, lse out
         return 128.0 * (2 * s_q + 2 * s_kv) + 4 * s_q
-    if kind == "dq":       # q, k, v, o, dO, lse in; dq, δ, dgate partials out
-        return 128.0 * (4 * s_q + 2 * s_kv) + 8 * s_q + 4 * -(-s_q // KV_TILE)
-    # dk/dv: q, k, v, dO, lse, δ in; dk, dv, dgate partials out
-    return 128.0 * (2 * s_q + 4 * s_kv) + 8 * s_q + 4 * -(-s_kv // KV_TILE)
+    if kind == "bwd":      # q, k, v, o, dO, lse in; dq, dk, dv out
+        return 128.0 * (4 * s_q + 4 * s_kv) + 4 * s_q
+    if kind == "fused":    # q, k, v, o, dO, lse in; dq out; dk, dv out or f32 partials
+        kv_out = 2 * s_kv * (128.0 if plan.chunks == 1 else 256.0 * plan.chunks)
+        return 128.0 * (4 * s_q + 2 * s_kv) + 4 * s_q + kv_out + 8 * plan.chunks
+    if kind == "reduce":   # the partials in; dk, dv out
+        return 2 * s_kv * (256.0 * plan.chunks + 128.0)
+    if kind == "dq":       # q, k, v, o, dO, lse in; dq, row stats, dgate partials out
+        return 128.0 * (4 * s_q + 2 * s_kv) + 4 * s_q + 8 * plan.s_q_pad + 8 * plan.q_tiles
+    # dk/dv: q, k, v, dO, row stats in; dk, dv, dgate partials out
+    return 128.0 * (2 * s_q + 4 * s_kv) + 8 * plan.s_q_pad + 8 * plan.kv_tiles
 
 
-TRAINING_PRODUCTS = {"fwd_lse": 2, "dq": 3, "dkv": 4}  # products of 2·S_q·S_kv·64 operations
+# products of 2·S_q·S_kv·64 operations; the reduction only adds
+TRAINING_PRODUCTS = {"fwd_lse": 2, "bwd": 5, "fused": 5, "reduce": 0, "dq": 3, "dkv": 4}
 
 
 def training_bound(kind: str, b: int, h: int, s_q: int, s_kv: int):
     flop_ms = b * h * TRAINING_PRODUCTS[kind] * 2.0 * s_q * s_kv * 64 / PEAK_BF16_FLOPS * 1e3
-    byte_ms = b * h * training_bytes(kind, s_q, s_kv) / PEAK_BYTES * 1e3
+    byte_ms = b * h * training_bytes(kind, b, h, s_q, s_kv) / PEAK_BYTES * 1e3
     return max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
+
+
+def backward_kinds(b: int, h: int, s_q: int, s_kv: int):
+    """The kernels, by `training_bound` kind, that the backward runs at a shape."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    plan = fa.backward_plan(b, h, s_q, s_kv)
+    if plan.route == "two_kernel":
+        return ("dq", "dkv")
+    return ("fused", "reduce") if plan.chunks > 1 else ("fused",)
 
 
 def training_faults(qf, kf, vf, dof, gate, gate_name, lse_r, dq_r, dk_r, dv_r, dg_r):
     """What a kernel with one fault would return, emulated in plain torch (f32)
-    from the reference results, read with each check's metric."""
-    from diffusion_pruning_tpu_torch.ops.flash_attention import gated_attention_reference_lse
+    from the reference results, read with each check's metric: the
+    forward's lse in the wrong log or without its last 64-row kv tile; a
+    backward block that never ran, by the route `backward_plan` picks (the
+    dk/dv kernel's last 128-row kv tile, or the one pass's whole kv side; the
+    one pass's last 128-row query tile of dq); dq' for dq; dgate without its
+    dv term."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    b, s_q, h, _ = qf.shape
     s_kv = kf.shape[1]
-    last = (s_kv - 1) // KV_TILE * KV_TILE  # first row of the last kv tile
+    plan = fa.backward_plan(b, h, s_q, s_kv)
+    last = (s_kv - 1) // KV_TILE * KV_TILE  # first row of the forward's last kv tile
     out = {"lse_log2_domain": (lse_r * 1.4426950408889634 - lse_r).abs().max().item()}
     if last:
-        _, lse_bad = gated_attention_reference_lse(qf, kf[:, :last], vf[:, :last], gate)
+        _, lse_bad = fa.gated_attention_reference_lse(qf, kf[:, :last], vf[:, :last], gate)
         out["lse_drop_last_kv_tile"] = (lse_bad - lse_r).abs().max().item()
-    worst = 0.0  # a dk/dv kernel whose last kv-tile block never ran
+    kv_tile = fa.BWD_DKV_ROWS if plan.route == "two_kernel" else fa.BWD_ONE_PASS_KV
+    last_kv = (s_kv - 1) // kv_tile * kv_tile
+    worst = 0.0  # the backward's block of the last kv tile never ran
     for ref in (dk_r, dv_r):
         bad = ref.clone()
-        bad[:, last:] = 0
+        bad[:, last_kv:] = 0
         worst = max(worst, per_head_rel_l2(bad, ref).max().item())
     out["dkv_drop_last_kv_tile"] = worst
+    if plan.route == "one_pass":  # a dq whose last query tile is never written
+        bad = dq_r.clone()
+        bad[:, (s_q - 1) // fa.BWD_Q_ROWS * fa.BWD_Q_ROWS:] = 0
+        out["dq_drop_last_q_tile"] = per_head_rel_l2(bad, dq_r).max().item()
     if gate_name == "soft":  # dq' returned in place of dq = g·dq'
         out["dq_missing_g"] = per_head_rel_l2(dq_r / gate[:, None, :, None], dq_r).max().item()
     if gate is not None:  # dgate without Σ dv'∘v = Σ P ∘ (dO·vᵀ)
@@ -719,13 +767,15 @@ def check_training_kernels(device):
     limits = {"lse_max_abs": LSE_ATOL, "o": REL_L2, "dq": GRAD_REL_L2, "dk": GRAD_REL_L2,
               "dv": GRAD_REL_L2, "dgate": DGATE_REL}
     fault_limit = {"lse_log2_domain": LSE_ATOL, "lse_drop_last_kv_tile": LSE_ATOL,
-                   "dkv_drop_last_kv_tile": GRAD_REL_L2, "dq_missing_g": GRAD_REL_L2,
-                   "dgate_without_dv_term": DGATE_REL}
+                   "dkv_drop_last_kv_tile": GRAD_REL_L2, "dq_drop_last_q_tile": GRAD_REL_L2,
+                   "dq_missing_g": GRAD_REL_L2, "dgate_without_dv_term": DGATE_REL}
     worst = {key: 0.0 for key in limits}
     worst.update(dq_max_abs=0.0, dkv_max_abs=0.0)
+    by_route = {route: dict(worst) for route in ("one_pass", "two_kernel")}
     least_fault = {}
     rows = []
-    for s_q, s_kv, h, sites in TRAIN_CASES:
+    for s_q, s_kv, h, sites in TRAIN_CASES + RAGGED_TRAIN_CASES:
+        route = fa.backward_plan(b, h, s_q, s_kv).route
         q, do = (torch.randn(b, s_q, h, 64, device=device, generator=gen).bfloat16()
                  for _ in range(2))
         k, v = (torch.randn(b, s_kv, h, 64, device=device, generator=gen).bfloat16()
@@ -736,7 +786,11 @@ def check_training_kernels(device):
         for gate_name, gate in (("none", None), ("soft", soft), ("hard", hard)):
             o, lse = fa.gated_flash_forward_lse(q, k, v, gate)
             dq, dk, dv, dgate = fa.gated_flash_backward(q, k, v, gate, o, lse, do)
+            again = fa.gated_flash_backward(q, k, v, gate, o, lse, do)
             torch.cuda.synchronize()
+            repeats = all(x is None and y is None or torch.equal(x, y)
+                          for x, y in zip((dq, dk, dv, dgate), again))
+            del again
             # each kernel against its plain version on its own inputs: the
             # backward's include the forward's o and lse
             qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -753,7 +807,9 @@ def check_training_kernels(device):
             faults = training_faults(qf, kf, vf, dof, gate, gate_name, lse_r, dq_r, dk_r, dv_r,
                                      dg_r)
             row = {"phase": "training_kernel_check", "b": b, "s_q": s_q, "s_kv": s_kv, "h": h,
-                   "gate": gate_name, **reading,
+                   "gate": gate_name, "route": route,
+                   "backward_kernels": list(backward_kinds(b, h, s_q, s_kv)), **reading,
+                   "repeats_bit_for_bit": repeats,
                    "dq_max_abs": (dq.float() - dq_r).abs().max().item(),
                    "dkv_max_abs": max((dk.float() - dk_r).abs().max().item(),
                                       (dv.float() - dv_r).abs().max().item()),
@@ -768,6 +824,8 @@ def check_training_kernels(device):
             if gate_name == "hard" and not all(bool((t[:, :, h // 2] == 0).all())
                                                for t in (dq, dk, dv)):
                 bad.append("closed head gives nonzero dq/dk/dv")
+            if not repeats:
+                bad.append("a second backward on the same inputs gave other bits")
             if bad:
                 emit(row)
                 fail(f"training kernels disagree with their plain versions ({bad}): {row}")
@@ -777,65 +835,102 @@ def check_training_kernels(device):
                 fail(f"planted faults read within their limits ({caught}): {row}")
             for key in worst:
                 worst[key] = max(worst[key], row.get(key, 0.0))
+                by_route[route][key] = max(by_route[route][key], row.get(key, 0.0))
             for key, value in faults.items():
                 least_fault[key] = min(least_fault.get(key, math.inf), value)
             del qf, kf, vf, dof, o_r, lse_r, dq_r, dk_r, dv_r, dg_r
-            if gate_name == "soft":
+            if gate_name == "soft" and sites:
                 row.update(time_training_kernels(q, k, v, do, soft, o, lse))
                 row["sites_per_256px_forward"] = sites
-                for kind in ("fwd_lse", "dq", "dkv"):
+                for kind in ("fwd_lse", "bwd", *backward_kinds(b, h, s_q, s_kv)):
                     row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = training_bound(
                         kind, b, h, s_q, s_kv)
                 rows.append(row)
             emit(row)
             del o, lse, dq, dk, dv, dgate
         torch.cuda.empty_cache()
-    return rows, {"limits": limits, "worst": worst, "least_planted_fault": least_fault}
+    return rows, {"limits": limits, "worst": worst, "worst_by_route": by_route,
+                  "least_planted_fault": least_fault, "repeats_bit_for_bit": True}
+
+
+def fused_kernel_alone(q, k, v, gate, o, lse, do):
+    """The one-pass kernel's launch alone, as `gated_flash_bwd_fused` makes it
+    but without the reduction a split plan adds after it (for its time)."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import build
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    b, s_q, h, d = q.shape
+    plan = fa.backward_plan(b, h, s_q, k.shape[1])
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = torch.empty(plan.dgate_parts[0], device=q.device)
+    ws = (None if plan.workspace_shape is None
+          else torch.empty(plan.workspace_shape, device=q.device))
+    build.launch("gated_flash_bwd_fused", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), build.ptr(gate), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), build.ptr(ws), part.data_ptr(), b, h, s_q,
+                 k.shape[1], plan.chunks, plan.blocks, d ** -0.5)
+    return dq, ws, part
 
 
 def time_training_kernels(q, k, v, do, gate, o, lse):
-    """Device times (`device_ms`) of the three training kernels at one shape
-    and of PyTorch's SDPA on pre-masked bf16 q/k/v: its forward under autograd
-    (which keeps the lse) and its backward (dq, dk, dv; no dgate), taken as a
-    forward and backward replayed together less the forward alone. The same
-    calls issued eagerly are under `*_eager_ms`. The plain versions (bf16
-    inputs, as a caller without the kernels would run them) are timed eagerly
-    by CUDA events."""
+    """Device times (`device_ms`) at one shape of the training forward, of the
+    backward as the caller runs it (`gated_flash_backward`: its kernels and
+    the dgate sums, "bwd"), of each backward kernel of the shape's route
+    alone, and of PyTorch's SDPA on pre-masked bf16 q/k/v: its forward under
+    autograd (which keeps the lse) and its backward (dq, dk, dv; no dgate),
+    taken as a forward and backward replayed together less the forward
+    alone. The same with the operands in device memory under `*_cold_ms`,
+    issued eagerly under `*_eager_ms`. The plain versions (bf16 inputs, as a
+    caller without the kernels would run them) are timed eagerly by CUDA
+    events."""
     import torch
     import torch.nn.functional as F
     from diffusion_pruning_tpu_torch.ops import flash_attention as fa
 
+    b, s_q, h, _ = q.shape
+    plan = fa.backward_plan(b, h, s_q, k.shape[1])
     n = 10 if q.shape[1] * k.shape[1] >= 2 ** 20 else 20
-    _, delta, _ = fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do)
     g = gate[:, None, :, None].to(q.dtype)
     gq, gk, gv = ((t * g).transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     gdo = do.transpose(1, 2)
-    calls = {"fwd_lse": lambda: fa.gated_flash_forward_lse(q, k, v, gate),
-             "dq": lambda: fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do),
-             "dkv": lambda: fa.gated_flash_bwd_dkv(q, k, v, gate, lse, delta, do),
-             "fwd_lse_library": lambda: F.scaled_dot_product_attention(gq, gk, gv),
-             "step_library": lambda: torch.autograd.grad(
-                 F.scaled_dot_product_attention(gq, gk, gv), (gq, gk, gv), gdo)}
+
+    def sdpa_step(a, b_, c, dout):  # leaves of their own: `cold_device_ms` hands it clones
+        a, b_, c = (t.detach().requires_grad_() for t in (a, b_, c))
+        return torch.autograd.grad(F.scaled_dot_product_attention(a, b_, c), (a, b_, c), dout)
+
+    # each call with its arguments and the bytes it writes (for `cold_device_ms`)
+    nq, nk = q.numel() * 2, k.numel() * 2
+    args = (q, k, v, gate, o, lse, do)
+    calls = {"fwd_lse": (fa.gated_flash_forward_lse, (q, k, v, gate), nq),
+             "bwd": (fa.gated_flash_backward, args, nq + 2 * nk),
+             "fwd_lse_library": (lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c),
+                                 (gq, gk, gv), nq),
+             "step_library": (sdpa_step, (gq, gk, gv, gdo), 2 * nq + 2 * nk)}
+    if plan.route == "two_kernel":
+        _, stats, _ = fa.gated_flash_bwd_dq(*args)
+        calls["dq"] = (fa.gated_flash_bwd_dq, args, nq)
+        calls["dkv"] = (fa.gated_flash_bwd_dkv, (q, k, v, gate, stats, do), 2 * nk)
+    else:
+        ws_bytes = 4 * math.prod(plan.workspace_shape) if plan.chunks > 1 else 2 * nk
+        calls["fused"] = (fused_kernel_alone, args, nq + ws_bytes)
+        if plan.chunks > 1:
+            ws = torch.randn(plan.workspace_shape, device=q.device)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            calls["reduce"] = (fa.gated_flash_bwd_reduce, (ws, dk, dv), 0)
     out = {}
-    for name, fn in calls.items():
-        out[f"{name}_ms"] = device_ms(fn, n)
-        out[f"{name}_eager_ms"] = time_ms(fn, n)
-    # with the operands in device memory (`cold_device_ms`); each output is
-    # the size of q (o; dq; dk and dv of k's size)
-    nq = q.numel() * 2
-    out["fwd_lse_cold_ms"] = cold_device_ms(fa.gated_flash_forward_lse, (q, k, v, gate), nq)
-    out["dq_cold_ms"] = cold_device_ms(fa.gated_flash_bwd_dq, (q, k, v, gate, o, lse, do), nq)
-    out["dkv_cold_ms"] = cold_device_ms(fa.gated_flash_bwd_dkv, (q, k, v, gate, lse, delta, do),
-                                        2 * k.numel() * 2)
-    out["fwd_lse_library_cold_ms"] = cold_device_ms(
-        lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c), (gq, gk, gv), nq)
-    for key in ("ms", "eager_ms"):
+    for name, (fn, fn_args, out_bytes) in calls.items():
+        out[f"{name}_ms"] = device_ms(lambda: fn(*fn_args), n)
+        out[f"{name}_eager_ms"] = time_ms(lambda: fn(*fn_args), n)
+        out[f"{name}_cold_ms"] = cold_device_ms(fn, fn_args, out_bytes)
+    for key in ("ms", "eager_ms", "cold_ms"):
         out[f"bwd_library_{key}"] = (out.pop(f"step_library_{key}")
                                      - out[f"fwd_lse_library_{key}"])
     out["fwd_lse_plain_ms"] = time_ms(
         lambda: fa.gated_attention_reference_lse(q, k, v, gate), 3, warmup=1)
     out["bwd_plain_ms"] = time_ms(
-        lambda: fa.gated_flash_backward_reference(q, k, v, gate, o, lse, do), 3, warmup=1)
+        lambda: fa.gated_flash_backward_reference(*args), 3, warmup=1)
+    if "reduce" in calls:
+        out["reduce_plain_ms"] = time_ms(lambda: ws.sum(0).to(q.dtype), 3, warmup=1)
     return out
 
 
@@ -877,6 +972,8 @@ def kernel_wrappers():
     from diffusion_pruning_tpu_torch.ops import norm_conv as nc
     return {"gated_flash_fwd": fa.gated_flash_attention,
             "gated_flash_fwd_lse": fa.gated_flash_forward_lse,
+            "gated_flash_bwd_fused": fa.gated_flash_bwd_fused,
+            "gated_flash_bwd_reduce": fa.gated_flash_bwd_reduce,
             "gated_flash_bwd_dq": fa.gated_flash_bwd_dq,
             "gated_flash_bwd_dkv": fa.gated_flash_bwd_dkv,
             "group_norm_silu": gn.group_norm_silu_forward,
@@ -884,8 +981,16 @@ def kernel_wrappers():
             "norm_linear": nc.norm_linear}
 
 
-ATTENTION_PER_STEP = {"gated_flash_fwd": 32, "gated_flash_fwd_lse": 32,
-                      "gated_flash_bwd_dq": 32, "gated_flash_bwd_dkv": 32}
+def attention_per_step():
+    """Launches of each attention kernel in one train step: 32 of the lse-free
+    forward (the teacher), 32 of the training forward, and the backward
+    kernels `backward_plan` picks at each of the 32 sites at B = 64."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    out = collections.Counter({"gated_flash_fwd": 32, "gated_flash_fwd_lse": 32})
+    for s_q, s_kv, h, sites in TRAIN_CASES:
+        for name, n in fa.backward_plan(TRAIN_B, h, s_q, s_kv).launches.items():
+            out[name] += n * sites
+    return dict(out)
 
 
 def kernel_counters():
@@ -927,7 +1032,7 @@ def train(mods, cfg, opt, device, n_steps=TRAIN_STEPS, per_step=None, phase="tra
     """`n_steps` full-width steps (one pretrain step, then codebook steps) from
     random pixels, ids and MPNet embeddings: per-step seconds, stage times and
     launches, peak memory. `per_step`: the launches each kernel must show in
-    a step (default: 32 of each attention kernel, no other)."""
+    a step (default: `attention_per_step`, no other)."""
     import torch
     from diffusion_pruning_tpu_torch.training import make_pruner_step
 
@@ -943,7 +1048,7 @@ def train(mods, cfg, opt, device, n_steps=TRAIN_STEPS, per_step=None, phase="tra
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    per_step = {**ATTENTION_PER_STEP, **(per_step or {})}
+    per_step = {**attention_per_step(), **(per_step or {})}
     rows = []
     for i in range(n_steps):
         pretrain = i == 0
@@ -1097,26 +1202,56 @@ def profile_train_step(mods, cfg, opt, batch, device):
     return row
 
 
-def training_entry(rows, kind: str, plain_key: str, library_key: str) -> dict:
-    """A training kernel's times summed over the 32 attention sites of one
-    student pass. The plain and library times of the two backward kernels
-    are those of one call that computes dq, dk and dv together."""
+def training_entry(rows, kind: str, plain_key: str, library_key) -> dict:
+    """A training kernel's times summed over the attention sites of one
+    student pass where it runs (the rows that time it). The plain and
+    library times of the backward kernels are those of one call that
+    computes dq, dk and dv together at the same sites."""
+    mine = [r for r in rows if f"{kind}_ms" in r]
+
     def total(key):
-        return sum(r[key] * r["sites_per_256px_forward"] for r in rows)
-    ops = sum(r[f"{kind}_bound_ms"] * r["sites_per_256px_forward"] for r in rows
+        return sum(r[key] * r["sites_per_256px_forward"] for r in mine)
+    ops = sum(r[f"{kind}_bound_ms"] * r["sites_per_256px_forward"] for r in mine
               if r[f"{kind}_bound_by"] == "operations")
     bound = total(f"{kind}_bound_ms")
     extra = {}
-    if kind == "fwd_lse":
-        extra["library_cold_ms"] = total("fwd_lse_library_cold_ms")
+    if library_key is not None:
+        extra.update(library_cold_ms=total(library_key.replace("_ms", "_cold_ms")),
+                     library_eager_ms=total(library_key.replace("_ms", "_eager_ms")))
     return {"ms": total(f"{kind}_ms"), "cold_ms": total(f"{kind}_cold_ms"),
-            "eager_ms": total(f"{kind}_eager_ms"), **extra,
-            "plain_ms": total(plain_key), "bound_ms": bound,
-            "bound_by": "operations" if ops >= bound / 2 else "bytes",
-            "library_ms": total(library_key),
-            "library_eager_ms": total(library_key.replace("_ms", "_eager_ms")),
-            "shapes": "the 32 attention sites of one student U-Net pass of the stage-1 "
-                      "step at 256px, B = 64, bf16, soft gates"}
+            "eager_ms": total(f"{kind}_eager_ms"), "plain_ms": total(plain_key),
+            "bound_ms": bound, "bound_by": "operations" if ops >= bound / 2 else "bytes",
+            "library_ms": None if library_key is None else total(library_key), **extra,
+            "sites": sum(r["sites_per_256px_forward"] for r in mine),
+            "shapes": "its attention sites of one student U-Net pass of the stage-1 step at "
+                      "256px, B = 64, bf16, soft gates"}
+
+
+def backward_summary(rows) -> dict:
+    """The backward as one function over the 32 sites of a student pass: the
+    caller's time (kernels and dgate sums) against the function's bound and
+    SDPA's backward, the kernels' own times and bounds summed beside it, and
+    one line per shape."""
+    whole = training_entry(rows, "bwd", "bwd_plain_ms", "bwd_library_ms")
+    kernels = {kind: training_entry(rows, kind, "bwd_plain_ms", None)
+               for kind in ("fused", "reduce", "dq", "dkv")}
+    per_shape = [{"s_q": r["s_q"], "s_kv": r["s_kv"], "h": r["h"],
+                  "sites": r["sites_per_256px_forward"], "route": r["route"],
+                  "kernels": r["backward_kernels"], "ms": r["bwd_ms"],
+                  "cold_ms": r["bwd_cold_ms"], "eager_ms": r["bwd_eager_ms"],
+                  "bound_ms": r["bwd_bound_ms"], "bound_by": r["bwd_bound_by"],
+                  "library_ms": r["bwd_library_ms"], "library_cold_ms": r["bwd_library_cold_ms"],
+                  "x_library": r["bwd_ms"] / r["bwd_library_ms"],
+                  "x_bound": r["bwd_ms"] / r["bwd_bound_ms"],
+                  **{f"{k}_ms": r[f"{k}_ms"] for k in r["backward_kernels"]}}
+                 for r in rows]
+    return {"phase": "backward_summary", **whole,
+            "x_library": whole["ms"] / whole["library_ms"],
+            "x_bound": whole["ms"] / whole["bound_ms"],
+            "kernels_ms": sum(e["ms"] for e in kernels.values()),
+            "kernels_cold_ms": sum(e["cold_ms"] for e in kernels.values()),
+            "kernels_bound_ms": sum(e["bound_ms"] for e in kernels.values()),
+            "by_kernel": kernels, "per_shape": per_shape}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -2005,6 +2140,39 @@ def fused_kernel_entry(check, name, source, replaces, also, library_call, launch
             "shapes": "the sites of one SD-2.1 U-Net forward at 256px, B_eff 16, bf16"}
 
 
+def backward_entries(train_rows, train_check, train_launches):
+    """The backward kernels' lines: each kernel's times summed over the
+    sites of one student pass where `backward_plan` runs it, its launches in
+    the train-step run, its worst readings on its route's phase-7 cases."""
+    src = "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu"
+    fa_py = "diffusion_pruning_tpu/ops/flash_attention.py"
+    one, two = (train_check["worst_by_route"][r] for r in ("one_pass", "two_kernel"))
+    spec = (
+        ("gated_flash_bwd_fused", "fused", 586, [638, 686, 741], "one pass, S_kv <= 80",
+         max(one["dq_max_abs"], one["dkv_max_abs"]), max(one["dq"], one["dk"], one["dv"]),
+         one["dgate"], "bwd_library_ms"),
+        ("gated_flash_bwd_reduce", "reduce", 638, [741],
+         "the fixed-order sum of a split one pass's dk/dv slices", one["dkv_max_abs"],
+         max(one["dk"], one["dv"]), one["dgate"], None),
+        ("gated_flash_bwd_dq", "dq", 586, [686], "S_kv > 80, first of two", two["dq_max_abs"],
+         two["dq"], two["dgate"], "bwd_library_ms"),
+        ("gated_flash_bwd_dkv", "dkv", 638, [741], "S_kv > 80, second of two",
+         two["dkv_max_abs"], max(two["dk"], two["dv"]), two["dgate"], "bwd_library_ms"))
+    out = []
+    for name, kind, line, also, role, max_abs, rel, dgate, library in spec:
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": f"{fa_py}:{line}",
+                 "also_replaces": [f"{fa_py}:{n}" for n in also], "role": role,
+                 "launches": train_launches[name], "max_abs_err": max_abs,
+                 "rel_l2_worst_head": rel, "dgate_rel_worst": dgate,
+                 **training_entry(train_rows, kind, "reduce_plain_ms" if kind == "reduce"
+                                  else "bwd_plain_ms", library)}
+        if library is not None:
+            entry["library_call"] = ("the backward of F.scaled_dot_product_attention on "
+                                     "pre-masked q/k/v at the same sites (no dgate)")
+        out.append(entry)
+    return out
+
+
 def sass_counts(build):
     """Tensor-core and TMA instructions in each built kernel's SASS
     (`cuobjdump --dump-sass`): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA
@@ -2027,6 +2195,58 @@ def sass_counts(build):
                 for op in ("HGMMA", "HMMA", "UTMALDG"):
                     out[f"{source.stem}:{fn}"][op] += f" {op}." in line or f" {op} " in line
     return out
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers, spill bytes and ptxas warnings (C7513: wgmma serialised) of
+    each kernel function in one `-Xptxas=-v` report."""
+    import re
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": None, "spill_store_bytes": None, "spill_load_bytes": None,
+                       "warnings": []}
+            continue
+        if "warning" in line:
+            m = re.search(r"function '([^']+)'", line)
+            target = m.group(1) if m and m.group(1) in out else fn
+            if target is not None:
+                out[target]["warnings"].append(line.strip())
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_store_bytes"], out[fn]["spill_load_bytes"] = map(int, m.groups())
+    return out
+
+
+BACKWARD_WGMMA_KERNELS = ("gated_flash_bwd_fused_kernel", "gated_flash_bwd_fused_small_kernel",
+                          "gated_flash_bwd_dq_kernel", "gated_flash_bwd_dkv_kernel")
+
+
+def check_backward_build(build, sass):
+    """Each wgmma kernel of gated_flash_bwd.cu runs on HGMMA and TMA and has
+    no mma.sync left; its registers, spills and ptxas notes are reported."""
+    report = ptxas_report((build.BUILD_DIR / "gated_flash_bwd.ptxas.txt").read_text())
+    rows = {}
+    for key, counts in (sass.items() if isinstance(sass, dict) else ()):
+        stem, fn = key.split(":", 1)
+        if stem != "gated_flash_bwd" or "reduce" in fn:
+            continue
+        rows[fn] = {**counts, **report.get(fn, {})}
+    emit({"phase": "backward_sass", "kernels": rows})
+    if isinstance(sass, dict):
+        wrong = [fn for fn, r in rows.items()
+                 if not (r["HGMMA"] > 0 and r["UTMALDG"] > 0 and r["HMMA"] == 0)]
+        found = {name for name in BACKWARD_WGMMA_KERNELS if any(name in fn for fn in rows)}
+        if found != set(BACKWARD_WGMMA_KERNELS) or wrong:
+            fail(f"the backward kernels are not wgmma/TMA kernels: {rows}")
 
 
 # ---------------------------------------------------------------- main
@@ -2064,7 +2284,9 @@ def main() -> None:
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     log(f"ptxas {source.name}: {line.strip()}")
-    emit({"phase": "sass", "instructions_by_kernel": sass_counts(build)})
+    sass = sass_counts(build)
+    emit({"phase": "sass", "instructions_by_kernel": sass})
+    check_backward_build(build, sass)
 
     # 3. kernel vs plain version
     t0 = time.perf_counter()
@@ -2101,6 +2323,7 @@ def main() -> None:
     t0 = time.perf_counter()
     train_rows, train_check = check_training_kernels(device)
     emit({"phase": "training_kernel_check_summary", **train_check})
+    emit(backward_summary(train_rows))
     log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
 
     # 8. the stage-1 train step at full width
@@ -2143,29 +2366,8 @@ def main() -> None:
     forward_entries = [
         forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches)
         for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd")]
-    kernels = [*forward_entries, {
-        "name": "gated_flash_bwd_dq",
-        "route": "cuda",
-        "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu",
-        "replaces": "diffusion_pruning_tpu/ops/flash_attention.py:586",
-        "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:686"],
-        "launches": train_launches["gated_flash_bwd_dq"],
-        "max_abs_err": train_check["worst"]["dq_max_abs"],
-        "rel_l2_worst_head": train_check["worst"]["dq"],
-        "dgate_rel_worst": train_check["worst"]["dgate"],
-        **training_entry(train_rows, "dq", "bwd_plain_ms", "bwd_library_ms"),
-    }, {
-        "name": "gated_flash_bwd_dkv",
-        "route": "cuda",
-        "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu",
-        "replaces": "diffusion_pruning_tpu/ops/flash_attention.py:638",
-        "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:741"],
-        "launches": train_launches["gated_flash_bwd_dkv"],
-        "max_abs_err": train_check["worst"]["dkv_max_abs"],
-        "rel_l2_worst_head": max(train_check["worst"]["dk"], train_check["worst"]["dv"]),
-        "dgate_rel_worst": train_check["worst"]["dgate"],
-        **training_entry(train_rows, "dkv", "bwd_plain_ms", "bwd_library_ms"),
-    }, fused_kernel_entry(
+    kernels = [*forward_entries,
+               *backward_entries(train_rows, train_check, train_launches), fused_kernel_entry(
         fused_checks["group_norm_silu"], "group_norm_silu",
         "diffusion_pruning_tpu_torch/csrc/group_norm.cu",
         "diffusion_pruning_tpu/ops/group_norm.py:26", [], "F.group_norm, then F.silu",

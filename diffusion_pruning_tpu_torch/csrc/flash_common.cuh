@@ -1,5 +1,5 @@
-// Building blocks shared by the gated flash attention kernels
-// (gated_flash_fwd.cu, gated_flash_bwd.cu): tile staging and the warp-level
+// Building blocks of the mma.sync gated flash attention forward
+// (`gated_flash_fwd` in gated_flash_fwd.cu, S_q <= 64): tile staging and the warp-level
 // bf16 products, on the cp.async and mma.sync m16n8k16 primitives of
 // mma_common.cuh.
 //
@@ -97,21 +97,6 @@ __device__ __forceinline__ void mma_ab(float c[8][4], const float a[8][4],
   }
 }
 
-// Σ over the warp's accumulator block of c ∘ T, with T the shared tile at the
-// same (row, column) positions (rows row0 + gr and row0 + gr + 8).
-__device__ __forceinline__ float dot_acc_tile(const float c[8][4], const __nv_bfloat16* tile,
-                                              int row0, int gr, int tg) {
-  const __nv_bfloat16* t0 = tile + (row0 + gr) * kSRow + 2 * tg;
-  const __nv_bfloat16* t1 = t0 + 8 * kSRow;
-  float s = 0.0f;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    s += c[nt][0] * __bfloat162float(t0[nt * 8]) + c[nt][1] * __bfloat162float(t0[nt * 8 + 1]);
-    s += c[nt][2] * __bfloat162float(t1[nt * 8]) + c[nt][3] * __bfloat162float(t1[nt * 8 + 1]);
-  }
-  return s;
-}
-
 // Store the warp's accumulator block times `mul` as bf16 rows of a (B, S, H, 64)
 // slab; rows at or past n_rows are skipped.
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float c[8][4], float mul,
@@ -128,21 +113,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float c[8][
           pack_f32(c[nt][2] * mul, c[nt][3] * mul);
     }
   }
-}
-
-// Sum of one float per thread over the block, in a fixed order (deterministic);
-// the result is valid in thread 0. `red` holds kWarps floats of shared memory.
-__device__ __forceinline__ float block_sum(float v, float* red, int warp, int lane) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
-  if (warp == 0 && lane == 0) {
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w];
-  }
-  return s;
 }
 
 }  // namespace gfa

@@ -556,16 +556,6 @@ extern "C" int gated_flash_fwd(const void* q, const void* k, const void* v, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-// A (B, S, H, 64) bf16 tensor as a 4-D TMA map, boxes of `rows` rows × 64
-// dims of one (batch, head)
-static bool bshd_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t row = (cuuint64_t)kD * 2;
-  const cuuint64_t strides[3] = {row, row * H, row * H * S};
-  const cuuint32_t box[4] = {kD, 1, (cuuint32_t)rows, 1};
-  return sm90::encode_bf16_map(map, t, 4, dims, strides, box);
-}
-
 template <int KV, bool kStream>
 static int launch_fwd_wgmma(const void* q, const void* k, const void* v, const float* gate,
                             void* o, float* lse, int B, int H, int Sq, int Skv, float scale_log2,
@@ -574,8 +564,8 @@ static int launch_fwd_wgmma(const void* q, const void* k, const void* v, const f
   static const cudaError_t opted = sm90::allow_smem(kernel, FwdTile<KV>::kSmem);
   if (opted != cudaSuccess) return static_cast<int>(opted);
   CUtensorMap qmap, kmap, vmap;
-  if (!bshd_map(&qmap, q, B, Sq, H, 64) || !bshd_map(&kmap, k, B, Skv, H, KV) ||
-      !bshd_map(&vmap, v, B, Skv, H, KV))
+  if (!sm90::bshd_map(&qmap, q, B, Sq, H, 64) || !sm90::bshd_map(&kmap, k, B, Skv, H, KV) ||
+      !sm90::bshd_map(&vmap, v, B, Skv, H, KV))
     return static_cast<int>(cudaErrorInvalidValue);
   static int sms = 0;
   if (sms == 0) {

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) primitives shared by the port's wgmma/TMA kernels
-// (norm_conv.cu, gated_flash_fwd.cu): mbarriers, TMA tile loads, the
+// (norm_conv.cu, gated_flash_fwd.cu, gated_flash_bwd.cu): mbarriers, TMA tile loads, the
 // asynchronous warpgroup product (wgmma) with its shared-memory descriptors,
 // ldmatrix, and the host-side encoding of TMA tensor maps.
 //
@@ -11,7 +11,12 @@
 //    Q, K) is described with SBO = 1024 bytes (atom to atom along M or N);
 //    the k-th 16-deep step inside the 64-wide row starts 32·k bytes later;
 //  * an MN-major operand (V in O += P·V: the output index contiguous) uses the
-//    transposed-B form; its 16-deep step is two atoms, 2048 bytes;
+//    transposed-B form; its 16-deep step is two atoms, 2048 bytes; an
+//    MN-major A (dOᵀ in dvᵀ += dOᵀ·P, read from the dO tile) takes the same
+//    descriptor through the transposed-A form;
+//  * a tile written by threads for wgmma (the backward's Pᵀ and dSᵀ, by
+//    stmatrix .trans) uses the same swizzle: 16-byte chunk c of row r at
+//    chunk c ^ (r % 8); a proxy fence makes the stores visible to wgmma;
 //  * wgmma accumulators of m64nN: in warp w of the warpgroup, register
 //    4·j + e holds row 16·w + gr + 8·(e / 2), column 8·j + 2·tg + (e % 2)
 //    (gr = lane / 4, tg = lane % 4): the layout of mma.sync m16n8k16 per
@@ -96,6 +101,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// one contiguous run of `bytes` (a multiple of 16, from a 16-byte aligned
+// address) into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// make this thread's shared-memory stores visible to the async proxy (a
+// wgmma that reads them by descriptor)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // descriptor of a 128-byte-swizzled operand tile at shared address `saddr`
@@ -157,14 +178,26 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
                : "memory");
 }
 
+// four 8×8 bf16 matrices from registers (the mma accumulator layout: lane
+// holds row lane / 4, columns 2·(lane % 4) and + 1) stored transposed: lane L
+// gives the address of row L % 8 of stored matrix L / 8
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
 // D (m64 × N, f32) (+)= A (m64 × k16 bf16, from registers) · B (k16 × N bf16,
 // shared memory by descriptor); TransB = 1 reads B MN-major. scale_d = 0
 // overwrites D.
 template <int N, int TransB>
 struct WgmmaRS;
 
-// D (m64 × N, f32) (+)= A · B, both K-major in shared memory by descriptor
-template <int N>
+// D (m64 × N, f32) (+)= A · B, both in shared memory by descriptor, B
+// K-major; TransA = 1 reads A MN-major (the M index contiguous: Qᵀ or dOᵀ
+// straight from a Q or dO tile)
+template <int N, int TransA = 0>
 struct WgmmaSS;
 
 template <>
@@ -275,6 +308,46 @@ struct WgmmaSS<128> {
   }
 };
 
+template <>
+struct WgmmaSS<64, 0> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<80, 1> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %42, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39}, "
+        "%40, %41, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
 // ---------------------------------------------------------------- host
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -304,6 +377,17 @@ inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank, const 
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
             box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (B, S, H, 64) bf16 tensor as a 4-D TMA map, boxes of `rows` rows × 64
+// dims of one (batch, head): a box that runs past S is zero-filled inside its
+// own batch element
+inline bool bshd_map(CUtensorMap* map, const void* t, int B, int S, int H, int rows) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t row = 64 * 2;
+  const cuuint64_t strides[3] = {row, row * H, row * H * S};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_bf16_map(map, t, 4, dims, strides, box);
 }
 
 // opt a kernel into `bytes` of dynamic shared memory (above the 48 KB default)

@@ -33,6 +33,7 @@ SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
     "gated_flash_fwd", "gated_flash_bwd", "group_norm", "norm_conv"))
 HEADERS = (CSRC / "mma_common.cuh", CSRC / "flash_common.cuh", CSRC / "sm90_common.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SM_COUNT = 132  # H100 SXM: the kernels' plans size their grids for it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl")
 
@@ -40,8 +41,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 SIGNATURES = {  # C function -> (source stem, argtypes); the stream comes last
     "gated_flash_fwd": ("gated_flash_fwd", [_P] * 6 + [_I] * 4 + [_F, _P]),
     "gated_flash_fwd_wgmma": ("gated_flash_fwd", [_P] * 6 + [_I] * 4 + [_F, _P]),
-    "gated_flash_bwd_dq": ("gated_flash_bwd", [_P] * 10 + [_I] * 4 + [_F, _P]),
-    "gated_flash_bwd_dkv": ("gated_flash_bwd", [_P] * 10 + [_I] * 4 + [_F, _P]),
+    "gated_flash_bwd_fused": ("gated_flash_bwd", [_P] * 12 + [_I] * 6 + [_F, _P]),
+    "gated_flash_bwd_reduce": ("gated_flash_bwd", [_P] * 3 + [_I, _L, _P]),
+    "gated_flash_bwd_dq": ("gated_flash_bwd", [_P] * 10 + [_I] * 6 + [_F, _P]),
+    "gated_flash_bwd_dkv": ("gated_flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
     "group_norm_silu": ("group_norm", [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
     "norm_conv3x3": ("norm_conv", [_P] * 7 + [_I] * 9 + [_P]),
     "conv_split_reduce": ("norm_conv", [_P] * 3 + [_L, _I, _I, _P]),

@@ -6,8 +6,8 @@ With gate g per (batch, head),
 
     masked SDPA(q·g, k·g, v·g) == softmax(q·kᵀ · d^-½ · g²) · v · g
 
-so the kernels scale the logits by g² and the output by g. Four kernels, two
-sources in `csrc/`:
+so the kernels scale the logits by g² and the output by g. Two sources in
+`csrc/`:
 
 * the forward (gated_flash_fwd.cu) replaces all four inference forwards of
   the JAX package's Pallas flash attention; with an lse output it is also
@@ -16,14 +16,18 @@ sources in `csrc/`:
   (wgmma, K/V by TMA, 128 query rows a block) at S_q > SMALL_Q_ROWS, and the
   first version `gated_flash_fwd` (mma.sync, 64 rows a block) at
   S_q <= SMALL_Q_ROWS, where a 128-row tile would leave most rows idle;
-* `gated_flash_bwd_dq` and `gated_flash_bwd_dkv` (gated_flash_bwd.cu) replace
-  the four Pallas backward bodies: dq, dk, dv, and dgate[b, h] =
-  Σ dq'∘q + Σ dk'∘k + Σ dv'∘v, summed here from per-block partials.
+* the backward (gated_flash_bwd.cu) replaces the four Pallas backward
+  bodies: dq, dk, dv, and dgate[b, h] = Σ dq'∘q + Σ dk'∘k + Σ dv'∘v, summed
+  here from per-warp partials. `backward_plan` picks the route: at
+  S_kv <= BWD_ONE_PASS_KV one pass, `gated_flash_bwd_fused` (and
+  `gated_flash_bwd_reduce` where it splits the query range), else
+  `gated_flash_bwd_dq`, then `gated_flash_bwd_dkv`. All are wgmma/TMA
+  kernels.
 
 `gated_flash_attention` is the entry point. Without a gradient to take it runs
 the lse-free forward; when q, k, v or the gate requires grad it runs
 `GatedFlashAttention`, whose forward saves (q, k, v, gate, o, lse) and whose
-backward runs the dq kernel, then the dk/dv kernel. A CPU tensor takes the
+backward runs the backward kernels of `backward_plan`. A CPU tensor takes the
 plain versions (`gated_attention_reference`, `gated_attention_reference_lse`,
 `gated_flash_backward_reference`); a CUDA tensor goes to the kernels or
 raises. On the card the kernels take bf16 q/k/v, the dtype the U-Net runs in;
@@ -33,16 +37,17 @@ The sources are compiled and loaded at first use by `ops/build.py`.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from diffusion_pruning_tpu_torch.ops import build
+from diffusion_pruning_tpu_torch.ops.build import SM_COUNT
 from diffusion_pruning_tpu_torch.ops.build import ptr as _ptr
 from diffusion_pruning_tpu_torch.ops.build import require_cuda as _device
 
 HEAD_DIM = 64
-TILE = 64  # rows per tile of the mma.sync kernels, queries and kv alike
 SMALL_Q_ROWS = 64  # the forward runs the mma.sync kernel at S_q <= this, wgmma above
 _LOG2E = 1.4426950408889634
 
@@ -196,47 +201,207 @@ def gated_flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
+# ---------------------------------------------------------------- the backward's plan
+
+BWD_Q_ROWS = 128         # query rows a tile of the one-pass and dq kernels (two warpgroups)
+BWD_ONE_PASS_KV = 80     # the one-pass kernel's kv tile: S_kv <= this runs one pass
+BWD_DKV_ROWS = 128       # kv rows a block of the dk/dv kernel (two warpgroups)
+BWD_DKV_Q = 64           # query rows a tile of the dk/dv kernel; the row stats' padding
+
+
+def _last_round_fill(items: int) -> float:
+    """How full the last round of `items` equal work items leaves the SMs."""
+    rem = items % SM_COUNT
+    return 1.0 if rem == 0 else rem / SM_COUNT
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How the backward runs one shape (`backward_plan`).
+
+    route "one_pass" (S_kv <= BWD_ONE_PASS_KV): `gated_flash_bwd_fused`,
+    `blocks` persistent blocks walking B·H·`chunks` work items (b·h, slice of
+    the `q_tiles` 128-row query tiles); with chunks > 1 its dk/dv go to an f32
+    workspace that `gated_flash_bwd_reduce` sums in slice order. route
+    "two_kernel": `gated_flash_bwd_dq`, `dq_blocks` persistent blocks over
+    the B·H·q_tiles work tiles, which also writes the row stats (B·H, 2,
+    s_q_pad), then `gated_flash_bwd_dkv`, `dkv_blocks` over the B·H·kv_tiles
+    128-row kv tiles. A block walks items blk, blk + blocks, …, those of one
+    b·h adjacent. Every dgate partial is one per consumer warp: eight per
+    work item."""
+    route: str
+    b: int
+    h: int
+    s_q: int
+    s_kv: int
+    q_tiles: int
+    kv_tiles: int
+    chunks: int
+    blocks: int
+    s_q_pad: int
+
+    @property
+    def items(self) -> int:
+        return self.b * self.h * self.chunks
+
+    @property
+    def dq_blocks(self) -> int:
+        return min(self.b * self.h * self.q_tiles, SM_COUNT)
+
+    @property
+    def dkv_blocks(self) -> int:
+        return min(self.b * self.h * self.kv_tiles, SM_COUNT)
+
+    def slice_tiles(self, ch: int) -> Tuple[int, int]:
+        """Query tiles [t0, t1) of slice `ch` (the kernel's t0 = ch·tiles / chunks)."""
+        return ch * self.q_tiles // self.chunks, (ch + 1) * self.q_tiles // self.chunks
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        """Launches of each backward kernel for one backward of this shape."""
+        if self.route == "one_pass":
+            return {"gated_flash_bwd_fused": 1, "gated_flash_bwd_reduce": int(self.chunks > 1)}
+        return {"gated_flash_bwd_dq": 1, "gated_flash_bwd_dkv": 1}
+
+    @property
+    def dgate_parts(self) -> Tuple[Tuple[int, int], ...]:
+        """Shapes of the f32 dgate partials, each (B·H, parts)."""
+        bh = self.b * self.h
+        if self.route == "one_pass":
+            return ((bh, 8 * self.chunks),)
+        return ((bh, 8 * self.q_tiles), (bh, 8 * self.kv_tiles))
+
+    @property
+    def workspace_shape(self) -> Optional[Tuple[int, ...]]:
+        """(chunks, 2: dk, dv, B, S_kv, H, 64) f32 of a split one pass, else None."""
+        if self.route != "one_pass" or self.chunks == 1:
+            return None
+        return (self.chunks, 2, self.b, self.s_kv, self.h, HEAD_DIM)
+
+    @property
+    def stats_shape(self) -> Optional[Tuple[int, int, int]]:
+        """(B·H, 2: lse·log2 e, δ, s_q_pad) f32 row stats of the two-kernel route."""
+        return None if self.route == "one_pass" else (self.b * self.h, 2, self.s_q_pad)
+
+
+def backward_plan(b: int, h: int, s_q: int, s_kv: int) -> BackwardPlan:
+    """The backward's plan for q (B, S_q, H, 64) and k/v (B, S_kv, H, 64).
+
+    * S_kv <= 80 (cross-attention, the 64- and 16-token blocks): one pass,
+      the whole kv side of a (b, h) one tile; persistent blocks, at most one
+      per SM (a block takes 217 KB of shared memory). The q range is split
+      into the fewest slices that leave the last round of the 132 SMs at
+      least half full (B·H items alone at 1024/77, h 5, B 64: 320 items,
+      the last round 42 % full; two slices: 85 %), at most one query tile a
+      slice; where no split reaches half, the fullest.
+      At S_q <= 64 an item is one 64-row tile and the kernel's second
+      instance gives each of its two warpgroups items of their own.
+    * otherwise two kernels, dq (which writes δ) then dk/dv."""
+    q_tiles = -(-s_q // BWD_Q_ROWS)
+    if s_kv <= BWD_ONE_PASS_KV:
+        bh = b * h
+        fills = [(_last_round_fill(bh * c), c) for c in range(1, q_tiles + 1)]
+        chunks = next((c for fill, c in fills if fill >= 0.5),
+                      max(fills, key=lambda fc: (fc[0], -fc[1]))[1])
+        return BackwardPlan("one_pass", b, h, s_q, s_kv, q_tiles, 1, chunks,
+                            min(bh * chunks, SM_COUNT), 0)
+    return BackwardPlan("two_kernel", b, h, s_q, s_kv, q_tiles, -(-s_kv // BWD_DKV_ROWS), 1,
+                        0, -(-s_q // BWD_DKV_Q) * BWD_DKV_Q)
+
+
+# ---------------------------------------------------------------- backward wrappers
+
+def _check_backward(q, k, v, gate, lse, tensors):
+    _device(q)
+    _check(q, k, v, gate)
+    b, s_q, h, _ = q.shape
+    _check_bf16(q=q, **tensors)
+    for name, t in tensors.items():
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} differs from q {tuple(q.shape)}")
+    if lse is not None:
+        _check_rows("lse", lse, b, h, s_q, q.device)
+    return backward_plan(b, h, s_q, k.shape[1])
+
+
+def _empty_f32(shape, device):
+    return torch.empty(shape, device=device, dtype=torch.float32)
+
+
+def gated_flash_bwd_fused(q, k, v, gate, o, lse, do):
+    """One-pass kernel (S_kv <= BWD_ONE_PASS_KV): (dq, dk, dv, dgate partials
+    (B·H, 8·chunks) f32 or None without a gate), under `backward_plan`; a
+    split plan launches `gated_flash_bwd_reduce` after it. CUDA tensors only,
+    checked; counted in `.launches`."""
+    plan = _check_backward(q, k, v, gate, lse, {"o": o, "do": do})
+    if plan.route != "one_pass":
+        raise ValueError(f"S_kv = {k.shape[1]} exceeds the one-pass kv tile {BWD_ONE_PASS_KV}")
+    b, s_q, h, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = None if gate is None else _empty_f32(plan.dgate_parts[0], q.device)
+    ws = None if plan.workspace_shape is None else _empty_f32(plan.workspace_shape, q.device)
+    build.launch("gated_flash_bwd_fused", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(gate), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), _ptr(ws), _ptr(part), b, h, s_q, k.shape[1],
+                 plan.chunks, plan.blocks, d ** -0.5)
+    gated_flash_bwd_fused.launches += 1
+    if ws is not None:
+        gated_flash_bwd_reduce(ws, dk, dv)
+    return dq, dk, dv, part
+
+
+def gated_flash_bwd_reduce(ws, dk, dv):
+    """dk, dv = Σ over slices of the f32 workspace (chunks, 2, *dk.shape), in
+    slice order, rounded once (into dk and dv). CUDA tensors only; counted in
+    `.launches`."""
+    _device(ws)
+    _check_bf16(dk=dk, dv=dv)
+    if (ws.dtype != torch.float32 or not ws.is_contiguous() or ws.dim() != 6
+            or ws.shape[1] != 2 or ws.shape[2:] != dk.shape or dv.shape != dk.shape):
+        raise ValueError(f"workspace {ws.dtype} {tuple(ws.shape)} does not hold dk/dv "
+                         f"{tuple(dk.shape)}")
+    build.launch("gated_flash_bwd_reduce", ws.device, ws.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), ws.shape[0], dk.numel())
+    gated_flash_bwd_reduce.launches += 1
+
+
 def gated_flash_bwd_dq(q, k, v, gate, o, lse, do):
-    """dq kernel: (dq, δ (B·H, S_q) f32, dgate partials (B·H, q tiles) f32 or
-    None without a gate). CUDA tensors only, checked; counted in `.launches`."""
-    _device(q)
-    _check(q, k, v, gate)
-    b, s_q, h, d = q.shape
-    _check_bf16(q=q, o=o, do=do)
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"o/do shapes {tuple(o.shape)}/{tuple(do.shape)} differ from q "
-                         f"{tuple(q.shape)}")
-    _check_rows("lse", lse, b, h, s_q, q.device)
-    dq = torch.empty_like(q)
-    delta = torch.empty(b * h, s_q, device=q.device, dtype=torch.float32)
-    part = None if gate is None else torch.empty(
-        b * h, -(-s_q // TILE), device=q.device, dtype=torch.float32)
-    build.launch("gated_flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(gate), dq.data_ptr(),
-            delta.data_ptr(), _ptr(part), b, h, s_q, k.shape[1], d ** -0.5)
-    gated_flash_bwd_dq.launches += 1
-    return dq, delta, part
-
-
-def gated_flash_bwd_dkv(q, k, v, gate, lse, delta, do):
-    """dk/dv kernel: (dk, dv, dgate partials (B·H, kv tiles) f32 or None
-    without a gate). δ from `gated_flash_bwd_dq`. CUDA tensors only, checked;
+    """dq kernel of the two-kernel route (S_kv > BWD_ONE_PASS_KV): (dq, row
+    stats (B·H, 2, S_q padded to 64) f32: lse·log2 e and δ, dgate partials
+    (B·H, 8·q_tiles) f32 or None without a gate). CUDA tensors only, checked;
     counted in `.launches`."""
-    _device(q)
-    _check(q, k, v, gate)
+    plan = _check_backward(q, k, v, gate, lse, {"o": o, "do": do})
+    if plan.route != "two_kernel":
+        raise ValueError(f"S_kv = {k.shape[1]} runs the one-pass kernel")
     b, s_q, h, d = q.shape
-    _check_bf16(q=q, do=do)
-    if do.shape != q.shape:
-        raise ValueError(f"do shape {tuple(do.shape)} differs from q {tuple(q.shape)}")
-    _check_rows("lse", lse, b, h, s_q, q.device)
-    _check_rows("delta", delta, b, h, s_q, q.device)
-    s_kv = k.shape[1]
+    dq = torch.empty_like(q)
+    stats = _empty_f32(plan.stats_shape, q.device)
+    part = None if gate is None else _empty_f32(plan.dgate_parts[0], q.device)
+    build.launch("gated_flash_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(gate), dq.data_ptr(),
+                 stats.data_ptr(), _ptr(part), b, h, s_q, k.shape[1], plan.s_q_pad,
+                 plan.dq_blocks, d ** -0.5)
+    gated_flash_bwd_dq.launches += 1
+    return dq, stats, part
+
+
+def gated_flash_bwd_dkv(q, k, v, gate, stats, do):
+    """dk/dv kernel of the two-kernel route: (dk, dv, dgate partials
+    (B·H, 8·kv_tiles) f32 or None without a gate); `stats` from
+    `gated_flash_bwd_dq`. CUDA tensors only, checked; counted in `.launches`."""
+    plan = _check_backward(q, k, v, gate, None, {"do": do})
+    if plan.route != "two_kernel":
+        raise ValueError(f"S_kv = {k.shape[1]} runs the one-pass kernel")
+    if (stats.shape != plan.stats_shape or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be contiguous float32 {plan.stats_shape} on {q.device}, "
+                         f"got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
+    b, s_q, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    part = None if gate is None else torch.empty(
-        b * h, -(-s_kv // TILE), device=q.device, dtype=torch.float32)
+    part = None if gate is None else _empty_f32(plan.dgate_parts[1], q.device)
     build.launch("gated_flash_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(gate), dk.data_ptr(),
-            dv.data_ptr(), _ptr(part), b, h, s_q, s_kv, d ** -0.5)
+                 do.data_ptr(), stats.data_ptr(), _ptr(gate), dk.data_ptr(), dv.data_ptr(),
+                 _ptr(part), b, h, s_q, k.shape[1], plan.s_q_pad, plan.dkv_blocks, d ** -0.5)
     gated_flash_bwd_dkv.launches += 1
     return dk, dv, part
 
@@ -245,21 +410,29 @@ def gated_flash_backward(q, k, v, gate, o, lse, do):
     """(dq, dk, dv, dgate) of the gated attention at (q, k, v, gate), given the
     forward's o and lse and the output gradient do; dgate is (B, H) f32, None
     without a gate. CPU tensors run `gated_flash_backward_reference`; CUDA
-    tensors the dq kernel, then the dk/dv kernel."""
+    tensors the kernels of `backward_plan`'s route: the one-pass kernel
+    (and, split, its reduction), or the dq kernel, then the dk/dv kernel.
+    The dgate partials are summed in a fixed order."""
     if q.device.type == "cpu":
         return gated_flash_backward_reference(q, k, v, gate, o, lse, do)
-    dq, delta, part_q = gated_flash_bwd_dq(q, k, v, gate, o, lse, do)
-    dk, dv, part_kv = gated_flash_bwd_dkv(q, k, v, gate, lse, delta, do)
+    _device(q)
+    if k.shape[1] <= BWD_ONE_PASS_KV:
+        dq, dk, dv, part = gated_flash_bwd_fused(q, k, v, gate, o, lse, do)
+        parts = (part,)
+    else:
+        dq, stats, part_q = gated_flash_bwd_dq(q, k, v, gate, o, lse, do)
+        dk, dv, part_kv = gated_flash_bwd_dkv(q, k, v, gate, stats, do)
+        parts = (part_q, part_kv)
     dgate = None
     if gate is not None:
         b, h = gate.shape
-        dgate = part_q.view(b, h, -1).sum(-1) + part_kv.view(b, h, -1).sum(-1)
+        dgate = sum(p.view(b, h, -1).sum(-1) for p in parts)
     return dq, dk, dv, dgate
 
 
 class GatedFlashAttention(torch.autograd.Function):
     """Gated attention with gradients for q, k, v and the gate: the training
-    forward (with lse) and the two backward kernels on the card, their plain
+    forward (with lse) and the backward kernels on the card, their plain
     versions on the CPU."""
 
     @staticmethod
@@ -303,5 +476,7 @@ def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 forward_launches = {"gated_flash_fwd_wgmma": 0, "gated_flash_fwd": 0}
 gated_flash_attention.launches = 0
 gated_flash_forward_lse.launches = 0
+gated_flash_bwd_fused.launches = 0
+gated_flash_bwd_reduce.launches = 0
 gated_flash_bwd_dq.launches = 0
 gated_flash_bwd_dkv.launches = 0

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from diffusion_pruning_tpu_torch.ops import build
+from diffusion_pruning_tpu_torch.ops.build import SM_COUNT
 from diffusion_pruning_tpu_torch.ops.group_norm import (
     check_activation,
     check_vector,
@@ -136,7 +137,6 @@ def norm_linear_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight:
 
 CONV_CHUNK = 64        # channels per K chunk of norm_conv3x3 (one 128-byte weight row)
 CONV_BLOCK_PIXELS = 128
-SM_COUNT = 132         # H100 SXM
 # (patch width, patch height, patches a block) by the map's width: 128 pixels a block
 _PATCHES = ((8, (16, 8, 1)), (4, (8, 8, 2)), (0, (4, 4, 8)))
 

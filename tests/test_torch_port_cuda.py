@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card: gated
-flash attention (the forward, with and without lse, and the dq and dk/dv
-backward kernels) and the fused-norm kernels (one-pass GroupNorm(+SiLU),
+flash attention (the forward, with and without lse, and the backward
+kernels of both routes) and the fused-norm kernels (one-pass GroupNorm(+SiLU),
 GroupNorm→SiLU→conv3x3, GroupNorm→linear). Imports only torch and the port, so that it runs on a machine without
 JAX:
 
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from diffusion_pruning_tpu_torch.ops.flash_attention import (
+    backward_plan,
     forward_kernel,
     forward_launches,
     gated_attention_reference,
@@ -22,6 +23,8 @@ from diffusion_pruning_tpu_torch.ops.flash_attention import (
     gated_flash_backward_reference,
     gated_flash_bwd_dkv,
     gated_flash_bwd_dq,
+    gated_flash_bwd_fused,
+    gated_flash_bwd_reduce,
     gated_flash_forward_lse,
 )
 
@@ -119,25 +122,44 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         gated_flash_forward_lse(*shifted)
 
 
-# the 8 attention shapes of the SD-2.1 U-Net at 256px, and a ragged odd-head one
+BACKWARD_KERNELS = {"gated_flash_bwd_fused": gated_flash_bwd_fused,
+                    "gated_flash_bwd_reduce": gated_flash_bwd_reduce,
+                    "gated_flash_bwd_dq": gated_flash_bwd_dq,
+                    "gated_flash_bwd_dkv": gated_flash_bwd_dkv}
+
+
+def _backward_launches():
+    return {name: f.launches for name, f in BACKWARD_KERNELS.items()}
+
+
+# the 8 attention shapes of the SD-2.1 U-Net at 256px, a ragged odd-head one
+# of each route (one pass at S_kv <= 80, else dq then dk/dv), and S_kv at the
+# edges of the one-pass kv tile (80) and of the dk/dv kernel's 128-row tile,
+# and a ragged one of the one pass's S_q <= 64 instance; 1024/77 at B = 4
+# and h = 5 splits the one pass's query range in four
 @pytest.mark.parametrize("s_q,s_kv,h", [(1024, 1024, 5), (1024, 77, 5), (256, 256, 10),
                                         (256, 77, 10), (64, 64, 20), (64, 77, 20),
-                                        (16, 16, 20), (16, 77, 20), (100, 77, 3)])
+                                        (16, 16, 20), (16, 77, 20), (100, 77, 3),
+                                        (200, 200, 3), (100, 80, 3), (100, 81, 3),
+                                        (100, 128, 3), (100, 129, 3), (40, 50, 3)])
 def test_cuda_training_kernels_match_plain_versions(s_q, s_kv, h):
     """The training forward's o and lse, and dq, dk, dv and dgate of the
     backward kernels (on the forward's own o and lse), against the plain
     versions in f32 on the same bf16 inputs; a closed head gets exactly 0
-    dq, dk, dv and a nonzero dgate."""
+    dq, dk, dv and a nonzero dgate; the kernels of the plan's route ran."""
     b = 4
-    q, k, v, gate = _inputs(b, s_q, s_kv, h, seed=s_q * h)
+    q, k, v, gate = _inputs(b, s_q, s_kv, h, seed=s_q * h + s_kv)
     do = torch.randn_like(q)
-    counts = [f.launches for f in (gated_flash_forward_lse, gated_flash_bwd_dq,
-                                   gated_flash_bwd_dkv)]
+    plan = backward_plan(b, h, s_q, s_kv)
+    before_fwd = gated_flash_forward_lse.launches
+    before = _backward_launches()
     o, lse = gated_flash_forward_lse(q, k, v, gate)
     dq, dk, dv, dgate = gated_flash_backward(q, k, v, gate, o, lse, do)
     torch.cuda.synchronize()
-    assert [f.launches for f in (gated_flash_forward_lse, gated_flash_bwd_dq,
-                                 gated_flash_bwd_dkv)] == [c + 1 for c in counts]
+    assert gated_flash_forward_lse.launches == before_fwd + 1
+    ran = {name: n - before[name] for name, n in _backward_launches().items()}
+    assert ran == {name: plan.launches.get(name, 0) for name in BACKWARD_KERNELS}
+    assert plan.route == ("one_pass" if s_kv <= 80 else "two_kernel")
     o_r, lse_r = _f32_reference(gated_attention_reference_lse, q, k, v, gate)
     dq_r, dk_r, dv_r, dg_r = _f32_reference(gated_flash_backward_reference, q, k, v, gate,
                                             o, lse, do)
@@ -151,20 +173,36 @@ def test_cuda_training_kernels_match_plain_versions(s_q, s_kv, h):
     assert dgate[0, 0].abs().item() > 0
 
 
-def test_cuda_autograd_function_runs_the_training_kernels():
-    """Under autograd the wrapper runs the lse forward and both backward
-    kernels; under no_grad the lse-free forward."""
-    q, k, v, gate = _inputs(2, 64, 77, 5, seed=1)
+@pytest.mark.parametrize("s_q,s_kv,h", [(1024, 77, 5), (200, 200, 3)])
+def test_cuda_backward_repeats_bit_for_bit(s_q, s_kv, h):
+    """No atomics anywhere: two backwards on the same inputs give the same
+    bits in dq, dk, dv and dgate (the split one pass and the two kernels)."""
+    q, k, v, gate = _inputs(4, s_q, s_kv, h, seed=7)
+    do = torch.randn_like(q)
+    o, lse = gated_flash_forward_lse(q, k, v, gate)
+    first = gated_flash_backward(q, k, v, gate, o, lse, do)
+    second = gated_flash_backward(q, k, v, gate, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("s_q,s_kv,route", [(64, 77, "one_pass"), (256, 256, "two_kernel")])
+def test_cuda_autograd_function_runs_the_training_kernels(s_q, s_kv, route):
+    """Under autograd the wrapper runs the lse forward and the backward
+    kernels of the plan's route; under no_grad the lse-free forward."""
+    q, k, v, gate = _inputs(2, s_q, s_kv, 5, seed=1)
     q.requires_grad_()
     gate.requires_grad_()
-    kinds = (gated_flash_attention, gated_flash_forward_lse, gated_flash_bwd_dq,
-             gated_flash_bwd_dkv)
+    assert backward_plan(2, 5, s_q, s_kv).route == route
+    kinds = (gated_flash_attention, gated_flash_forward_lse, *BACKWARD_KERNELS.values())
     before = [f.launches for f in kinds]
     gated_flash_attention(q, k, v, gate).float().square().sum().backward()
     with torch.no_grad():
         gated_flash_attention(q, k, v, gate)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(kinds, before)] == [1, 1, 1, 1]
+    want = [1, 1, 1, 0, 0, 0] if route == "one_pass" else [1, 1, 0, 0, 1, 1]
+    assert [f.launches - n for f, n in zip(kinds, before)] == want
     assert q.grad is not None and gate.grad is not None and k.grad is None
     assert torch.isfinite(gate.grad).all()
 

@@ -119,3 +119,191 @@ def test_sum_of_the_plans_slices_is_the_conv(b, cin, cout, side):
     assert (out - want).abs().max().item() <= 1e-5 * scale
     packed_ref = nc.norm_conv3x3_plain(x, a, sh, w, bias, True)
     assert (out - packed_ref).abs().max().item() <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------- the attention backward's plan
+
+from diffusion_pruning_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+# (S_q, S_kv, heads) of every attention site of the SD-2.1 U-Net at 256px
+# (5 sites each but the 16-token block's 1), at 512px, and ragged ones at
+# the edges of the one-pass kv tile (80) and the dk/dv kernel's 128 rows
+SITES_256 = ((1024, 1024, 5), (1024, 77, 5), (256, 256, 10), (256, 77, 10), (64, 64, 20),
+             (64, 77, 20), (16, 16, 20), (16, 77, 20))
+SITES_512 = ((4096, 4096, 5), (4096, 77, 5), (1024, 1024, 10), (1024, 77, 10), (256, 256, 20),
+             (256, 77, 20), (64, 64, 20), (64, 77, 20))
+RAGGED = ((200, 200, 3), (100, 77, 3), (100, 80, 3), (100, 81, 3), (100, 128, 3),
+          (100, 129, 3), (1, 1, 1), (129, 77, 7))
+BACKWARD_CASES = ([(64, *s) for s in SITES_256] + [(b, *s) for b in (4, 16) for s in SITES_512]
+                  + [(b, *s) for b in (1, 4, 64) for s in RAGGED])
+
+
+def _walk(blocks, items):
+    """(block, item) of a persistent grid: block blk walks blk, blk + blocks, …"""
+    for blk in range(blocks):
+        for w in range(blk, items, blocks):
+            yield blk, w
+
+
+def _dq_writes(plan):
+    """(kernel, block, b·h, first row, end row) of every run of dq rows a
+    block writes, by the kernels' index arithmetic (gated_flash_bwd.cu)."""
+    if plan.route == "one_pass":
+        for blk, w in _walk(plan.blocks, plan.items):
+            bh, ch = divmod(w, plan.chunks)
+            t0, t1 = plan.slice_tiles(ch)
+            yield ("gated_flash_bwd_fused", blk, bh, t0 * fa.BWD_Q_ROWS,
+                   min(t1 * fa.BWD_Q_ROWS, plan.s_q))
+        return
+    for blk, w in _walk(plan.dq_blocks, plan.b * plan.h * plan.q_tiles):
+        bh, t = divmod(w, plan.q_tiles)
+        yield ("gated_flash_bwd_dq", blk, bh, t * fa.BWD_Q_ROWS,
+               min((t + 1) * fa.BWD_Q_ROWS, plan.s_q))
+
+
+def _dkv_writes(plan):
+    """The same for dk/dv rows (the reduction's where the one pass is split)."""
+    if plan.route == "one_pass":
+        if plan.chunks > 1:
+            for bh in range(plan.b * plan.h):
+                yield ("gated_flash_bwd_reduce", None, bh, 0, plan.s_kv)
+            return
+        for blk, bh in _walk(plan.blocks, plan.items):
+            yield ("gated_flash_bwd_fused", blk, bh, 0, plan.s_kv)
+        return
+    for blk, w in _walk(plan.dkv_blocks, plan.b * plan.h * plan.kv_tiles):
+        bh, t = divmod(w, plan.kv_tiles)
+        yield ("gated_flash_bwd_dkv", blk, bh, t * fa.BWD_DKV_ROWS,
+               min((t + 1) * fa.BWD_DKV_ROWS, plan.s_kv))
+
+
+def _workspace_writes(plan):
+    """(block, b·h, slice) of every f32 dk/dv partial of a split one pass."""
+    if plan.workspace_shape is None:
+        return
+    for blk, w in _walk(plan.blocks, plan.items):
+        yield (blk, *divmod(w, plan.chunks))
+
+
+def _runs_partition(runs, n_rows, n_bh):
+    """Each b·h's runs [lo, hi) tile [0, n_rows) exactly once."""
+    by_bh = {}
+    for bh, lo, hi in runs:
+        assert lo < hi
+        by_bh.setdefault(bh, []).append((lo, hi))
+    assert sorted(by_bh) == list(range(n_bh))
+    for bh, spans in by_bh.items():
+        spans.sort()
+        assert spans[0][0] == 0 and spans[-1][1] == n_rows, (bh, spans)
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:])), (bh, spans)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", BACKWARD_CASES)
+def test_backward_plan_writes_every_row_once(b, s_q, s_kv, h):
+    """Each query row's dq and each kv row's dk/dv is written by exactly one
+    block of one kernel of the plan's route (a split one pass: each slice's
+    f32 partial by one block, dk/dv by the reduction)."""
+    plan = fa.backward_plan(b, h, s_q, s_kv)
+    dq = list(_dq_writes(plan))
+    dkv = list(_dkv_writes(plan))
+    kernels = set(plan.launches)
+    assert {k for k, *_ in dq} | {k for k, *_ in dkv} <= kernels
+    _runs_partition([(bh, lo, hi) for _, _, bh, lo, hi in dq], s_q, b * h)
+    _runs_partition([(bh, lo, hi) for _, _, bh, lo, hi in dkv], s_kv, b * h)
+    blocks = {}
+    for kernel, blk, bh, lo, hi in dq:
+        blocks.setdefault((bh, lo), set()).add((kernel, blk))
+    assert all(len(v) == 1 for v in blocks.values())
+    ws = list(_workspace_writes(plan))
+    if plan.workspace_shape is None:
+        assert ws == []
+    else:
+        assert sorted((bh, ch) for _, bh, ch in ws) == [
+            (bh, ch) for bh in range(b * h) for ch in range(plan.chunks)]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", BACKWARD_CASES)
+def test_backward_plan_takes_one_pass_only_where_the_kv_side_is_one_tile(b, s_q, s_kv, h):
+    plan = fa.backward_plan(b, h, s_q, s_kv)
+    assert plan.route == ("one_pass" if s_kv <= fa.BWD_ONE_PASS_KV else "two_kernel")
+    assert plan.q_tiles == math.ceil(s_q / fa.BWD_Q_ROWS)
+    if plan.route == "one_pass":
+        assert plan.launches == {"gated_flash_bwd_fused": 1,
+                                 "gated_flash_bwd_reduce": int(plan.chunks > 1)}
+        assert plan.kv_tiles == 1 and plan.stats_shape is None
+        assert 1 <= plan.blocks <= min(plan.items, fa.SM_COUNT)
+    else:
+        assert plan.launches == {"gated_flash_bwd_dq": 1, "gated_flash_bwd_dkv": 1}
+        assert plan.dq_blocks == min(b * h * plan.q_tiles, fa.SM_COUNT)
+        assert plan.dkv_blocks == min(b * h * plan.kv_tiles, fa.SM_COUNT)
+        assert plan.kv_tiles == math.ceil(s_kv / fa.BWD_DKV_ROWS) and plan.chunks == 1
+        assert plan.s_q_pad % fa.BWD_DKV_Q == 0 and 0 <= plan.s_q_pad - s_q < fa.BWD_DKV_Q
+        assert plan.s_q_pad <= plan.q_tiles * fa.BWD_Q_ROWS  # the dq grid writes every stats row
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", BACKWARD_CASES)
+def test_backward_q_split_fills_half_of_the_last_round(b, s_q, s_kv, h):
+    """The one pass splits the query range only where B·H items leave the
+    last round of the 132 SMs less than half full, into the fewest slices
+    that fill half of it (or, where none does, one query tile a slice)."""
+    plan = fa.backward_plan(b, h, s_q, s_kv)
+    if plan.route != "one_pass":
+        return
+    fill = fa._last_round_fill(plan.items)
+    assert 1 <= plan.chunks <= plan.q_tiles
+    assert fill >= 0.5 or plan.chunks == plan.q_tiles or all(
+        fa._last_round_fill(b * h * c) <= fill for c in range(1, plan.q_tiles + 1))
+    for c in range(1, plan.chunks):
+        assert fa._last_round_fill(b * h * c) < 0.5
+    assert all(plan.slice_tiles(ch)[0] < plan.slice_tiles(ch)[1] for ch in range(plan.chunks))
+
+
+def test_backward_plan_at_the_train_steps_sites():
+    """B = 64: the 22 sites with S_kv <= 80 run one pass, only 1024/77 split
+    (320 items fill 42 % of the last round, two slices 85 %); 1024² and 256²
+    run the two kernels."""
+    routes = {s: fa.backward_plan(64, s[2], s[0], s[1]) for s in SITES_256}
+    assert [s for s, p in routes.items() if p.route == "two_kernel"] == [
+        (1024, 1024, 5), (256, 256, 10)]
+    assert {s: p.chunks for s, p in routes.items() if p.chunks > 1} == {(1024, 77, 5): 2}
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", [(64, 1024, 77, 5), (64, 16, 77, 20), (4, 1024, 1024, 5),
+                                          (1, 200, 200, 3), (2, 100, 81, 3)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_backward_wrappers_allocate_what_the_plan_states(monkeypatch, b, s_q, s_kv, h, gated):
+    """The wrappers' partials, workspace and row stats have the plan's
+    shapes, and the entry points get the plan's chunks, blocks and padding
+    (shapes only: meta tensors, the launches recorded, not run)."""
+    calls = []
+
+    def launch(name, device, *args):
+        calls.append((name, args))
+
+    monkeypatch.setattr(fa, "_device", lambda t: None)
+    monkeypatch.setattr(fa.build, "launch", launch)
+    q, o, do = (torch.empty(b, s_q, h, 64, device="meta", dtype=torch.bfloat16) for _ in range(3))
+    k, v = (torch.empty(b, s_kv, h, 64, device="meta", dtype=torch.bfloat16) for _ in range(2))
+    lse = torch.empty(b * h, s_q, device="meta")
+    gate = torch.empty(b, h, device="meta") if gated else None
+    plan = fa.backward_plan(b, h, s_q, s_kv)
+    out = fa.gated_flash_backward(q, k, v, gate, o, lse, do)
+    assert [name for name, _ in calls] == [n for n, c in plan.launches.items() if c]
+    assert all(len(args) == len(fa.build.SIGNATURES[name][1]) - 1 for name, args in calls)
+    assert out[3] is None if not gated else tuple(out[3].shape) == (b, h)
+    if plan.route == "one_pass":
+        dq, dk, dv, part = fa.gated_flash_bwd_fused(q, k, v, gate, o, lse, do)
+        args = calls[-2 if plan.chunks > 1 else -1][1]
+        assert args[-3:-1] == (plan.chunks, plan.blocks)
+        assert (part is None) == (not gated)
+        if gated:
+            assert (tuple(part.shape),) == plan.dgate_parts
+    else:
+        dq, stats, part_q = fa.gated_flash_bwd_dq(q, k, v, gate, o, lse, do)
+        assert tuple(stats.shape) == plan.stats_shape
+        assert calls[-1][1][-3:-1] == (plan.s_q_pad, plan.dq_blocks)
+        dk, dv, part_kv = fa.gated_flash_bwd_dkv(q, k, v, gate, stats, do)
+        assert calls[-1][1][-3:-1] == (plan.s_q_pad, plan.dkv_blocks)
+        if gated:
+            assert (tuple(part_q.shape), tuple(part_kv.shape)) == plan.dgate_parts
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape

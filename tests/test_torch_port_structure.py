@@ -189,7 +189,9 @@ def test_kernel_wrapper_rejects_other_devices():
     for call in (lambda: fa.gated_flash_attention(q, q, q),
                  lambda: fa.gated_flash_forward_lse(q, q, q),
                  lambda: fa.gated_flash_bwd_dq(q, q, q, None, q, lse, q),
-                 lambda: fa.gated_flash_bwd_dkv(q, q, q, None, lse, lse, q),
+                 lambda: fa.gated_flash_bwd_dkv(q, q, q, None, lse, q),
+                 lambda: fa.gated_flash_bwd_fused(q, q, q, None, q, lse, q),
+                 lambda: fa.gated_flash_bwd_reduce(lse, q, q),
                  lambda: gn.group_norm_silu_forward(q, lse, lse, 1, 1e-5, True),
                  lambda: gn.group_norm_silu(q, lse, lse, 1),
                  lambda: nc.norm_conv3x3(q, lse, lse, q, lse, True),
