@@ -10,8 +10,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   with nvcc into `build/torch_kernels/`, one nvcc per source,
                   all started together; ptxas's register report and the
                   HGMMA/HMMA/UTMALDG count of each kernel's SASS; each
-                  backward kernel must show HGMMA and UTMALDG and no HMMA
-                  (its registers, spills and ptxas notes reported);
+                  backward kernel and norm_linear must show HGMMA and UTMALDG
+                  and no HMMA, group_norm_silu UTMALDG (their registers,
+                  spills and ptxas notes reported, and the cluster size
+                  group_norm_plan gives the U-Net's GroupNorm shapes);
   3. kernels    — the bf16 forward against its plain PyTorch version run in f32
                   (TF32 off) on the same bf16 inputs, at the SD-2.1 shapes
                   (S_q > 64 runs the wgmma kernel, S_q <= 64 the mma.sync one;
@@ -77,13 +79,21 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   dropped tap, the other norm's eps, an uncentred variance, a
                   SiLU too many), emulated in plain torch, must read above it;
                   timed beside the bound, the plain version and the library
-                  chain (F.group_norm + F.silu + F.conv2d / F.linear); the
-                  conv under its plan (`conv_plan`: patch, BN, split over K),
-                  a split plan's reduction kernel against its plain version;
+                  chain (F.group_norm + F.silu + F.conv2d / F.linear), hot
+                  and cold; GroupNorm also at B = 64 (timed), under
+                  `group_norm_plan` (window, cluster, rows); the conv under
+                  its plan (`conv_plan`: patch, BN, split over K), the linear
+                  under `linear_plan` (split over K, persistent grid), a
+                  split plan's reduction kernel against its plain version;
                   and the conv's activation alone (identity centre tap, y over
                   [−8, 8]) within one bf16 ulp, with SiLU's tanh.approx form,
                   a planted fault, above; the conv's time under each split
-                  over K at five shapes of the small maps (the plan's rule);
+                  over K at five shapes of the small maps and the linear's
+                  at three (the plans' rule); then every route of
+                  `backward_plan` and the conv's and the linear's split
+                  workspaces run twice with NaN in the allocator's free
+                  blocks and in every buffer the wrappers allocate: finite,
+                  and equal bit for bit;
  10. fused U-Net — the full-width U-Net of phase 4 under `fused_norms`, then
                   under `fused_norm_conv`, same weights, against an f32 U-Net
                   (<= FUSED_UNET_REL_L2, with the unfused bf16 reading beside it)
@@ -1421,7 +1431,8 @@ def check_group_norm_kernel(sites, device, check):
     from diffusion_pruning_tpu_torch.ops import group_norm as gn
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
-    cases = [(FUSED_B, key, n) for key, n in sorted(sites.items())] + [(4, k, 0) for k in GN_512]
+    cases = ([(FUSED_B, key, n) for key, n in sorted(sites.items())] + [(4, k, 0) for k in GN_512]
+             + [(TRAIN_B, key, 0) for key in sorted(sites)])
     for b, (c, h, w, silu, eps), n in cases:
         x0, scale, bias, gates = fused_inputs(b, c, h, w, gen)
         for gate_name, gate_c in gates.items():
@@ -1439,8 +1450,13 @@ def check_group_norm_kernel(sites, device, check):
             faults = {"other_eps": gn.group_norm_silu_plain(xf, scale, bias, 32,
                                                             1e-6 if eps > 5e-6 else 1e-5, silu),
                       "uncentred_variance": F.silu(uncentred) if silu else uncentred}
+            plan = gn.group_norm_plan(b, h * w, c, 32)
             row = {"b": b, "c": c, "h": h, "w": w, "silu": silu, "eps": eps, "gate": gate_name,
-                   "sites": n}
+                   "sites": n,
+                   "plan": {"window": plan.window, "cluster": plan.cluster, "rows": plan.rows,
+                            "threads": plan.threads, "ctas": plan.ctas,
+                            "one_read": plan.one_read, "tma": plan.tma,
+                            "smem_bytes": plan.smem_bytes}}
             check.take(row, out, ref, unfused, faults)
             if gate_name == "hard":  # the closed group: variance 0, act(bias)
                 want = bias[: c // 32]
@@ -1462,6 +1478,11 @@ def check_group_norm_kernel(sites, device, check):
                     return act(F.group_norm(x, 32, sb, bb, eps))
 
                 row["ms"] = device_ms(kernel, iters)
+                row["cold_ms"] = cold_device_ms(
+                    lambda t: gn.group_norm_silu_forward(t, scale, bias, 32, eps, silu), (x,),
+                    2.0 * x.numel())
+                row["library_cold_ms"] = cold_device_ms(
+                    lambda t: act(F.group_norm(t, 32, sb, bb, eps)), (x,), 2.0 * x.numel())
                 row["eager_ms"] = time_ms(kernel, iters)
                 row["op_ms"] = time_ms(
                     lambda: gn.group_norm_silu(x, scale, bias, 32, eps, silu), iters)
@@ -1548,6 +1569,138 @@ def sweep_conv_splits(device):
               "plan_split": plan.split, "base_blocks": plan.m_tiles * plan.n_tiles,
               "ms_by_split": {sp: device_ms(lambda: conv(sp), 10) for sp in splits}})
     torch.cuda.empty_cache()
+
+
+LINEAR_SPLIT_SWEEP = ((16, 64, 1280), (16, 16, 1280), (64, 16, 1280), (4, 256, 1280),
+                      (16, 256, 640))
+
+
+def sweep_linear_splits(device):
+    """Device ms of the linear kernel (with its reduction) under each split
+    over K at the short-grid proj_in shapes, the rest of `linear_plan`'s plan
+    kept: the measurement behind its rule."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import build
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    for b, s_len, c in LINEAR_SPLIT_SWEEP:
+        x = torch.randn(b, s_len, c, device=device, generator=gen).bfloat16()
+        a = torch.ones(b, c, device=device)
+        shift = torch.zeros(b, c, device=device)
+        weight = (torch.randn(c, c, device=device, generator=gen) * c ** -0.5).bfloat16()
+        lbias = torch.zeros(c, device=device)
+        plan = nc.linear_plan(b, s_len, c, c)
+
+        def linear(split):
+            p = dataclasses.replace(plan, split=split)
+            out = torch.empty((b, s_len, c), device=device, dtype=torch.bfloat16)
+            ws = nc.conv_workspace(p, device)
+            build.launch("norm_linear", device, x.data_ptr(), a.data_ptr(), shift.data_ptr(),
+                         weight.data_ptr(), lbias.data_ptr(), out.data_ptr(), build.ptr(ws), b,
+                         s_len, c, c, split, p.ab_rows, p.grid)
+            return out if ws is None else nc.conv_split_reduce(ws, lbias, out)
+
+        splits = sorted({1, 2, 3, 4, 5, 8, 10, plan.split} & set(range(1, plan.chunks + 1)))
+        emit({"phase": "linear_split_sweep", "b": b, "s": s_len, "c": c,
+              "plan_split": plan.split, "base_blocks": plan.m_tiles * plan.n_tiles,
+              "ms_by_split": {sp: device_ms(lambda: linear(sp), 10) for sp in splits}})
+    torch.cuda.empty_cache()
+
+
+def poison_allocator():
+    """Leave NaN in the caching allocator's free blocks: the cache is emptied,
+    then tensors of 512 B to 256 MB are filled with NaN and freed."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = [torch.full((n // 4,), float("nan"), device="cuda")
+            for n in (2 ** k for k in range(9, 29)) for _ in range(2)]
+    del held
+
+
+def nan_filled(alloc):
+    """`alloc` (torch.empty or torch.empty_like) whose floating tensors come
+    back filled with NaN."""
+    def empty(*args, **kwargs):
+        t = alloc(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+    return empty
+
+
+def check_poisoned_workspaces(device):
+    """Every route of `backward_plan` and the conv's and the linear's split
+    workspaces, each run twice with NaN in the allocator's free blocks and in
+    every buffer the wrappers allocate: finite outputs, equal bit for bit
+    (an element read before it is written would show)."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+
+    def bwd(s_q, s_kv, h, b=4):
+        q, k, v = (torch.randn(b, s, h, 64, device=device, generator=gen).bfloat16()
+                   for s in (s_q, s_kv, s_kv))
+        gate = torch.rand(b, h, device=device, generator=gen)
+        gate[0, 0] = 0.0
+        do = torch.randn_like(q)
+        o, lse = fa.gated_flash_forward_lse(q, k, v, gate)
+        plan = fa.backward_plan(b, h, s_q, s_kv)
+        info = {"route": plan.route, "split": plan.chunks,
+                "padded_stats": plan.route == "two_kernel" and plan.s_q_pad > s_q}
+        return info, lambda: fa.gated_flash_backward(q, k, v, gate, o, lse, do)
+
+    def conv(b, c, side):
+        x, scale, bias, gates = fused_inputs(b, c, side, side, gen)
+        a, bb = nc.affine_coeffs(x, scale, bias, 32, 1e-5, gates["soft"])
+        packed = (torch.randn(c, 3, 3, c, device=device, generator=gen) * (9 * c) ** -0.5
+                  ).bfloat16()
+        cbias = 0.1 * torch.randn(c, device=device, generator=gen)
+        plan = nc.conv_plan(b, side, side, c, c)
+        return ({"split": plan.split, "workspace_bytes": plan.workspace_bytes},
+                lambda: (nc.norm_conv3x3(x, a, bb, packed, cbias, True),))
+
+    def linear(b, s_len, c):
+        x4, scale, bias, gates = fused_inputs(b, c, s_len, 1, gen)
+        x = x4[:, :, :, 0].transpose(1, 2).contiguous()
+        a, bb = nc.affine_coeffs(x.transpose(1, 2), scale, bias, 32, 1e-6, gates["soft"])
+        weight = (torch.randn(c, c, device=device, generator=gen) * c ** -0.5).bfloat16()
+        lbias = 0.1 * torch.randn(c, device=device, generator=gen)
+        plan = nc.linear_plan(b, s_len, c, c)
+        return ({"split": plan.split, "workspace_bytes": plan.workspace_bytes},
+                lambda: (nc.norm_linear(x, a, bb, weight, lbias),))
+
+    routes = {"bwd_one_pass": lambda: bwd(256, 77, 20),
+              "bwd_one_pass_split": lambda: bwd(1024, 77, 5),
+              "bwd_one_pass_small_q": lambda: bwd(64, 77, 20),
+              "bwd_one_pass_16": lambda: bwd(16, 16, 20),
+              "bwd_two_kernel": lambda: bwd(256, 256, 10),
+              "bwd_two_kernel_padded_stats": lambda: bwd(200, 200, 3),
+              "conv_split_workspace": lambda: conv(FUSED_B, 1280, 4),
+              "linear_split_workspace_64": lambda: linear(FUSED_B, 64, 1280),
+              "linear_split_workspace_16": lambda: linear(FUSED_B, 16, 1280)}
+    rows = {}
+    for name, make in routes.items():
+        info, run = make()
+        results = []
+        with patched(torch, "empty", nan_filled(torch.empty)), \
+                patched(torch, "empty_like", nan_filled(torch.empty_like)):
+            for _ in range(2):
+                poison_allocator()
+                results.append([t.clone() for t in run() if t is not None])
+                torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t).all()) for t in results[0] + results[1])
+        equal = all(torch.equal(u, v) for u, v in zip(*results))
+        rows[name] = {**info, "finite": finite, "bit_equal": equal}
+        if not (finite and equal):
+            emit({"phase": "poisoned_allocator", "routes": rows})
+            fail(f"{name} reads memory it did not write: {rows[name]}")
+    if not (rows["bwd_one_pass_split"]["split"] > 1 and rows["bwd_one_pass"]["split"] == 1
+            and rows["bwd_two_kernel_padded_stats"]["padded_stats"]
+            and all(rows[k]["split"] > 1 for k in rows if "workspace" in k)):
+        fail(f"the poisoned-allocator routes do not cover their plans: {rows}")
+    emit({"phase": "poisoned_allocator", "routes": rows})
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_norm_conv_kernel(sites, device, check):
@@ -1643,7 +1796,7 @@ def check_norm_linear_kernel(sites, device, check):
     eps = 1e-6
     cases = ([(FUSED_B, key, n, True) for key, n in sorted(sites.items())]
              + [(4, key, 0, True) for key in LINEAR_512]
-             + [(TRAIN_B, key, 0, False) for key in sorted(sites)])
+             + [(TRAIN_B, key, 0, True) for key in sorted(sites)])
     for b, (s_len, c), n, timed in cases:
         x4, scale, bias, gates = fused_inputs(b, c, s_len, 1, gen)
         x = x4[:, :, :, 0].transpose(1, 2).contiguous()         # (B, S, C) tokens
@@ -1663,21 +1816,30 @@ def check_norm_linear_kernel(sites, device, check):
                 a0, b0 = nc.affine_coeffs(x.transpose(1, 2), scale, bias, 32, eps, None)
                 faults["ungated_statistics"] = nc.norm_linear_plain(xf, a0 * gate_c, b0, wf,
                                                                     lbias)
-            row = {"b": b, "s": s_len, "c": c, "gate": gate_name, "sites": n}
+            plan = nc.linear_plan(b, s_len, c, c)
+            row = {"b": b, "s": s_len, "c": c, "gate": gate_name, "sites": n,
+                   "plan": {"bn": plan.bn, "split": plan.split, "blocks": plan.blocks,
+                            "ab_rows": plan.ab_rows, "workspace_bytes": plan.workspace_bytes}}
             check.take(row, out, ref, unfused, faults)
             if timed and gate_name == "none":  # the U-Net's transformers pass no gate
                 sb, bb16, lb16 = scale.bfloat16(), bias.bfloat16(), lbias.bfloat16()
-                xc = x.transpose(1, 2)                           # (B, C, S), as F.group_norm reads it
                 iters = 20
 
                 def kernel():
                     return nc.norm_linear(x, a, bb, weight, lbias)
 
-                def library():
-                    return F.linear(F.group_norm(xc, 32, sb, bb16, eps).transpose(1, 2), weight,
-                                    lb16)
+                def pair(x_, w_):
+                    return F.linear(F.group_norm(x_.transpose(1, 2), 32, sb, bb16, eps)
+                                    .transpose(1, 2), w_, lb16)
 
+                def library():
+                    return pair(x, weight)
+
+                out_bytes = 2.0 * b * s_len * c
                 row["ms"] = device_ms(kernel, iters)
+                row["cold_ms"] = cold_device_ms(lambda *t: nc.norm_linear(*t, lbias),
+                                                (x, a, bb, weight), out_bytes)
+                row["library_cold_ms"] = cold_device_ms(pair, (x, weight), out_bytes)
                 row["eager_ms"] = time_ms(kernel, iters)
                 row["op_ms"] = time_ms(lambda: nc.group_norm_linear(
                     x, scale, bias, weight, lbias, None, 32, eps), iters)
@@ -1783,6 +1945,7 @@ def check_fused_kernels(unet, device):
     checks["norm_conv3x3"].identity_tap = check_conv_identity_tap(device)
     sweep_conv_splits(device)
     check_norm_linear_kernel(sites["linear"], device, checks["norm_linear"])
+    sweep_linear_splits(device)
     for name, check in checks.items():
         emit({"phase": "fused_kernel_check_summary", "kernel": name, "limit": FUSED_REL_L2,
               "batches": sorted(check.batches), "worst": check.worst, "least_planted_fault": check.least_fault,
@@ -2249,6 +2412,32 @@ def check_backward_build(build, sass):
             fail(f"the backward kernels are not wgmma/TMA kernels: {rows}")
 
 
+def check_fused_build(build, sass):
+    """norm_linear runs on HGMMA and TMA with no mma.sync left; group_norm_silu
+    on TMA; their registers, spills and ptxas notes, and the cluster size
+    group_norm_plan launches the 256px and 512px shapes with."""
+    from diffusion_pruning_tpu_torch.ops import group_norm as gn
+    rows = {}
+    for stem, want in (("norm_conv", "norm_linear_kernel"), ("group_norm", "group_norm_silu")):
+        report = ptxas_report((build.BUILD_DIR / f"{stem}.ptxas.txt").read_text())
+        for key, counts in (sass.items() if isinstance(sass, dict) else ()):
+            src, fn = key.split(":", 1)
+            if src == stem and want in fn:
+                rows[fn] = {**counts, **report.get(fn, {})}
+    clusters = {f"{b}x{c}@{side}x{side}": gn.group_norm_plan(b, side * side, c, 32).cluster
+                for b, c, side in ((16, 320, 32), (16, 960, 32), (16, 1280, 16), (16, 2560, 8),
+                                   (4, 960, 64), (4, 320, 64), (64, 320, 32), (64, 960, 32))}
+    emit({"phase": "fused_sass", "kernels": rows, "group_norm_cluster_by_shape": clusters})
+    if isinstance(sass, dict):
+        linear = [r for fn, r in rows.items() if "norm_linear_kernel" in fn]
+        gnorm = [r for fn, r in rows.items() if "group_norm_silu" in fn]
+        if not linear or any(not (r["HGMMA"] > 0 and r["UTMALDG"] > 0 and r["HMMA"] == 0)
+                             for r in linear):
+            fail(f"norm_linear is not a wgmma/TMA kernel: {rows}")
+        if not gnorm or not any(r["UTMALDG"] > 0 for r in gnorm):
+            fail(f"group_norm_silu reads no TMA box: {rows}")
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -2287,6 +2476,7 @@ def main() -> None:
     sass = sass_counts(build)
     emit({"phase": "sass", "instructions_by_kernel": sass})
     check_backward_build(build, sass)
+    check_fused_build(build, sass)
 
     # 3. kernel vs plain version
     t0 = time.perf_counter()
@@ -2340,6 +2530,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     fused_checks = check_fused_kernels(unet, device)
+    check_poisoned_workspaces(device)
     log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
 
     # 10. the U-Net under each fused flag
@@ -2389,7 +2580,8 @@ def main() -> None:
         {"name": "conv_split_reduce", "route": "cuda",
          "source": "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
          "replaces": "diffusion_pruning_tpu/ops/norm_conv.py:98",
-         "role": "the fixed-order sum of norm_conv3x3's K slices where its plan splits K",
+         "role": "the fixed-order sum of the K slices of norm_conv3x3 and norm_linear where "
+                 "their plans split K (a split linear site's ms includes it)",
          "launches": counts_nc["conv_split_reduce"]
                      + fused_train["launches"]["conv_split_reduce"],
          "launches_by_path": {"serving_fused_norm_conv": counts_nc["conv_split_reduce"],

@@ -1,9 +1,9 @@
 // GroupNorm(+gate)(+SiLU) fused into the input read of the consumer product,
-// for Hopper (sm_90a). Three kernels:
+// for Hopper (sm_90a), on wgmma and TMA. Three kernels:
 //
 //   norm_conv3x3:  out = conv3x3(act(a·x + b)) + bias     stride 1, zero padding 1
 //   norm_linear:   out = (a·x + b) · Wᵀ + bias            per batch element
-//   conv_split_reduce: out = Σ_s ws[s] + bias, norm_conv3x3's K slices summed in order
+//   conv_split_reduce: out = Σ_s ws[s] + bias, the K slices of either summed in order
 //
 // x is NHWC (B, H, W, C_in) bf16 (tokens (B, S, C_in) for the linear form);
 // a, b are f32 (B, C_in), the normalisation folded to one multiply-add per
@@ -82,24 +82,59 @@
 // where the halo buffers swap; the split pays a workspace write and read
 // (S × M × C_out f32) to fill the card.
 //
-// The linear form is the first version's GEMM on mma.sync: 128 rows × 64
-// columns a block, x normalised on its way from registers into shared memory,
-// weight tiles by cp.async.
+// What bounds the linear on an H100 (M = B·S tokens, N = C_out, K = C_in):
+// bytes at every proj_in shape of the SD-2.1 U-Net (x, the weight and out
+// once: 1.4-6.3 µs at B_eff 16), the operations only at B = 64 and
+// S <= 256. The first version (mma.sync, 32-channel steps, the next x chunk
+// loaded synchronously and normalised with a and b read from global memory)
+// took 0.9 µs a step with one block alone, about two DRAM round trips a
+// step, and 35-56 µs at every shape (PERF.md §6).
+//
+// Design of the linear (a GEMM on wgmma; the plan, chosen per shape in
+// Python by `linear_plan`, is the split count, the staging of a and b and
+// the persistent grid):
+//  * a tile is 128 tokens × BN = 160 output channels, two consumer
+//    warpgroups of 64 rows (which at S = 16 span eight batch elements) and a
+//    producer warpgroup (setmaxnreg 40 and 232); the grid is persistent: a
+//    block walks (tile, K slice) items, so one item's epilogue overlaps the
+//    next item's loads;
+//  * every operand comes by TMA through a ring of four stages with full and
+//    empty mbarriers, one producer thread keeping three stages in flight:
+//    the x box of 128 rows × 64 channels and the weight box of BN rows × 64
+//    channels (128-byte swizzle; a linear has no halo, so x needs no
+//    gather), and a and b of the chunk for the batch elements the tile's
+//    rows span (f32, at most 20 of them: S >= 7; below that a and b are read
+//    from global memory); rows past M and channels past C_in arrive as zeros;
+//  * each warpgroup reads its 64 rows of the x box with ldmatrix, applies
+//    y = a·x + b in f32 (each row with its own batch element), rounds to bf16
+//    into the A registers and issues wgmma m64n160k16 in the RS form, four a
+//    chunk, retired before the registers and the stage are reused (a
+//    register feeding a product is never written while one is in flight, so
+//    ptxas does not serialise the products); a and b are loaded once where
+//    a thread's two rows share a batch element (S a multiple of 16). Tried
+//    and no faster: normalising x in place for SS products (the round trip
+//    and a warpgroup barrier sat between the products); the two warpgroups
+//    issuing in strict turns (ping-pong), or warpgroup 1 starting half a
+//    chunk behind;
+//  * the epilogue adds the bias in f32, rounds once, writes the warpgroup's
+//    64 × 160 tile to shared memory with stmatrix and stores it with one TMA
+//    store (rows past M, columns past C_out clipped), which runs on while the
+//    next item starts;
+//  * split over K where M tiles × N tiles leave at least half of the 132 SMs
+//    idle (the 8×8 and 4×4 maps at B_eff 16): each slice writes f32 partial
+//    sums to the workspace and conv_split_reduce adds them in slice order
+//    with the bias (no atomics; the result repeats bit for bit).
+// Given up: TMA multicast of the weight box across a cluster of M tiles (the
+// weight is read from L2 once per M tile).
 
 #include <algorithm>
+#include <cstring>
 
 #include "sm90_common.cuh"
 
 namespace {
 
 using namespace hopper;
-
-// the linear form (mma.sync)
-constexpr int kBM = 128;  // output rows per block
-constexpr int kBN = 64;   // output channels per block
-constexpr int kBK = 32;   // contraction step (channels)
-constexpr int kThreads = 256;
-constexpr int kRow = kBK + 8;  // padded shared row
 
 __device__ __forceinline__ float silu_fast(float v) {
   return __fdividef(v, 1.0f + __expf(-v));
@@ -129,79 +164,6 @@ __device__ __forceinline__ uint4 normalise8(uint4 raw, const float* __restrict__
     o[e] = pack_f32(lo, hi);
   }
   return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// One 32-deep step of the warp's 32 × 32 product: A rows from `a_s` at the
-// four shared rows `arow` (+ `shift` rows), B from the 64 × 32 tile `b_s`.
-__device__ __forceinline__ void mma_step(float acc[2][4][4], const __nv_bfloat16* a_s,
-                                         const int arow[2][2], int shift,
-                                         const __nv_bfloat16* b_s, int wn, int gr, int tg) {
-  const __nv_bfloat16* bt = b_s + (wn * 32 + gr) * kRow + 2 * tg;
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    uint32_t af[2][4], bf[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const __nv_bfloat16* p0 = a_s + (arow[mi][0] + shift) * kRow + kk * 16 + 2 * tg;
-      const __nv_bfloat16* p1 = a_s + (arow[mi][1] + shift) * kRow + kk * 16 + 2 * tg;
-      af[mi][0] = ld_u32(p0);
-      af[mi][1] = ld_u32(p1);
-      af[mi][2] = ld_u32(p0 + 8);
-      af[mi][3] = ld_u32(p1 + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const __nv_bfloat16* q = bt + ni * 8 * kRow + kk * 16;
-      bf[ni][0] = ld_u32(q);
-      bf[ni][1] = ld_u32(q + 8);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], af[mi], bf[ni]);
-  }
-}
-
-// acc + bias in f32, one rounding; the warp's 32 × 32 block to the rows whose
-// first element sits at out + orow (orow < 0: masked), columns from col0.
-__device__ __forceinline__ void store_block(const float acc[2][4][4], const long orow[2][2],
-                                            const float* __restrict__ bias,
-                                            __nv_bfloat16* __restrict__ out, int col0, int Cout,
-                                            int tg) {
-  const bool pairs = (Cout & 1) == 0;  // then every pair of columns is 4-byte aligned
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = col0 + ni * 8 + 2 * tg;
-    if (col >= Cout) continue;
-    const float b0 = bias[col];
-    const float b1 = col + 1 < Cout ? bias[col + 1] : 0.0f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        if (orow[mi][half] < 0) continue;
-        const float v0 = acc[mi][ni][2 * half] + b0;
-        const float v1 = acc[mi][ni][2 * half + 1] + b1;
-        __nv_bfloat16* dst = out + orow[mi][half] + col;
-        if (pairs) {
-          *reinterpret_cast<uint32_t*>(dst) = pack_f32(v0, v1);
-        } else {
-          dst[0] = __float2bfloat16(v0);
-          if (col + 1 < Cout) dst[1] = __float2bfloat16(v1);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void load_b_tile(__nv_bfloat16* dst, const __nv_bfloat16* w,
-                                            long row_stride, long offset, int n0, int Cout, int c,
-                                            int Cin, int tid) {
-  const int n = tid >> 2;
-  const bool in = n0 + n < Cout && c < Cin;
-  const __nv_bfloat16* src = in ? w + (long)(n0 + n) * row_stride + offset + c : w;
-  cp_async_16(dst + n * kRow + (tid & 3) * 8, src, in);
-  cp_async_commit();
 }
 
 // ---------------------------------------------------------------- conv (wgmma)
@@ -495,93 +457,250 @@ int launch_conv_bn(const void* x, const float* a, const float* b, const void* w,
   }
 }
 
-// ---------------------------------------------------------------- linear (mma.sync)
+// ---------------------------------------------------------------- linear (wgmma)
 
-__global__ void __launch_bounds__(kThreads)
-    norm_linear_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
-                       const float* __restrict__ b, const __nv_bfloat16* __restrict__ w,
-                       const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M,
-                       int S, int Cin, int Cout) {
-  constexpr int NS = kBM * 4 / kThreads;  // 2
-  __shared__ __align__(16) __nv_bfloat16 a_s[2][kBM * kRow];
-  __shared__ __align__(16) __nv_bfloat16 b_s[2][kBN * kRow];
+constexpr int kLinRows = 128;                 // output rows (tokens) a tile: two warpgroups of 64
+constexpr int kLinBN = 160;                   // output channels a tile
+constexpr int kLinStages = 4;                 // operand stages: one in use, three in flight
+constexpr int kLinXTile = kLinRows * 128;     // bytes of one x box: 128 rows × 64 channels
+constexpr int kLinWTile = kLinBN * 128;       // bytes of one weight box: BN rows × 64 channels
+constexpr int kLinMaxAbRows = 20;             // batch elements of a, b staged a chunk
+constexpr int kLinOutTile = 64 * kLinBN * 2;  // bytes of one warpgroup's bf16 output tile
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, tg = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int kc = (Cin + kBK - 1) / kBK;
-  const int ch = (tid & 3) * 8;
+// bytes of one stage: the x box, the weight box, then a and b of the chunk
+// for `ab_rows` batch elements (f32, 64 channels each); 1024-aligned
+__host__ __device__ constexpr int linear_stage_bytes(int ab_rows) {
+  return (kLinXTile + kLinWTile + 2 * ab_rows * kChunk * 4 + 1023) / 1024 * 1024;
+}
 
-  int img[NS];  // the batch element of each staged row; < 0 past M
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int m = m0 + (tid >> 2) + i * (kThreads / 4);
-    img[i] = m < M ? m / S : -1;
-  }
-  int arow[2][2];
-  long orow[2][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = wm * 32 + mi * 16 + gr + half * 8;
-      arow[mi][half] = r;
-      orow[mi][half] = m0 + r < M ? (long)(m0 + r) * Cout : -1;
+// the ring, the two warpgroups' output tiles, the full and empty barriers
+__host__ __device__ constexpr int linear_smem_bytes(int ab_rows) {
+  return 1024 + kLinStages * linear_stage_bytes(ab_rows) + 2 * kLinOutTile + 2 * kLinStages * 8;
+}
+
+// two bf16 of x -> two bf16 of y = a·x + b
+__device__ __forceinline__ uint32_t affine2(uint32_t raw, float2 av, float2 bv) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&raw);
+  return pack_f32(av.x * __bfloat162float(v.x) + bv.x, av.y * __bfloat162float(v.y) + bv.y);
+}
+
+__device__ __forceinline__ float2 ld_f2(const float* p, bool in) {
+  return in ? *reinterpret_cast<const float2*>(p) : make_float2(0.0f, 0.0f);
+}
+
+// The work items of a block: items blockIdx.x, + gridDim.x, …; item w is
+// output tile (mt, nt) of K slice z, w = (z·m_tiles + mt)·n_tiles + nt.
+struct LinearItem {
+  long m0;
+  int n0, k_lo, k_hi, z;
+};
+
+__device__ __forceinline__ LinearItem linear_item(int w, int m_tiles, int n_tiles, int kc,
+                                                  int split) {
+  const int nt = w % n_tiles, rest = w / n_tiles;
+  const int mt = rest % m_tiles, z = rest / m_tiles;
+  return {(long)mt * kLinRows, nt * kLinBN, z * kc / split, (z + 1) * kc / split, z};
+}
+
+__global__ void __launch_bounds__(kConvThreads, 1)
+    norm_linear_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const __grid_constant__ CUtensorMap amap,
+                       const __grid_constant__ CUtensorMap bmap,
+                       const __grid_constant__ CUtensorMap omap, const float* __restrict__ a,
+                       const float* __restrict__ b, const float* __restrict__ bias,
+                       float* __restrict__ ws, int B, int S, int Cin, int Cout, int split,
+                       int ab_rows) {
+  extern __shared__ uint8_t smem_raw[];
+  // stages (x box | weight box | a | b) | output tiles | full and empty barriers
+  const uint32_t raw_s = sm90::smem_u32(smem_raw);
+  const uint32_t ring = (raw_s + 1023) & ~1023u;
+  const int stage_bytes = linear_stage_bytes(ab_rows);
+  const int ab_tile = ab_rows * kChunk * 4;
+  const uint32_t otile = ring + kLinStages * stage_bytes;
+  const uint32_t bars = otile + 2 * kLinOutTile;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kLinStages + s); };
+
+  const long M = (long)B * S;
+  const int m_tiles = static_cast<int>((M + kLinRows - 1) / kLinRows);
+  const int n_tiles = (Cout + kLinBN - 1) / kLinBN;
+  const int kc = (Cin + kChunk - 1) / kChunk;
+  const int items = m_tiles * n_tiles * split;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLinStages; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), kConsumers / 32);  // one arrival per consumer warp
     }
+    sm90::fence_barrier_init();
   }
+  __syncthreads();
 
-  uint4 raw[NS];
-  bool ok[NS];
-  auto load_a = [&](int chunk) {
-    const int c = chunk * kBK + ch;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const long m = m0 + (tid >> 2) + i * (kThreads / 4);
-      ok[i] = img[i] >= 0 && c < Cin;
-      if (ok[i]) raw[i] = *reinterpret_cast<const uint4*>(x + m * Cin + c);
-    }
-  };
-  auto store_a = [&](int chunk, __nv_bfloat16* dst) {
-    const int c = chunk * kBK + ch;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      uint4 y = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[i]) {
-        const long co = (long)img[i] * Cin + c;
-        y = normalise8(raw[i], a + co, b + co, 0);
+  if (threadIdx.x < 128) {  // the producer warpgroup: one thread issues every box
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x == 0) {
+      const uint32_t tx = kLinXTile + kLinWTile + 2 * ab_tile;
+      int s = 0;  // the stage count over all of this block's items
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const LinearItem it = linear_item(w, m_tiles, n_tiles, kc, split);
+        const int img_lo = static_cast<int>(it.m0 / S);
+        for (int chunk = it.k_lo; chunk < it.k_hi; ++chunk, ++s) {
+          const int st = s % kLinStages;
+          sm90::mbar_wait(empty(st), ((s / kLinStages) & 1) ^ 1);
+          sm90::mbar_expect_tx(full(st), tx);
+          const uint32_t base = ring + st * stage_bytes;
+          const int c = chunk * kChunk;
+          sm90::tma_load_2d(base, &xmap, full(st), c, static_cast<int>(it.m0));
+          sm90::tma_load_2d(base + kLinXTile, &wmap, full(st), c, it.n0);
+          if (ab_rows > 0) {
+            sm90::tma_load_2d(base + kLinXTile + kLinWTile, &amap, full(st), c, img_lo);
+            sm90::tma_load_2d(base + kLinXTile + kLinWTile + ab_tile, &bmap, full(st), c, img_lo);
+          }
+        }
       }
-      *reinterpret_cast<uint4*>(dst + ((tid >> 2) + i * (kThreads / 4)) * kRow + ch) = y;
     }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  load_a(0);
-  load_b_tile(b_s[0], w, Cin, 0, n0, Cout, ch, Cin, tid);
-  store_a(0, a_s[0]);
-  for (int chunk = 0; chunk < kc; ++chunk) {
-    const int cur = chunk & 1;
-    const bool more = chunk + 1 < kc;
-    cp_async_wait<0>();
-    // this step's tiles are complete, and every warp is done with the
-    // previous step's, which the loads below overwrite
-    __syncthreads();
-    if (more) {
-      load_b_tile(b_s[cur ^ 1], w, Cin, 0, n0, Cout, (chunk + 1) * kBK + ch, Cin, tid);
-      load_a(chunk + 1);
-    }
-    mma_step(acc, a_s[cur], arow, 0, b_s[cur], wn, gr, tg);
-    if (more) store_a(chunk + 1, a_s[cur ^ 1]);
+    return;
   }
-  store_block(acc, orow, bias, out, n0 + wn * 32, Cout, tg);
+  sm90::regs_alloc<232>();
+
+  const int tid = threadIdx.x - 128;  // consumer thread 0 … 255
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gr = lane >> 2, tg = lane & 3;
+  // the x-box row this lane addresses for ldmatrix, in the 128-byte swizzle
+  const int lrow = wg * 64 + warp * 16 + (lane & 15);
+  const uint32_t x_row = lrow * 128;
+  const int x_sw = lrow & 7, x_half = lane >> 4;
+  // this lane's stmatrix row of the warpgroup's output tile (row-major, BN
+  // bf16 a row): matrix lane / 8 is rows + 8·(lane / 8 % 2), columns + 8·(lane / 16)
+  const uint32_t o_lane = otile + wg * kLinOutTile +
+                          ((warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLinBN +
+                           (lane >> 4) * 8) * 2;
+  const uint32_t o_bar = 2 + wg;  // the warpgroup's named barrier
+
+  float acc[kLinBN / 2];
+  int s = 0;
+  for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    const LinearItem it = linear_item(w, m_tiles, n_tiles, kc, split);
+    const int img_lo = static_cast<int>(it.m0 / S);
+    // this thread's two rows of the A fragment and of the accumulators, and
+    // their batch elements (past M: the last one; those rows are not stored)
+    long orow[2];
+    int img[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long m = it.m0 + wg * 64 + warp * 16 + gr + h * 8;
+      orow[h] = m < M ? m : -1;
+      img[h] = static_cast<int>(m / S < B ? m / S : B - 1);
+    }
+    // one batch element for both rows (S a multiple of 16): a and b loaded
+    // once for the two
+    const bool same = img[0] == img[1];
+    // each 64-channel chunk: y = a·x + b into the A registers, four products
+    // of m64n160k16, retired before the registers and the stage are reused
+    for (int chunk = it.k_lo; chunk < it.k_hi; ++chunk, ++s) {
+      const int st = s % kLinStages;
+      const uint32_t base = ring + st * stage_bytes;
+      sm90::mbar_wait(full(st), (s / kLinStages) & 1);
+      // a and b of each row's batch element for this chunk's channels: staged
+      // (zero past C_in and past the last batch element), or from global memory
+      const float* ap[2];
+      const float* bp[2];
+      int lim;
+      if (ab_rows > 0) {
+        const float* at = reinterpret_cast<const float*>(smem_raw + (base - raw_s) + kLinXTile +
+                                                         kLinWTile);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ap[h] = at + (img[h] - img_lo) * kChunk;
+          bp[h] = ap[h] + ab_rows * kChunk;
+        }
+        lim = kChunk;
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ap[h] = a + (long)img[h] * Cin + chunk * kChunk;
+          bp[h] = b + (long)img[h] * Cin + chunk * kChunk;
+        }
+        lim = Cin - chunk * kChunk;
+      }
+      uint32_t af[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t r[4];
+        sm90::ldmatrix_x4(r, base + x_row + (((2 * kk + x_half) ^ x_sw) << 4));
+        // r: (row gr, channels c0, c0 + 1), (gr + 8, c0), (gr, c0 + 8), (gr + 8, c0 + 8)
+        const int c0 = kk * 16 + 2 * tg, c1 = c0 + 8;
+        const bool in0 = c0 < lim, in1 = c1 < lim;
+        const float2 a00 = ld_f2(ap[0] + c0, in0), b00 = ld_f2(bp[0] + c0, in0);
+        const float2 a01 = ld_f2(ap[0] + c1, in1), b01 = ld_f2(bp[0] + c1, in1);
+        float2 a10 = a00, b10 = b00, a11 = a01, b11 = b01;
+        if (!same) {
+          a10 = ld_f2(ap[1] + c0, in0);
+          b10 = ld_f2(bp[1] + c0, in0);
+          a11 = ld_f2(ap[1] + c1, in1);
+          b11 = ld_f2(bp[1] + c1, in1);
+        }
+        af[kk][0] = affine2(r[0], a00, b00);
+        af[kk][1] = affine2(r[1], a10, b10);
+        af[kk][2] = affine2(r[2], a01, b01);
+        af[kk][3] = affine2(r[3], a11, b11);
+      }
+      const uint64_t desc = sm90::desc_sw128(base + kLinXTile, 16, 1024);
+      const int first = chunk == it.k_lo;
+      sm90::fence_regs<kLinBN / 2>(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::WgmmaRS<kLinBN, 0>::mma(acc, af[kk], desc + 2 * kk, !(first && kk == 0));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs<kLinBN / 2>(acc);
+      sm90::fence_regs<16>(&af[0][0]);
+      if (lane == 0) sm90::mbar_arrive(empty(st));
+    }
+
+    if (ws != nullptr) {  // split: this slice's f32 partial (Cout % 8 == 0)
+#pragma unroll
+      for (int j = 0; j < kLinBN / 8; ++j) {
+        const int col = it.n0 + j * 8 + 2 * tg;
+        if (col >= Cout) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (orow[half] < 0) continue;
+          float* dst = ws + ((long)it.z * M + orow[half]) * Cout + col;
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+        }
+      }
+      continue;
+    }
+    // + bias in f32, one rounding, into the warpgroup's tile, then one TMA
+    // store of its 64 rows (rows past M and columns past C_out are clipped)
+    if (tid % 128 == 0) sm90::bulk_wait_read();  // the tile's previous store has read it
+    sm90::named_barrier(o_bar, 128);
+#pragma unroll
+    for (int j = 0; j < kLinBN / 8; j += 2) {
+      uint32_t p[4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int col = it.n0 + (j + q) * 8 + 2 * tg;
+        const float b0 = col < Cout ? bias[col] : 0.0f;
+        const float b1 = col + 1 < Cout ? bias[col + 1] : 0.0f;
+        p[2 * q] = pack_f32(acc[4 * (j + q)] + b0, acc[4 * (j + q) + 1] + b1);
+        p[2 * q + 1] = pack_f32(acc[4 * (j + q) + 2] + b0, acc[4 * (j + q) + 3] + b1);
+      }
+      sm90::stmatrix_x4(o_lane + j * 16, p[0], p[1], p[2], p[3]);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(o_bar, 128);
+    if (tid % 128 == 0) {
+      sm90::tma_store_2d(&omap, otile + wg * kLinOutTile, it.n0,
+                         static_cast<int>(it.m0) + wg * 64);
+      sm90::bulk_commit();
+    }
+  }
+  if (tid % 128 == 0) sm90::bulk_wait_read();  // the tile stays until its last store has read it
 }
 
 }  // namespace
@@ -614,14 +733,49 @@ extern "C" int conv_split_reduce(const float* ws, const float* bias, void* out, 
 }
 
 // x: (B, S, Cin) bf16; a, b: (B, Cin) f32; w: (Cout, Cin) bf16; bias: (Cout,) f32;
-// out: (B, S, Cout) bf16. All contiguous and 16-byte aligned; Cin % 8 == 0.
+// out: (B, S, Cout) bf16, written when split == 1; ws: (split, B·S, Cout) f32, the slices'
+// partial sums, written when split > 1 (conv_split_reduce then makes out). All contiguous
+// and 16-byte aligned; Cin % 8 == 0 and Cout % 8 == 0. The plan (split: 1 … ceil(Cin / 64);
+// ab_rows: the batch elements of a, b staged a chunk, at most 20, 0 to read them from
+// global memory; blocks: the persistent grid) comes from `linear_plan`.
 extern "C" int norm_linear(const void* x, const float* a, const float* b, const void* w,
-                           const float* bias, void* out, int B, int S, int Cin, int Cout,
-                           void* stream) {
-  const int M = B * S;
-  const dim3 grid((M + kBM - 1) / kBM, (Cout + kBN - 1) / kBN);
-  norm_linear_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), a, b, static_cast<const __nv_bfloat16*>(w), bias,
-      static_cast<__nv_bfloat16*>(out), M, S, Cin, Cout);
+                           const float* bias, void* out, float* ws, int B, int S, int Cin,
+                           int Cout, int split, int ab_rows, int blocks, void* stream) {
+  if (ab_rows < 0 || ab_rows > kLinMaxAbRows || split < 1 || blocks < 1 || Cout % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t opted =
+      sm90::allow_smem(norm_linear_kernel, linear_smem_bytes(kLinMaxAbRows));
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  const long M = (long)B * S;
+  CUtensorMap xmap, wmap, amap, bmap, omap;
+  memset(&amap, 0, sizeof(amap));
+  memset(&bmap, 0, sizeof(bmap));
+  const cuuint64_t xdims[2] = {(cuuint64_t)Cin, (cuuint64_t)M};
+  const cuuint64_t wdims[2] = {(cuuint64_t)Cin, (cuuint64_t)Cout};
+  const cuuint64_t odims[2] = {(cuuint64_t)Cout, (cuuint64_t)M};
+  const cuuint64_t row[1] = {(cuuint64_t)Cin * 2};
+  const cuuint64_t orow[1] = {(cuuint64_t)Cout * 2};
+  const cuuint32_t xbox[2] = {kChunk, kLinRows};
+  const cuuint32_t wbox[2] = {kChunk, kLinBN};
+  const cuuint32_t obox[2] = {kLinBN, 64};
+  if (!sm90::encode_bf16_map(&xmap, x, 2, xdims, row, xbox) ||
+      !sm90::encode_bf16_map(&wmap, w, 2, wdims, row, wbox) ||
+      !sm90::encode_map(&omap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_NONE, out, 2,
+                        odims, orow, obox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ab_rows > 0) {
+    const cuuint64_t adims[2] = {(cuuint64_t)Cin, (cuuint64_t)B};
+    const cuuint64_t arow[1] = {(cuuint64_t)Cin * 4};
+    const cuuint32_t abox[2] = {kChunk, (cuuint32_t)ab_rows};
+    if (!sm90::encode_map(&amap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, a,
+                          2, adims, arow, abox) ||
+        !sm90::encode_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, b,
+                          2, adims, arow, abox))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  norm_linear_kernel<<<blocks, kConvThreads, linear_smem_bytes(ab_rows),
+                       static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, amap, bmap, omap, a, b, bias, split > 1 ? ws : nullptr, B, S, Cin, Cout, split,
+      ab_rows);
   return static_cast<int>(cudaGetLastError());
 }

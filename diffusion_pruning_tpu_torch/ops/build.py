@@ -45,10 +45,10 @@ SIGNATURES = {  # C function -> (source stem, argtypes); the stream comes last
     "gated_flash_bwd_reduce": ("gated_flash_bwd", [_P] * 3 + [_I, _L, _P]),
     "gated_flash_bwd_dq": ("gated_flash_bwd", [_P] * 10 + [_I] * 6 + [_F, _P]),
     "gated_flash_bwd_dkv": ("gated_flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _P]),
-    "group_norm_silu": ("group_norm", [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
+    "group_norm_silu": ("group_norm", [_P] * 4 + [_I] * 4 + [_F] + [_I] * 7 + [_P]),
     "norm_conv3x3": ("norm_conv", [_P] * 7 + [_I] * 9 + [_P]),
     "conv_split_reduce": ("norm_conv", [_P] * 3 + [_L, _I, _I, _P]),
-    "norm_linear": ("norm_conv", [_P] * 6 + [_I] * 4 + [_P]),
+    "norm_linear": ("norm_conv", [_P] * 7 + [_I] * 7 + [_P]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 

@@ -30,10 +30,12 @@ copy beside the module and rebuilds it when the parameter changed. The linear
 form takes (B, S, C) tokens and `nn.Linear`'s (C_out, C_in) weight as it is.
 
 A CPU tensor takes the plain versions; a CUDA tensor must be bf16 with
-C_in % 8 == 0 and goes to the kernels or raises. The conv kernel's plan (patch
-shape, output-channel tile, split over K) is chosen per shape by `conv_plan`;
-a split plan writes f32 partial sums to a workspace the wrapper allocates,
-and a second kernel adds them in a fixed order. The backward recomputes
+C_in % 8 == 0 (and C_out % 8 == 0 for the linear) and goes to the kernels or
+raises. The conv kernel's plan (patch shape, output-channel tile, split over
+K) is chosen per shape by `conv_plan`, the linear kernel's (split over K,
+staging of a and b, persistent grid) by `linear_plan`; a split plan writes
+f32 partial sums to a workspace the wrapper allocates, and a second kernel
+adds them in a fixed order. The backward recomputes
 through the unfused composition (`norm_conv_unfused`, `norm_linear_unfused`)
 under autograd and returns gradients for x, scale, bias, the weight, its bias
 and `gate_c`, as the JAX ops' custom_vjps do; there is no backward kernel on
@@ -142,13 +144,10 @@ _PATCHES = ((8, (16, 8, 1)), (4, (8, 8, 2)), (0, (4, 4, 8)))
 
 
 @dataclasses.dataclass(frozen=True)
-class ConvPlan:
-    """How norm_conv3x3 cuts one shape: `patch` (TW, TH) pixels, `patches`
-    of them a block (128 output pixels), `bn` output channels a block, and
-    `split` slices of the `chunks` 64-channel chunks of K, one slice per
-    blockIdx.z; `m` = B·H·W output pixels."""
-    patch: Tuple[int, int]
-    patches: int
+class SplitPlan:
+    """What the conv's and the linear's plans share: `m_tiles` × `n_tiles`
+    output tiles of `bn` channels over `m` output rows, and `split` slices
+    of the `chunks` 64-channel chunks of K, one slice per blockIdx.z."""
     bn: int
     split: int
     chunks: int
@@ -165,7 +164,7 @@ class ConvPlan:
     @property
     def slices(self) -> Tuple[Tuple[int, int], ...]:
         """The input channels [lo, hi) of each K slice, in slice order (the
-        kernel's k_lo = z·chunks / split, k_hi = (z + 1)·chunks / split)."""
+        kernels' k_lo = z·chunks / split, k_hi = (z + 1)·chunks / split)."""
         out = []
         for z in range(self.split):
             lo, hi = z * self.chunks // self.split, (z + 1) * self.chunks // self.split
@@ -174,12 +173,20 @@ class ConvPlan:
 
     @property
     def workspace_shape(self) -> Optional[Tuple[int, int, int]]:
-        """(split, B·H·W, C_out) f32 partial sums, or None when unsplit."""
+        """(split, m, C_out) f32 partial sums, or None when unsplit."""
         return (self.split, self.m, self.cout) if self.split > 1 else None
 
     @property
     def workspace_bytes(self) -> int:
         return 4 * self.split * self.m * self.cout if self.split > 1 else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan(SplitPlan):
+    """How norm_conv3x3 cuts one shape: `patch` (TW, TH) pixels, `patches`
+    of them a block (128 output pixels); `m` = B·H·W output pixels."""
+    patch: Tuple[int, int]
+    patches: int
 
 
 def conv_plan(b: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
@@ -208,9 +215,49 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
                     m_tiles=m_tiles, n_tiles=n_tiles, m=b * h * w, cin=cin, cout=cout)
 
 
-def conv_workspace(plan: ConvPlan, device: torch.device) -> Optional[torch.Tensor]:
-    """The f32 workspace of a split plan (uninitialised: every element is
-    written by its slice), None when unsplit."""
+LINEAR_ROWS = 128        # output rows (tokens) a block of norm_linear
+LINEAR_BN = 160
+LINEAR_MAX_AB_ROWS = 20  # batch elements of a and b norm_linear stages a chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearPlan(SplitPlan):
+    """How norm_linear cuts one shape: output tiles of 128 tokens × 160
+    channels, `split` slices of K; `blocks` work items (tile, slice) walked
+    by a persistent grid of `grid` blocks (item w by block w % grid);
+    `ab_rows` batch elements of a and b staged in shared memory with each
+    chunk (the most a tile's 128 rows can span), 0 where that exceeds 20
+    (S < 7: the kernel reads them from global memory); `m` = B·S tokens."""
+    ab_rows: int
+
+    @property
+    def grid(self) -> int:
+        return min(self.blocks, SM_COUNT)
+
+
+def linear_plan(b: int, s: int, cin: int, cout: int) -> LinearPlan:
+    """The plan of norm_linear for tokens (B, S, C_in) and C_out outputs:
+    BN = 160 (every C_out of the SD-2.1 U-Net is a multiple), and where M
+    tiles × N tiles leave at least half of the 132 SMs idle, the fewest
+    slices of K that fill half of them: measured on the H100 (`PERF.md` §6,
+    the phase-9 sweep of `chip_smoke.py`), more slices lose to the workspace
+    they write and the reduction reads. The rows m0 … m0 + 127 of a tile
+    span at most 126 // S + 2 batch elements."""
+    m = b * s
+    m_tiles = -(-m // LINEAR_ROWS)
+    n_tiles = -(-cout // LINEAR_BN)
+    chunks = -(-cin // CONV_CHUNK)
+    ab_rows = min(b, 126 // s + 2)
+    base = m_tiles * n_tiles
+    split = min(chunks, -(-SM_COUNT // (2 * base))) if 2 * base <= SM_COUNT else 1
+    return LinearPlan(bn=LINEAR_BN, split=split,
+                      chunks=chunks, m_tiles=m_tiles, n_tiles=n_tiles, m=m, cin=cin, cout=cout,
+                      ab_rows=ab_rows if ab_rows <= LINEAR_MAX_AB_ROWS else 0)
+
+
+def conv_workspace(plan: SplitPlan, device: torch.device) -> Optional[torch.Tensor]:
+    """The f32 workspace of a split conv or linear plan (uninitialised: every
+    element is written by its slice), None when unsplit."""
     shape = plan.workspace_shape
     return None if shape is None else torch.empty(shape, device=device, dtype=torch.float32)
 
@@ -220,10 +267,10 @@ def _check_operands(x, a, b, weight, w_shape, out_bias, cin, cout):
         raise ValueError(f"the kernel takes C_in % 8 == 0, got {cin}")
     for name, t in (("a", a), ("b", b)):
         if t.shape != (x.shape[0], cin) or t.dtype != torch.float32 or t.device != x.device \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32 (B, C_in) = ({x.shape[0]}, "
-                             f"{cin}) on {x.device}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous 16-byte aligned float32 (B, C_in) = "
+                             f"({x.shape[0]}, {cin}) on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
     if tuple(weight.shape) != w_shape:
         raise ValueError(f"weight must be {w_shape}, got {tuple(weight.shape)}")
     if weight.device != x.device:
@@ -273,22 +320,24 @@ def conv_split_reduce_plain(ws: torch.Tensor, bias: torch.Tensor, dtype: torch.d
 
 
 def conv_split_reduce(ws: torch.Tensor, bias: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """The reduction kernel's wrapper, the second launch of a split plan:
-    out (B, C_out, H, W) channels_last ← Σ_s ws[s] + bias, the slices added in
-    order (deterministic). ws: (split, B·H·W, C_out) f32. CPU tensors run
-    `conv_split_reduce_plain`; CUDA tensors launch conv_split_reduce (counted
-    in `.launches`) or raise."""
+    """The reduction kernel's wrapper, the second launch of a split conv or
+    linear plan: out ← Σ_s ws[s] + bias, the slices added in order
+    (deterministic). ws: (split, M, C_out) f32; out: the conv's
+    (B, C_out, H, W) channels_last or the linear's (B, S, C_out) contiguous,
+    M rows of C_out in memory either way. CPU tensors run
+    `conv_split_reduce_plain`; CUDA tensors launch conv_split_reduce
+    (counted in `.launches`) or raise."""
     split, m, cout = ws.shape
-    if out.shape[0] * out.shape[2] * out.shape[3] != m or out.shape[1] != cout:
+    rows = out.permute(0, 2, 3, 1) if out.dim() == 4 else out  # channels last
+    if rows.numel() != m * cout or rows.shape[-1] != cout:
         raise ValueError(f"out {tuple(out.shape)} does not hold the workspace's {m} × {cout}")
     if ws.device.type == "cpu":
-        nhwc = out.permute(0, 2, 3, 1)
-        nhwc.copy_(conv_split_reduce_plain(ws, bias, out.dtype).view(nhwc.shape))
+        rows.copy_(conv_split_reduce_plain(ws, bias, out.dtype).view(rows.shape))
         return out
     build.require_cuda(ws)
     if ws.dtype != torch.float32 or not ws.is_contiguous() or ws.data_ptr() % 16 or cout % 4:
         raise ValueError("ws must be contiguous 16-byte aligned float32 with C_out % 4 == 0")
-    check_activation("out", out, channels_last=True)
+    check_activation("out", out, channels_last=out.dim() == 4)
     check_vector("bias", bias, cout, ws.device)
     build.launch("conv_split_reduce", ws.device, ws.data_ptr(), bias.data_ptr(), out.data_ptr(),
                  m, cout, split)
@@ -301,7 +350,8 @@ def norm_linear(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight: torch
     """The linear kernel's wrapper. x: (B, S, C_in) contiguous; a, b:
     (B, C_in) f32; weight: (C_out, C_in) in x's dtype; lbias: (C_out,) f32.
     CPU tensors run `norm_linear_plain`; CUDA tensors launch norm_linear
-    (counted in `.launches`) or raise."""
+    under `linear_plan` (counted in `.launches`), and with a split plan
+    `conv_split_reduce` after it, or raise."""
     if x.device.type == "cpu":
         return norm_linear_plain(x, a, b, weight, lbias)
     build.require_cuda(x)
@@ -311,10 +361,17 @@ def norm_linear(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight: torch
     cout = weight.shape[0]
     check_activation("x", x, channels_last=False)
     _check_operands(x, a, b, weight, (cout, cin), lbias, cin, cout)
+    if cout % 8:
+        raise ValueError(f"the kernel takes C_out % 8 == 0, got {cout}")
     out = torch.empty((bsz, s, cout), device=x.device, dtype=x.dtype)
+    plan = linear_plan(bsz, s, cin, cout)
+    ws = conv_workspace(plan, x.device)
     build.launch("norm_linear", x.device, x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 weight.data_ptr(), lbias.data_ptr(), out.data_ptr(), bsz, s, cin, cout)
+                 weight.data_ptr(), lbias.data_ptr(), out.data_ptr(), build.ptr(ws), bsz, s, cin,
+                 cout, plan.split, plan.ab_rows, plan.grid)
     norm_linear.launches += 1
+    if ws is not None:
+        conv_split_reduce(ws, lbias, out)
     return out
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card: gated
 flash attention (the forward, with and without lse, and the backward
 kernels of both routes) and the fused-norm kernels (one-pass GroupNorm(+SiLU),
-GroupNorm→SiLU→conv3x3, GroupNorm→linear). Imports only torch and the port, so that it runs on a machine without
-JAX:
+GroupNorm→SiLU→conv3x3, GroupNorm→linear), and every backward route and split
+workspace run on memory poisoned with NaN. Imports only torch and the port,
+so that it runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
@@ -243,9 +244,14 @@ def _norm_inputs(b, c, h, w, seed, groups=32):
     return x, scale, bias, gate_c, g
 
 
-# C/G = 10, 40 and 80 (vector widths 2, 8, 8); the last slab exceeds shared memory
+# C/G = 10, 40 and 80 (windows of 40, 40 and 80 channels, one block a slab or
+# two); 960 at 64×64 is the 512px slab (245 KB) split over a cluster of
+# eight, B = 64 the train step's batch; 960 at 128×128 is a slab no cluster
+# holds (read three times), C/G = 300 one that no window of at most 256
+# channels holds (read three times, 8-byte loads)
 @pytest.mark.parametrize("b,c,h,w", [(16, 320, 32, 32), (16, 1280, 16, 16), (16, 2560, 8, 8),
-                                     (2, 960, 64, 64)])
+                                     (2, 960, 64, 64), (4, 960, 64, 64), (64, 320, 32, 32),
+                                     (1, 960, 128, 128), (2, 9600, 8, 8)])
 @pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)])
 def test_cuda_group_norm_kernel_matches_plain_version(b, c, h, w, silu, eps):
     x, scale, bias, gate_c, _ = _norm_inputs(b, c, h, w, seed=c + h)
@@ -329,8 +335,12 @@ def _identity_tap_case(x, gate_c, g):
     assert _ulp_reading(fault, nc.affine_act(u, a, shift, True)).item() > 1.0
 
 
+# (64, 1280) and (16, 1280) at B = 16 split K (`linear_plan`); at S = 4 and
+# B = 40 a block's rows span more batch elements than are staged, so the
+# kernel reads a and b from global memory
 @pytest.mark.parametrize("b,s,c", [(16, 1024, 320), (16, 16, 1280), (3, 100, 72),
-                                   (64, 1024, 320), (64, 16, 1280)])
+                                   (64, 1024, 320), (64, 16, 1280), (16, 64, 1280),
+                                   (4, 256, 1280), (40, 4, 64)])
 def test_cuda_norm_linear_kernel_matches_plain_version(b, s, c):
     groups = 32 if c % 32 == 0 else 8
     x, scale, bias, gate_c, g = _norm_inputs(b, c, s, 1, seed=s + c, groups=groups)
@@ -341,6 +351,7 @@ def test_cuda_norm_linear_kernel_matches_plain_version(b, s, c):
     out = nc.group_norm_linear(x, scale, bias, weight, lbias, gate_c, groups, 1e-6)
     torch.cuda.synchronize()
     assert nc.norm_linear.launches == before + 1 and out.shape == (b, s, c)
+    assert (nc.linear_plan(b, s, c, c).ab_rows == 0) == (b == 40)
     with _no_tf32():
         a, bb = nc.affine_coeffs(x.transpose(1, 2), scale, bias, groups, 1e-6, gate_c)
         ref = nc.norm_linear_plain(x.float(), a, bb, weight.float(), lbias)
@@ -412,3 +423,96 @@ def test_cuda_fused_norm_functions_backpropagate_through_the_unfused_composition
         grads.append((xr.grad, gr.grad))
     for got, want in zip(*grads):
         torch.testing.assert_close(got.float(), want.float(), rtol=5e-2, atol=5e-2)
+
+
+# ---------------------------------------------------------------- uninitialised memory
+
+def _poison_allocator():
+    """Leave NaN in the caching allocator's free blocks: the cache is emptied,
+    then tensors of every size from 512 B to 256 MB are filled with NaN and
+    freed, so that the blocks the next allocations get hold NaN."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = [torch.full((n // 4,), float("nan"), device="cuda")
+            for n in (2 ** k for k in range(9, 29)) for _ in range(2)]
+    del held
+
+
+def _nan_filled(alloc):
+    """`alloc` (torch.empty or torch.empty_like) whose floating tensors come
+    back filled with NaN: what an uninitialised buffer may hold."""
+    def empty(*args, **kwargs):
+        t = alloc(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+    return empty
+
+
+def _bwd_route(s_q, s_kv, h):
+    q, k, v, gate = _inputs(4, s_q, s_kv, h, seed=11)
+    do = torch.randn_like(q)
+    o, lse = gated_flash_forward_lse(q, k, v, gate)
+    return lambda: gated_flash_backward(q, k, v, gate, o, lse, do)
+
+
+def _conv_route(b, cin, cout, side):
+    x, scale, bias, gate_c, g = _norm_inputs(b, cin, side, side, seed=5)
+    weight = (torch.randn(cout, cin, 3, 3, device="cuda", generator=g) * (9 * cin) ** -0.5
+              ).bfloat16()
+    cbias = 0.1 * torch.randn(cout, device="cuda", generator=g)
+    packed = nc.pack_conv_weight(weight, torch.bfloat16)
+    a, bb = nc.affine_coeffs(x, scale, bias, 32, 1e-5, gate_c)
+    assert nc.conv_plan(b, side, side, cin, cout).split > 1
+    return lambda: (nc.norm_conv3x3(x, a, bb, packed, cbias, True),)
+
+
+def _linear_route(b, s, c):
+    x, scale, bias, gate_c, g = _norm_inputs(b, c, s, 1, seed=6)
+    x = x[:, :, :, 0].transpose(1, 2).contiguous()
+    weight = (torch.randn(c, c, device="cuda", generator=g) * c ** -0.5).bfloat16()
+    lbias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    a, bb = nc.affine_coeffs(x.transpose(1, 2), scale, bias, 32, 1e-6, gate_c)
+    assert nc.linear_plan(b, s, c, c).split > 1
+    return lambda: (nc.norm_linear(x, a, bb, weight, lbias),)
+
+
+# every route of `backward_plan` (one pass at S_q > 64 unsplit and split, at
+# S_q <= 64; dq then dk/dv, with padded row stats at S_q = 200) and the split
+# workspaces of the conv and the linear
+POISON_ROUTES = {
+    "bwd_one_pass": (_bwd_route, (256, 77, 20)),
+    "bwd_one_pass_split": (_bwd_route, (1024, 77, 5)),
+    "bwd_one_pass_small_q": (_bwd_route, (64, 77, 20)),
+    "bwd_one_pass_16": (_bwd_route, (16, 16, 20)),
+    "bwd_two_kernel": (_bwd_route, (256, 256, 10)),
+    "bwd_two_kernel_padded_stats": (_bwd_route, (200, 200, 3)),
+    "conv_split_workspace": (_conv_route, (16, 1280, 1280, 4)),
+    "linear_split_workspace_64": (_linear_route, (16, 64, 1280)),
+    "linear_split_workspace_16": (_linear_route, (16, 16, 1280)),
+}
+
+
+@pytest.mark.parametrize("route", sorted(POISON_ROUTES))
+def test_cuda_kernels_write_every_element_they_read_back(monkeypatch, route):
+    """With NaN left in the allocator's free blocks and in every buffer the
+    wrappers allocate, each route gives finite outputs, and a second run (on
+    fresh poison) the same bits: no output, partial, row-stats or workspace
+    element is read before it is written."""
+    make, args = POISON_ROUTES[route]
+    if make is _bwd_route:
+        s_q, s_kv, h = args
+        plan = backward_plan(4, h, s_q, s_kv)
+        assert plan.route == ("one_pass" if "one_pass" in route else "two_kernel")
+        assert (plan.chunks > 1) == route.endswith("split")
+        if route.endswith("padded_stats"):
+            assert plan.s_q_pad > s_q
+    run = make(*args)
+    monkeypatch.setattr(torch, "empty", _nan_filled(torch.empty))
+    monkeypatch.setattr(torch, "empty_like", _nan_filled(torch.empty_like))
+    results = []
+    for _ in range(2):
+        _poison_allocator()
+        results.append([t.clone() for t in run() if t is not None])
+        torch.cuda.synchronize()
+    for first, second in zip(*results):
+        assert torch.isfinite(first).all()
+        assert torch.equal(first, second)

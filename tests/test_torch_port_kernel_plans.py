@@ -307,3 +307,222 @@ def test_backward_wrappers_allocate_what_the_plan_states(monkeypatch, b, s_q, s_
         if gated:
             assert (tuple(part_q.shape), tuple(part_kv.shape)) == plan.dgate_parts
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+# ---------------------------------------------------------------- the linear's plan
+
+# (S, C) of every proj_in site of the SD-2.1 U-Net at 256px and at 512px
+LINEAR_SITES = {256: ((1024, 320), (256, 640), (64, 1280), (16, 1280)),
+                512: ((4096, 320), (1024, 640), (256, 1280), (64, 1280))}
+LINEAR_CASES = [(b, s, c) for res in (256, 512) for b in (4, 16, 64)
+                for s, c in LINEAR_SITES[res]] + [(3, 100, 72), (40, 4, 64), (1, 1, 8)]
+
+
+def _linear_items(plan):
+    """(block, slice, first row, first column) of every work item, by the
+    kernel's walk (norm_conv.cu: item w of block w % grid is tile (mt, nt)
+    of slice z, w = (z·m_tiles + mt)·n_tiles + nt)."""
+    for blk, w in _walk(plan.grid, plan.blocks):
+        rest, nt = divmod(w, plan.n_tiles)
+        z, mt = divmod(rest, plan.m_tiles)
+        yield blk, z, mt * nc.LINEAR_ROWS, nt * plan.bn
+
+
+@pytest.mark.parametrize("b,s,c", LINEAR_CASES)
+def test_linear_plan_writes_every_output_tile_once(b, s, c):
+    """The persistent grid's work items cover the B·S × C_out output (each
+    K slice's partial, where the plan splits) exactly once, and the a and b
+    staged with a chunk hold every batch element a tile's rows span."""
+    plan = nc.linear_plan(b, s, c, c)
+    m = b * s
+    assert plan.m == m and plan.bn == nc.LINEAR_BN
+    assert plan.blocks == plan.m_tiles * plan.n_tiles * plan.split
+    assert 1 <= plan.grid <= nc.SM_COUNT
+    covered = np.zeros((plan.split, m, c), dtype=np.int32)
+    for _, z, r0, c0 in _linear_items(plan):
+        covered[z, r0:r0 + nc.LINEAR_ROWS, c0:c0 + plan.bn] += 1
+    assert (covered == 1).all(), plan
+    spans = [min(b - 1, (mt * nc.LINEAR_ROWS + nc.LINEAR_ROWS - 1) // s)
+             - (mt * nc.LINEAR_ROWS) // s + 1 for mt in range(plan.m_tiles)]
+    if plan.ab_rows:
+        assert max(spans) <= plan.ab_rows <= nc.LINEAR_MAX_AB_ROWS
+    else:
+        assert min(b, 126 // s + 2) > nc.LINEAR_MAX_AB_ROWS
+
+
+@pytest.mark.parametrize("b,s,c", LINEAR_CASES)
+def test_linear_plan_slices_cover_every_channel_chunk_once_in_order(b, s, c):
+    plan = nc.linear_plan(b, s, c, c)
+    assert 1 <= plan.split <= plan.chunks == math.ceil(c / nc.CONV_CHUNK)
+    chunks = []
+    for lo, hi in plan.slices:
+        assert lo < hi and lo % nc.CONV_CHUNK == 0
+        chunks += list(range(lo // nc.CONV_CHUNK, math.ceil(hi / nc.CONV_CHUNK)))
+    assert chunks == list(range(plan.chunks))
+    assert plan.slices[-1][1] == c
+
+
+@pytest.mark.parametrize("b,s,c", LINEAR_CASES)
+def test_linear_plan_splits_only_a_short_grid_and_fills_half_the_card(b, s, c):
+    """A grid of more than half the SMs runs unsplit; a split one fits in
+    one wave and fills at least half of the 132 SMs (unless every chunk is
+    already its own slice)."""
+    plan = nc.linear_plan(b, s, c, c)
+    base = plan.m_tiles * plan.n_tiles
+    if 2 * base > nc.SM_COUNT:
+        assert plan.split == 1
+    if plan.split > 1:
+        assert plan.blocks <= nc.SM_COUNT and plan.grid == plan.blocks
+        assert 2 * plan.blocks >= nc.SM_COUNT or plan.split == plan.chunks
+    if (b, s) in ((16, 64), (16, 16)) and c == 1280:  # the 8×8 and 4×4 sites at B_eff 16
+        assert plan.split > 1
+
+
+@pytest.mark.parametrize("b,s,c", [(16, 1024, 320), (16, 64, 1280), (16, 16, 1280),
+                                   (64, 16, 1280), (40, 4, 64), (3, 100, 72)])
+def test_linear_wrapper_allocates_what_the_plan_states(monkeypatch, b, s, c):
+    """norm_linear hands the kernel the plan's split and staging and a
+    workspace of the plan's shape, and reduces it where the plan splits
+    (shapes only: meta tensors, the launches recorded, not run)."""
+    calls = []
+    monkeypatch.setattr(nc.build, "require_cuda", lambda t: None)
+    monkeypatch.setattr(nc.build, "launch", lambda name, device, *args: calls.append((name, args)))
+    x = torch.empty(b, s, c, device="meta", dtype=torch.bfloat16)
+    a, sh = (torch.empty(b, c, device="meta") for _ in range(2))
+    weight = torch.empty(c, c, device="meta", dtype=torch.bfloat16)
+    lbias = torch.empty(c, device="meta")
+    plan = nc.linear_plan(b, s, c, c)
+    out = nc.norm_linear(x, a, sh, weight, lbias)
+    assert out.shape == (b, s, c) and out.dtype == torch.bfloat16
+    names = [name for name, _ in calls]
+    assert names == ["norm_linear"] + ["conv_split_reduce"] * (plan.split > 1)
+    args = calls[0][1]
+    assert len(args) == len(nc.build.SIGNATURES["norm_linear"][1]) - 1
+    assert args[-7:] == (b, s, c, c, plan.split, plan.ab_rows, plan.grid)
+    assert plan.grid == min(plan.blocks, nc.SM_COUNT)
+    ws = nc.conv_workspace(plan, torch.device("meta"))
+    if plan.split > 1:
+        assert tuple(ws.shape) == (plan.split, b * s, c) == plan.workspace_shape
+        assert ws.numel() * 4 == plan.workspace_bytes
+        assert calls[1][1][-2:] == (c, plan.split)
+    else:
+        assert ws is None and plan.workspace_bytes == 0
+
+
+@pytest.mark.parametrize("b,s,c", [(2, 100, 1280), (3, 16, 72)])
+def test_sum_of_the_linear_plans_slices_is_the_linear(b, s, c):
+    """Plain f32 products over the plan's channel slices, added in slice
+    order with the bias by the reduction's plain version, equal the plain
+    linear within 1e-5."""
+    rng = np.random.default_rng(b + s + c)
+    x = torch.from_numpy(rng.standard_normal((b, s, c), dtype=np.float32))
+    a = torch.from_numpy(1.0 + 0.2 * rng.standard_normal((b, c), dtype=np.float32))
+    sh = torch.from_numpy(0.3 * rng.standard_normal((b, c), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((c, c), dtype=np.float32) * c ** -0.5)
+    bias = torch.from_numpy(0.1 * rng.standard_normal(c, dtype=np.float32))
+    plan = dataclasses.replace(nc.linear_plan(b, s, c, c),
+                               split=math.ceil(c / nc.CONV_CHUNK))
+    y = a[:, None, :] * x + sh[:, None, :]
+    ws = torch.stack([(y[..., lo:hi] @ w[:, lo:hi].T).reshape(-1, c) for lo, hi in plan.slices])
+    out = nc.conv_split_reduce(ws, bias, torch.empty(b, s, c))
+    want = nc.norm_linear_plain(x, a, sh, w, bias)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------- the GroupNorm's plan
+
+from diffusion_pruning_tpu_torch.ops import group_norm as gn  # noqa: E402
+
+# (C, map side at 256px) of the GroupNorm sites of the SD-2.1 U-Net (resnet
+# norms, transformer norms); at 512px every side doubles
+GN_SITES_256 = ((320, 32), (640, 32), (960, 32), (320, 16), (640, 16), (960, 16), (1280, 16),
+                (1920, 16), (640, 8), (1280, 8), (1920, 8), (2560, 8), (1280, 4), (2560, 4))
+GN_CASES = [(b, c, side * res // 256) for res in (256, 512) for b in (4, 16, 64)
+            for c, side in GN_SITES_256]
+GN_ODD = [(2, 72, 10, 8), (1, 9600, 8, 32), (1, 960, 128, 32), (5, 96, 7, 32), (2, 60, 3, 6)]
+
+
+def _gn_plans():
+    return ([gn.group_norm_plan(b, side * side, c, 32) for b, c, side in GN_CASES]
+            + [gn.group_norm_plan(b, side * side, c, g) for b, c, side, g in GN_ODD])
+
+
+@pytest.mark.parametrize("plan", _gn_plans(), ids=lambda p: f"{p.b}x{p.c}x{p.hw}g{p.groups}")
+def test_group_norm_plan_windows_hold_whole_groups(plan):
+    """A window is whole groups, tiles C, and (where it stays in shared
+    memory) is a multiple of 16 bytes of at most 256 channels, read 8
+    channels a load; the vector divides it. Where no such window exists the
+    window is one group."""
+    cg = plan.c // plan.groups
+    assert plan.window == plan.groups_per_window * cg
+    assert plan.c % plan.window == 0 and plan.groups % plan.groups_per_window == 0
+    assert plan.window % plan.vec == 0 and plan.vec in (1, 2, 4, 8)
+    if plan.one_read:
+        assert plan.window * 2 % 16 == 0 and plan.window <= 256 and plan.vec == 8
+        assert plan.groups_per_window <= gn.GN_MAX_GROUPS
+    if plan.window % 8 or plan.window > 256:
+        assert not plan.one_read and plan.groups_per_window == 1
+        assert all(plan.groups % k or k * cg % 8 or k * cg > 256
+                   for k in range(1, plan.groups + 1))
+
+
+@pytest.mark.parametrize("plan", _gn_plans(), ids=lambda p: f"{p.b}x{p.c}x{p.hw}g{p.groups}")
+def test_group_norm_plan_cluster_covers_the_slab_rows_once(plan):
+    """The blocks of a cluster hold the slab's HW rows exactly once, each in
+    whole TMA boxes of at most 256 rows, within 227 KB of shared memory."""
+    assert plan.cluster in gn.GN_CLUSTERS
+    ranges = plan.row_ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.hw
+    assert all(lo <= hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert sum(hi - lo for lo, hi in ranges) == plan.hw
+    assert 1 <= plan.box_rows <= 256 and plan.rows % plan.box_rows == 0
+    assert plan.smem_bytes <= gn.GN_SMEM_LIMIT or not plan.one_read
+    assert plan.ctas == plan.b * (plan.c // plan.window) * plan.cluster
+    assert plan.threads == (512 if plan.rows * plan.window * 2 >= gn.GN_BIG_PART else 256)
+    assert plan.tma == (plan.one_read and plan.rows * plan.window * 2 > gn.GN_TMA_PART)
+
+
+@pytest.mark.parametrize("b,c,side", GN_CASES)
+def test_group_norm_plan_reads_every_unet_shape_once(b, c, side):
+    """Every GroupNorm shape of the 256px and 512px forwards (and B = 64) is
+    held in a cluster's shared memory: one read of x. The grid gives every
+    SM a block unless a cluster of eight cannot."""
+    plan = gn.group_norm_plan(b, side * side, c, 32)
+    assert plan.one_read, plan
+    assert plan.ctas >= gn.SM_COUNT or plan.cluster == 8
+
+
+def test_group_norm_plan_holds_the_512px_slab_in_one_read():
+    """960 channels at 64×64, B_eff 4: a (batch, group) slab of 245 KB (more
+    than one block's shared memory) spread over a cluster and read once."""
+    plan = gn.group_norm_plan(4, 64 * 64, 960, 32)
+    assert 64 * 64 * 30 * 2 == 245760
+    assert plan.one_read and plan.cluster > 1 and plan.tma
+    assert plan.smem_bytes <= gn.GN_SMEM_LIMIT
+    assert plan.rows * plan.window * 2 <= gn.GN_SMEM_LIMIT
+    # a slab no cluster holds, and a group no window of 256 channels holds
+    assert not gn.group_norm_plan(1, 128 * 128, 960, 32).one_read
+    wide = gn.group_norm_plan(1, 64, 9600, 32)
+    assert not wide.one_read and wide.window == 300 and wide.vec == 4
+
+
+@pytest.mark.parametrize("b,c,side,groups", [(16, 320, 32, 32), (4, 960, 64, 32),
+                                             (2, 72, 10, 8), (1, 9600, 8, 32)])
+def test_group_norm_wrapper_launches_the_plan(monkeypatch, b, c, side, groups):
+    calls = []
+    monkeypatch.setattr(gn.build, "require_cuda", lambda t: None)
+    monkeypatch.setattr(gn.build, "launch", lambda name, device, *args: calls.append((name, args)))
+    x = torch.empty(b, c, side, side, device="meta", dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    scale, bias = (torch.empty(c, device="meta") for _ in range(2))
+    out = gn.group_norm_silu_forward(x, scale, bias, groups, 1e-5, True)
+    plan = gn.group_norm_plan(b, side * side, c, groups)
+    assert out.shape == x.shape and out.is_contiguous(memory_format=torch.channels_last)
+    assert [name for name, _ in calls] == ["group_norm_silu"]
+    args = calls[0][1]
+    assert len(args) == len(gn.build.SIGNATURES["group_norm_silu"][1]) - 1
+    assert args[4:8] == (b, side * side, c, groups)
+    assert args[-6:] == (plan.window, plan.cluster, plan.rows, plan.box_rows, plan.stash,
+                         plan.threads)
+    assert plan.stash == (0 if not plan.one_read else 1 if plan.tma else 2)
