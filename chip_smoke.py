@@ -10,19 +10,23 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   with nvcc into `build/torch_kernels/`, one nvcc per source,
                   all started together; ptxas's register report and the
                   HGMMA/HMMA/UTMALDG count of each kernel's SASS; each
-                  backward kernel and norm_linear must show HGMMA and UTMALDG
-                  and no HMMA, group_norm_silu UTMALDG (their registers,
-                  spills and ptxas notes reported, and the cluster size
+                  forward and backward kernel and norm_linear must show HGMMA
+                  and UTMALDG and no HMMA (the S_q <= 64 forward also no
+                  spills), group_norm_silu UTMALDG (their registers, spills
+                  and ptxas notes reported, and the cluster size
                   group_norm_plan gives the U-Net's GroupNorm shapes);
   3. kernels    — the bf16 forward against its plain PyTorch version run in f32
                   (TF32 off) on the same bf16 inputs, at the SD-2.1 shapes
-                  (S_q > 64 runs the wgmma kernel, S_q <= 64 the mma.sync one;
-                  S_kv = 77 at B = 16 holds the batch boundary of TMA boxes):
-                  relative L2 per (batch, head) <= REL_L2, and two planted
-                  faults, emulated in plain torch, must read above that limit;
-                  also within atol/rtol 3e-2 of the bf16 plain version;
-                  timed beside the plain version, the PyTorch library call and
-                  the roofline bound;
+                  and ragged S_q <= 64 ones (`forward_plan`: S_q <= 64 with
+                  S_kv <= 80 runs gated_flash_fwd_small, every other shape
+                  the 128-row wgmma kernel; S_kv = 77 at B = 16 holds the
+                  batch boundary of TMA boxes): relative L2 per (batch, head)
+                  <= REL_L2, and planted faults, emulated in plain torch (the
+                  last kv tile dropped, the tile's tail past S_kv left
+                  unmasked, the gate applied once), must read above that
+                  limit; also within atol/rtol 3e-2 of the bf16 plain
+                  version; the SD-2.1 shapes timed beside the plain version,
+                  the PyTorch library call and the roofline bound;
   4. unet       — the SD-2.1 U-Net at full width (256px, bf16, B_eff 16, random
                   arch with ~60% of units kept): each of its 32 attention
                   calls held per head against f32 on its own inputs (<= REL_L2),
@@ -51,7 +55,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   kernels timed beside the plain versions, the bound (of the
                   function and of each kernel's own work) and the forward
                   and backward of PyTorch's SDPA, per shape and summed over
-                  the 32 sites;
+                  the 32 sites; the training forward at the S_q <= 64
+                  shapes on its own line;
   8. train step — the stage-1 pruning step at full width (SD-2.1 U-Net at
                   256px in bf16, CLIP ViT-H text, SD VAE, hypernet 768→1620,
                   K = 8, B = 64, the coco yaml's losses and optimiser): one
@@ -89,11 +94,14 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   [−8, 8]) within one bf16 ulp, with SiLU's tanh.approx form,
                   a planted fault, above; the conv's time under each split
                   over K at five shapes of the small maps and the linear's
-                  at three (the plans' rule); then every route of
-                  `backward_plan` and the conv's and the linear's split
-                  workspaces run twice with NaN in the allocator's free
-                  blocks and in every buffer the wrappers allocate: finite,
-                  and equal bit for bit;
+                  at three (the plans' rule); the conv and the linear at an
+                  expert's channel widths (C_in 90, 310, 620: zero-padded to
+                  a multiple of 8 on the card; 1240 aligned), per batch
+                  element <= FUSED_REL_L2; then every route of
+                  `backward_plan`, the S_q <= 64 forward with lse and the
+                  conv's and the linear's split workspaces run twice with
+                  NaN in the allocator's free blocks and in every buffer the
+                  wrappers allocate: finite, and equal bit for bit;
  10. fused U-Net — the full-width U-Net of phase 4 under `fused_norms`, then
                   under `fused_norm_conv`, same weights, against an f32 U-Net
                   (<= FUSED_UNET_REL_L2, with the unfused bf16 reading beside it)
@@ -150,7 +158,6 @@ BF16_TOL = 3e-2
 # attention: any rounding-level change to the attention reads about 0.016
 # through the bf16 network, a dropped kv tile about 0.11 (PERF.md)
 UNET_REL_L2 = 2e-2
-KV_TILE = 64  # the forward's kv tile, for the planted fault that drops one
 # phase 7: the training kernels at the train step's batch; limits between the
 # sound readings and the planted faults' (PERF.md)
 TRAIN_B = 64
@@ -283,6 +290,13 @@ def attention_bytes(b: int, h: int, s_q: int, s_kv: int, elem: int, d: int = 64)
     return float(b * h * d * elem * (2 * s_q + 2 * s_kv))
 
 
+# ragged shapes of phase 3, checked and not timed: each kv tile of the S_q <= 64
+# kernel (16, 64, 80) at and below its edge, and S_q past 64 or S_kv past 80
+# (the 128-row kernel)
+RAGGED_SMALL_Q = ((1, 1, 3), (40, 16, 20), (63, 77, 3), (64, 80, 3), (40, 50, 20), (1, 77, 20),
+                  (65, 77, 3), (64, 81, 3), (40, 200, 20))
+
+
 def attention_cases():
     """(label, B_eff, S_q, S_kv, H, sites per 256px U-Net forward)."""
     cases = []
@@ -294,7 +308,17 @@ def attention_cases():
         cases.append(("512px", 4, s, 77, h, 0))
     cases.append(("expert_h3", 16, 1024, 1024, 3, 0))
     cases.append(("expert_h3", 16, 1024, 77, 3, 0))
+    for s_q, s_kv, h in RAGGED_SMALL_Q:
+        cases.append(("ragged", 3, s_q, s_kv, h, 0))
     return cases
+
+
+
+def forward_tile(b, h, s_q, s_kv):
+    """(kv tile, kv tiles) of the forward kernel that runs the shape."""
+    from diffusion_pruning_tpu_torch.ops.flash_attention import forward_plan
+    plan = forward_plan(b, h, s_q, s_kv)
+    return plan.kv_tile, plan.kv_tiles
 
 
 def reference_f32(q, k, v, gate):
@@ -306,12 +330,26 @@ def reference_f32(q, k, v, gate):
 def planted_fault(q, k, v, gate, fault):
     """What a kernel with one fault would return, emulated in plain torch
     (f32), to show that the checks' limits catch it: `drop_last_kv_tile`
-    leaves out the last 64-row kv tile (None when there is only one);
-    `gate_once` scales the logits by g instead of g²."""
+    leaves out the last kv tile of the kernel that runs the shape (None when
+    there is only one); `kv_tail_unmasked` lets the zero rows that fill the
+    last tile past S_kv into the softmax (None when S_kv fills it);
+    `tile_fault` is the first of the two that exists; `gate_once` scales the
+    logits by g instead of g²."""
+    import torch.nn.functional as F
     from diffusion_pruning_tpu_torch.ops.flash_attention import plain_attention
+    b, s_q, h, _ = q.shape
+    s_kv = k.shape[1]
+    tile, tiles = forward_tile(b, h, s_q, s_kv)
     if fault == "drop_last_kv_tile":
-        keep = (k.shape[1] - 1) // KV_TILE * KV_TILE
+        keep = (tiles - 1) * tile
         return reference_f32(q, k[:, :keep], v[:, :keep], gate) if keep else None
+    if fault == "kv_tail_unmasked":
+        pad = tiles * tile - s_kv
+        return (reference_f32(q, F.pad(k, (0, 0, 0, 0, 0, pad)), F.pad(v, (0, 0, 0, 0, 0, pad)),
+                              gate) if pad else None)
+    if fault == "tile_fault":
+        bad = planted_fault(q, k, v, gate, "drop_last_kv_tile")
+        return bad if bad is not None else planted_fault(q, k, v, gate, "kv_tail_unmasked")
     g = gate[:, None, :, None]
     return plain_attention(q.float() * g, k.float(), v.float() * g)
 
@@ -344,14 +382,14 @@ def check_attention_kernel(device):
             rel = per_head_rel_l2(out, ref)
             plain = gated_attention_reference(q, k, v, gate).float()
             faults = {}
-            for fault in ("drop_last_kv_tile", "gate_once"):
-                if fault == "gate_once" and gate_name != "soft":
-                    continue  # g ∈ {0, 1}: g == g²
+            for fault in ("drop_last_kv_tile", "kv_tail_unmasked", "gate_once"):
+                if fault == "gate_once" and (gate_name != "soft" or s_kv == 1):
+                    continue  # g ∈ {0, 1}: g == g²; one key's probability is 1 at any scale
                 bad = planted_fault(q, k, v, gate, fault)
                 if bad is not None:
                     faults[fault] = per_head_rel_l2(bad, ref).max().item()
             row = {"phase": "kernel_check", "case": label, "b": b, "s_q": s_q, "s_kv": s_kv,
-                   "h": h, "gate": gate_name, "kernel": forward_kernel(s_q),
+                   "h": h, "gate": gate_name, "kernel": forward_kernel(s_q, s_kv),
                    "max_abs_err": (out.float() - ref).abs().max().item(),
                    "ref_mean_abs": ref.abs().mean().item(),
                    "rel_l2": ((out.float() - ref).norm() / ref.norm()).item(),
@@ -369,7 +407,7 @@ def check_attention_kernel(device):
             for key in worst:
                 worst[key] = max(worst[key], row[key])
             least_fault = min([least_fault, *faults.values()])
-            if gate_name == "soft":
+            if gate_name == "soft" and label != "ragged":
                 gq, gk, gv = (t * soft[:, None, :, None].bfloat16() for t in (q, k, v))
                 n_iter = 20 if s_q * s_kv < 2 ** 22 else 10
 
@@ -457,7 +495,7 @@ def check_unet(unet, device):
         out = gated_flash_attention(q, k, v, gate)
         ref = reference_f32(q, k, v, gate)
         sites.append(per_head_rel_l2(out, ref).max().item())
-        bad = planted_fault(q, k, v, gate, "drop_last_kv_tile")
+        bad = planted_fault(q, k, v, gate, "tile_fault")
         if bad is not None:
             site_faults.append(per_head_rel_l2(bad, ref).max().item())
         return out
@@ -466,7 +504,7 @@ def check_unet(unet, device):
         return reference_f32(q, k, v, gate).to(q.dtype)
 
     def faulty_attention(q, k, v, gate):
-        bad = planted_fault(q, k, v, gate, "drop_last_kv_tile")
+        bad = planted_fault(q, k, v, gate, "tile_fault")
         return (reference_f32(q, k, v, gate) if bad is None else bad).to(q.dtype)
 
     with torch.inference_mode():
@@ -501,7 +539,7 @@ def check_unet(unet, device):
            "site_planted_fault_rel_l2_min_max": [min(site_faults), max(site_faults)],
            "rel_l2": rel(out), "limit": UNET_REL_L2,
            "rel_l2_bf16_plain_attention": rel(plain),
-           "rel_l2_planted_fault_drop_last_kv_tile": rel(fault),
+           "rel_l2_planted_fault_tile_fault": rel(fault),
            "launches_per_forward": launches, "forward_ms": fwd_ms,
            "host_enqueue_ms_median": sorted(enqueue_ms)[2],
            "plain_attention_forward_ms": plain_fwd_ms,
@@ -513,7 +551,7 @@ def check_unet(unet, device):
         fail(f"the planted fault reads within the site limit {REL_L2}: {row}")
     if not row["finite"] or not row["rel_l2"] <= UNET_REL_L2:
         fail(f"U-Net through the kernel disagrees with f32 attention: {row}")
-    if not row["rel_l2_planted_fault_drop_last_kv_tile"] > UNET_REL_L2:
+    if not row["rel_l2_planted_fault_tile_fault"] > UNET_REL_L2:
         fail(f"the planted fault reads within the U-Net limit {UNET_REL_L2}: {row}")
     if launches != 32:  # 16 transformer blocks × (attn1 + attn2)
         fail(f"expected 32 kernel launches per forward, got {launches}")
@@ -731,7 +769,9 @@ def backward_kinds(b: int, h: int, s_q: int, s_kv: int):
 def training_faults(qf, kf, vf, dof, gate, gate_name, lse_r, dq_r, dk_r, dv_r, dg_r):
     """What a kernel with one fault would return, emulated in plain torch (f32)
     from the reference results, read with each check's metric: the
-    forward's lse in the wrong log or without its last 64-row kv tile; a
+    forward's lse in the wrong log, without its last kv tile or with the
+    zero rows past S_kv of its one tile in the softmax (the tiles of the
+    forward kernel that runs the shape); a
     backward block that never ran, by the route `backward_plan` picks (the
     dk/dv kernel's last 128-row kv tile, or the one pass's whole kv side; the
     one pass's last 128-row query tile of dq); dq' for dq; dgate without its
@@ -740,11 +780,17 @@ def training_faults(qf, kf, vf, dof, gate, gate_name, lse_r, dq_r, dk_r, dv_r, d
     b, s_q, h, _ = qf.shape
     s_kv = kf.shape[1]
     plan = fa.backward_plan(b, h, s_q, s_kv)
-    last = (s_kv - 1) // KV_TILE * KV_TILE  # first row of the forward's last kv tile
+    tile, tiles = forward_tile(b, h, s_q, s_kv)
+    last = (tiles - 1) * tile  # first row of the forward's last kv tile
     out = {"lse_log2_domain": (lse_r * 1.4426950408889634 - lse_r).abs().max().item()}
     if last:
         _, lse_bad = fa.gated_attention_reference_lse(qf, kf[:, :last], vf[:, :last], gate)
         out["lse_drop_last_kv_tile"] = (lse_bad - lse_r).abs().max().item()
+    elif tile > s_kv:
+        import torch.nn.functional as F
+        pad = (0, 0, 0, 0, 0, tile - s_kv)
+        _, lse_bad = fa.gated_attention_reference_lse(qf, F.pad(kf, pad), F.pad(vf, pad), gate)
+        out["lse_kv_tail_unmasked"] = (lse_bad - lse_r).abs().max().item()
     kv_tile = fa.BWD_DKV_ROWS if plan.route == "two_kernel" else fa.BWD_ONE_PASS_KV
     last_kv = (s_kv - 1) // kv_tile * kv_tile
     worst = 0.0  # the backward's block of the last kv tile never ran
@@ -777,6 +823,7 @@ def check_training_kernels(device):
     limits = {"lse_max_abs": LSE_ATOL, "o": REL_L2, "dq": GRAD_REL_L2, "dk": GRAD_REL_L2,
               "dv": GRAD_REL_L2, "dgate": DGATE_REL}
     fault_limit = {"lse_log2_domain": LSE_ATOL, "lse_drop_last_kv_tile": LSE_ATOL,
+                   "lse_kv_tail_unmasked": LSE_ATOL,
                    "dkv_drop_last_kv_tile": GRAD_REL_L2, "dq_drop_last_q_tile": GRAD_REL_L2,
                    "dq_missing_g": GRAD_REL_L2, "dgate_without_dv_term": DGATE_REL}
     worst = {key: 0.0 for key in limits}
@@ -1005,12 +1052,13 @@ def attention_per_step():
 
 def kernel_counters():
     """Launches of the kernels that no wrapper counts alone, by kernel name:
-    the two forward kernels the attention wrappers choose between by query
-    length (`forward_launches`), and the reduction a split conv plan adds."""
+    the two forward kernels the attention wrappers choose between by
+    `forward_plan` (`forward_launches`), and the reduction a split conv plan
+    adds."""
     from diffusion_pruning_tpu_torch.ops import flash_attention as fa
     from diffusion_pruning_tpu_torch.ops import norm_conv as nc
     return {"kernel:gated_flash_fwd_wgmma": (fa.forward_launches, "gated_flash_fwd_wgmma"),
-            "kernel:gated_flash_fwd": (fa.forward_launches, "gated_flash_fwd"),
+            "kernel:gated_flash_fwd_small": (fa.forward_launches, "gated_flash_fwd_small"),
             "conv_split_reduce": (vars(nc.conv_split_reduce), "launches")}
 
 
@@ -1032,7 +1080,7 @@ def reset_launch_counts():
 def wrapper_counts(counts):
     """The wrappers' entries of `counts`, whose launches per forward or step
     are fixed; the forward kernels' add up to the attention wrappers'."""
-    if (counts["kernel:gated_flash_fwd_wgmma"] + counts["kernel:gated_flash_fwd"]
+    if (counts["kernel:gated_flash_fwd_wgmma"] + counts["kernel:gated_flash_fwd_small"]
             != counts["gated_flash_fwd"] + counts["gated_flash_fwd_lse"]):
         fail(f"the forward kernels' launches do not add up to their wrappers': {counts}")
     return {k: v for k, v in counts.items() if k in kernel_wrappers()}
@@ -1235,6 +1283,23 @@ def training_entry(rows, kind: str, plain_key: str, library_key) -> dict:
             "sites": sum(r["sites_per_256px_forward"] for r in mine),
             "shapes": "its attention sites of one student U-Net pass of the stage-1 step at "
                       "256px, B = 64, bf16, soft gates"}
+
+
+def small_forward_summary(rows) -> dict:
+    """The training forward (with lse) at the S_q <= 64 shapes of phase 7
+    (B = 64): per shape, and summed over their 12 sites of a student pass."""
+    from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
+    mine = [r for r in rows if forward_kernel(r["s_q"], r["s_kv"]) == "gated_flash_fwd_small"]
+    keys = ("ms", "cold_ms", "eager_ms", "bound_ms", "library_ms")
+    per_shape = [{"s_q": r["s_q"], "s_kv": r["s_kv"], "h": r["h"],
+                  "sites": r["sites_per_256px_forward"],
+                  **{k: r[f"fwd_lse_{k}"] for k in keys}} for r in mine]
+    return {"phase": "training_forward_small_q", "kernel": "gated_flash_fwd_small",
+            "batch": TRAIN_B, "per_shape": per_shape,
+            **{k: sum(r[k] * r["sites"] for r in per_shape) for k in keys},
+            "sites": sum(r["sites"] for r in per_shape),
+            "library_call": "F.scaled_dot_product_attention forward of pre-masked q/k/v under "
+                            "autograd"}
 
 
 def backward_summary(rows) -> dict:
@@ -1607,6 +1672,69 @@ def sweep_linear_splits(device):
     torch.cuda.empty_cache()
 
 
+# an expert's channel widths (C_in, groups): kept groups of the full model's C/32 ∈
+# {10, 20, 40} channels; 90, 310 and 620 are no multiple of 8, 1240 is
+EXPERT_CHANNELS = ((90, 9), (310, 31), (620, 31), (1240, 31))
+
+
+def check_expert_channels(device):
+    """The fused conv and linear ops at an expert's channel widths, which the
+    card path zero-pads to C_in (and the linear's C_out) ≡ 0 mod 8: at 16×16
+    and 8×8 maps (256 and 64 tokens), B_eff 16, C_out = C_in, soft gates,
+    against their plain versions in f32 on the same bf16 inputs per batch
+    element (<= FUSED_REL_L2); one launch of each kernel per op (and the
+    reduction where the plan splits K)."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    rows = []
+    for c, groups in EXPERT_CHANNELS:
+        for side in (16, 8):
+            x, scale, bias, gates = fused_inputs(FUSED_B, c, side, side, gen, groups)
+            gate_c = gates["soft"]
+            weight = (torch.randn(c, c, 3, 3, device=device, generator=gen)
+                      * (9 * c) ** -0.5).bfloat16()
+            cbias = 0.1 * torch.randn(c, device=device, generator=gen)
+            lweight = (torch.randn(c, c, device=device, generator=gen) * c ** -0.5).bfloat16()
+            lbias = 0.1 * torch.randn(c, device=device, generator=gen)
+            tokens = x.flatten(2).transpose(1, 2).contiguous()  # (B, S, C)
+            before = launch_counts()
+            conv = nc.group_norm_silu_conv3x3(x, scale, bias, weight, cbias, gate_c, groups,
+                                              1e-5, True, packed=nc.PackedWeight())
+            linear = nc.group_norm_linear(tokens, scale, bias, lweight, lbias, gate_c, groups,
+                                          1e-6)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+            a, b = nc.affine_coeffs(x, scale, bias, groups, 1e-5, gate_c)
+            conv_ref = nc.norm_conv3x3_plain(x.float(), a, b, weight.float().permute(0, 2, 3, 1),
+                                             cbias, True)
+            a, b = nc.affine_coeffs(tokens.transpose(1, 2), scale, bias, groups, 1e-6, gate_c)
+            linear_ref = nc.norm_linear_plain(tokens.float(), a, b, lweight.float(), lbias)
+            splits = (nc.conv_plan(FUSED_B, side, side, nc.aligned_channels(c), c).split,
+                      nc.linear_plan(FUSED_B, side * side, nc.aligned_channels(c),
+                                     nc.aligned_channels(c)).split)
+            want = {"norm_conv3x3": 1, "norm_linear": 1,
+                    **({"conv_split_reduce": (splits[0] > 1) + (splits[1] > 1)}
+                       if max(splits) > 1 else {})}
+            row = {"phase": "expert_channels", "b": FUSED_B, "c_in": c, "groups": groups,
+                   "padded_c_in": nc.aligned_channels(c), "h": side, "w": side,
+                   "conv_rel_l2": per_sample_rel_l2(conv, conv_ref).max().item(),
+                   "linear_rel_l2": per_sample_rel_l2(linear, linear_ref).max().item(),
+                   "conv_shape": list(conv.shape), "linear_shape": list(linear.shape),
+                   "launches": launched, "limit": FUSED_REL_L2}
+            emit(row)
+            sound = (row["conv_rel_l2"] <= FUSED_REL_L2 and row["linear_rel_l2"] <= FUSED_REL_L2
+                     and conv.shape == conv_ref.shape and linear.shape == linear_ref.shape
+                     and bool(torch.isfinite(conv).all()) and bool(torch.isfinite(linear).all()))
+            if not sound:
+                fail(f"the fused ops disagree at an expert's channel width: {row}")
+            if launched != want:
+                fail(f"expected {want} launches at an expert's channel width, got {launched}")
+            rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def poison_allocator():
     """Leave NaN in the caching allocator's free blocks: the cache is emptied,
     then tensors of 512 B to 256 MB are filled with NaN and freed."""
@@ -1628,10 +1756,11 @@ def nan_filled(alloc):
 
 
 def check_poisoned_workspaces(device):
-    """Every route of `backward_plan` and the conv's and the linear's split
+    """The S_q <= 64 forward with lse (the kv tiles 80, 16 and 64), every
+    route of `backward_plan` and the conv's and the linear's split
     workspaces, each run twice with NaN in the allocator's free blocks and in
     every buffer the wrappers allocate: finite outputs, equal bit for bit
-    (an element read before it is written would show)."""
+    (an element read or left unwritten would show)."""
     import torch
     from diffusion_pruning_tpu_torch.ops import flash_attention as fa
     from diffusion_pruning_tpu_torch.ops import norm_conv as nc
@@ -1648,6 +1777,15 @@ def check_poisoned_workspaces(device):
         info = {"route": plan.route, "split": plan.chunks,
                 "padded_stats": plan.route == "two_kernel" and plan.s_q_pad > s_q}
         return info, lambda: fa.gated_flash_backward(q, k, v, gate, o, lse, do)
+
+    def fwd(s_q, s_kv, h, b=16):
+        q, k, v = (torch.randn(b, s, h, 64, device=device, generator=gen).bfloat16()
+                   for s in (s_q, s_kv, s_kv))
+        gate = torch.rand(b, h, device=device, generator=gen)
+        gate[0, 0] = 0.0
+        plan = fa.forward_plan(b, h, s_q, s_kv)
+        return ({"kernel": plan.kernel, "kv_tile": plan.kv_tile},
+                lambda: fa.gated_flash_forward_lse(q, k, v, gate))
 
     def conv(b, c, side):
         x, scale, bias, gates = fused_inputs(b, c, side, side, gen)
@@ -1669,7 +1807,10 @@ def check_poisoned_workspaces(device):
         return ({"split": plan.split, "workspace_bytes": plan.workspace_bytes},
                 lambda: (nc.norm_linear(x, a, bb, weight, lbias),))
 
-    routes = {"bwd_one_pass": lambda: bwd(256, 77, 20),
+    routes = {"fwd_small_q_lse_64_77": lambda: fwd(64, 77, 20),
+              "fwd_small_q_lse_16_16": lambda: fwd(16, 16, 20),
+              "fwd_small_q_lse_40_50": lambda: fwd(40, 50, 3),
+              "bwd_one_pass": lambda: bwd(256, 77, 20),
               "bwd_one_pass_split": lambda: bwd(1024, 77, 5),
               "bwd_one_pass_small_q": lambda: bwd(64, 77, 20),
               "bwd_one_pass_16": lambda: bwd(16, 16, 20),
@@ -1695,6 +1836,7 @@ def check_poisoned_workspaces(device):
             emit({"phase": "poisoned_allocator", "routes": rows})
             fail(f"{name} reads memory it did not write: {rows[name]}")
     if not (rows["bwd_one_pass_split"]["split"] > 1 and rows["bwd_one_pass"]["split"] == 1
+            and all(rows[k]["kernel"] == "gated_flash_fwd_small" for k in rows if "fwd" in k)
             and rows["bwd_two_kernel_padded_stats"]["padded_stats"]
             and all(rows[k]["split"] > 1 for k in rows if "workspace" in k)):
         fail(f"the poisoned-allocator routes do not cover their plans: {rows}")
@@ -2261,7 +2403,7 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
     serving and train-step runs."""
     from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
     mine = [r for r in rows if r["kernel"] == name]
-    mine_train = [r for r in train_rows if forward_kernel(r["s_q"]) == name]
+    mine_train = [r for r in train_rows if forward_kernel(r["s_q"], r["s_kv"]) == name]
     agg = {key: sum(r[key] * r["sites_per_256px_forward"] for r in mine)
            for key in ("ms", "cold_ms", "eager_ms", "plain_ms", "library_ms", "library_cold_ms",
                        "library_eager_ms", "bound_ms")}
@@ -2269,7 +2411,7 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
               if r["bound_by"] == "operations")
     key = f"kernel:{name}"
     by_path = {"serving": serve_counts[key], "train_step": train_launches[key]}
-    wgmma = name == "gated_flash_fwd_wgmma"
+    small = name == "gated_flash_fwd_small"
     return {
         "name": name, "route": "cuda",
         "source": "diffusion_pruning_tpu_torch/csrc/gated_flash_fwd.cu",
@@ -2277,7 +2419,8 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
         "also_replaces": ["diffusion_pruning_tpu/ops/flash_attention.py:181",
                           "diffusion_pruning_tpu/ops/flash_attention.py:215",
                           "diffusion_pruning_tpu/ops/flash_attention.py:284"],
-        "dispatch": "S_q > 64 (wgmma, TMA)" if wgmma else "S_q <= 64 (mma.sync, cp.async)",
+        "dispatch": ("S_q <= 64 and S_kv <= 80 (wgmma, TMA; whole items per warpgroup)" if small
+                     else "S_q > 64 or S_kv > 80 (wgmma, TMA; 128-row query tiles)"),
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "rel_l2_worst_head": max(r["rel_l2_worst_head"] for r in mine),
@@ -2389,6 +2532,29 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
+FORWARD_KERNELS = ("gated_flash_fwd_small_kernel", "gated_flash_fwd_wgmma_kernel")
+
+
+def check_forward_build(build, sass):
+    """Every kernel of gated_flash_fwd.cu runs on HGMMA and TMA with no
+    mma.sync left, and the S_q <= 64 instances spill nothing; their
+    registers, spills and ptxas notes are reported."""
+    report = ptxas_report((build.BUILD_DIR / "gated_flash_fwd.ptxas.txt").read_text())
+    rows = {}
+    for key, counts in (sass.items() if isinstance(sass, dict) else ()):
+        stem, fn = key.split(":", 1)
+        if stem == "gated_flash_fwd":
+            rows[fn] = {**counts, **report.get(fn, {})}
+    emit({"phase": "forward_sass", "kernels": rows})
+    if isinstance(sass, dict):
+        wrong = [fn for fn, r in rows.items()
+                 if not (r["HGMMA"] > 0 and r["UTMALDG"] > 0 and r["HMMA"] == 0)
+                 or ("small" in fn and r.get("spill_store_bytes") != 0)]
+        found = {name for name in FORWARD_KERNELS if any(name in fn for fn in rows)}
+        if found != set(FORWARD_KERNELS) or wrong:
+            fail(f"the forward kernels are not spill-free wgmma/TMA kernels: {rows}")
+
+
 BACKWARD_WGMMA_KERNELS = ("gated_flash_bwd_fused_kernel", "gated_flash_bwd_fused_small_kernel",
                           "gated_flash_bwd_dq_kernel", "gated_flash_bwd_dkv_kernel")
 
@@ -2475,6 +2641,7 @@ def main() -> None:
                     log(f"ptxas {source.name}: {line.strip()}")
     sass = sass_counts(build)
     emit({"phase": "sass", "instructions_by_kernel": sass})
+    check_forward_build(build, sass)
     check_backward_build(build, sass)
     check_fused_build(build, sass)
 
@@ -2514,6 +2681,7 @@ def main() -> None:
     train_rows, train_check = check_training_kernels(device)
     emit({"phase": "training_kernel_check_summary", **train_check})
     emit(backward_summary(train_rows))
+    emit(small_forward_summary(train_rows))
     log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
 
     # 8. the stage-1 train step at full width
@@ -2530,6 +2698,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     fused_checks = check_fused_kernels(unet, device)
+    check_expert_channels(device)
     check_poisoned_workspaces(device)
     log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
 
@@ -2550,13 +2719,13 @@ def main() -> None:
     log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
 
     # kernels line: inference times summed over the sites of one 256px
-    # forward (B_eff 16) that each forward kernel serves (S_q > 64: wgmma,
-    # else mma.sync), training times over the sites of one student pass of
-    # the train step (B = 64)
+    # forward (B_eff 16) that each forward kernel serves (`forward_plan`),
+    # training times over the sites of one student pass of the train step
+    # (B = 64)
     train_launches = train_summary["launches"]
     forward_entries = [
         forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches)
-        for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd")]
+        for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd_small")]
     kernels = [*forward_entries,
                *backward_entries(train_rows, train_check, train_launches), fused_kernel_entry(
         fused_checks["group_norm_silu"], "group_norm_silu",

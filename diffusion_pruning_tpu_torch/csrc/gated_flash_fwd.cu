@@ -21,10 +21,10 @@
 // the 16- and 64-token blocks do few FLOPs per byte and are bounded by
 // reading q and writing o.
 //
-// Two kernels, chosen by the wrapper (`gated_flash_attention` and
-// `gated_flash_forward_lse` in ops/flash_attention.py) by the query length:
+// Two kernels, chosen by `forward_plan` in ops/flash_attention.py (the
+// wrappers `gated_flash_attention` and `gated_flash_forward_lse`):
 //
-// gated_flash_fwd_wgmma (S_q > 64), the Hopper design:
+// gated_flash_fwd_wgmma (S_q > 64, or S_kv > 80):
 //  * work tiles are (b·h, 128-row query tile); one persistent block a SM
 //    walks them (query tiles of one (b, h) adjacent, so K/V stay in L2), so
 //    that the next tile's Q and K/V load while this one finishes. A block is
@@ -59,12 +59,27 @@
 // Given up: the two warpgroups are not scheduled against each other
 // (ping-pong), and O is stored from registers.
 //
-// gated_flash_fwd (S_q <= 64), the first version on mma.sync and cp.async,
-// kept because a 128-row tile would leave most of its rows idle there (it
-// led SDPA at those shapes): one block of 4 warps per (b·h, 64-row query
-// tile), each warp 16 query rows; K/V tiles of 64 rows double-buffered by
-// cp.async in padded shared memory; S = Q Kᵀ and O += P V through mma.sync
-// m16n8k16, P re-packed in registers; the same masking and gate folding.
+// gated_flash_fwd_small (S_q <= 64 and S_kv <= 80: the 64- and 16-token
+// blocks, 12 of the 32 sites of a 256px U-Net forward). There the work is
+// a few µs of latency, not throughput: at B_eff 16 the 320 items (b·h)
+// move 0.65-11 MB, and a block that runs load → products → store once is
+// the whole kernel. So:
+//  * an item is one b·h, all its S_q query rows in one 64-row tile, its kv
+//    side in one tile of 16, 64 or 80 rows (the least that holds S_kv:
+//    `forward_plan`), so there is no online rescale;
+//  * each consumer warpgroup takes whole items of its own; two blocks (two
+//    consumer warpgroups and a producer warp each) fit an SM, so at B_eff 16
+//    every item has a warpgroup to itself and every load is issued at once;
+//  * the TMA boxes are S_q rows of Q and S_kv rows of K and V: S_q = 16 moves
+//    16 rows, not 64, and S_kv = 16 is a 16-row tile (m64n16 products);
+//  * S = Q Kᵀ (SS-wgmma m64nKVk16), the one-tile softmax on the
+//    accumulators, P re-packed into A registers, O = P V (RS-wgmma
+//    m64n64k16), as above;
+//  * O leaves through stmatrix into a 128-byte-swizzled tile and one 4-D TMA
+//    store of S_q rows (4-byte stores from registers, as the first version
+//    made them, were slower at the 64-row shapes).
+// What is left (PERF.md §6) is one chain of launch, load, products and
+// store per SM; the kv tile's size sets the products' share.
 //
 // Training forward: with a non-null `lse`, either kernel also writes one f32
 // per (b·h, query row), the log-sum-exp of that row's logits q·kᵀ·d^-½·g² in
@@ -76,141 +91,14 @@
 
 #include <algorithm>
 
-#include "flash_common.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
-using namespace gfa;
+using namespace hopper;
 
-// ---------------------------------------------------------------- mma.sync forward (S_q <= 64)
-
-__global__ void __launch_bounds__(kThreads)
-    gated_flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                const float* __restrict__ gate, __nv_bfloat16* __restrict__ o,
-                                float* __restrict__ lse, int H, int Sq, int Skv,
-                                float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 k_s[2][kTileElems];
-  __shared__ __align__(16) __nv_bfloat16 v_s[2][kTileElems];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int m0 = blockIdx.x * kBlock;
-  const long row_stride = (long)H * kD;
-  const __nv_bfloat16* qb = q + ((long)b * Sq * H + h) * kD;
-  const __nv_bfloat16* kb = k + ((long)b * Skv * H + h) * kD;
-  const __nv_bfloat16* vb = v + ((long)b * Skv * H + h) * kD;
-  __nv_bfloat16* ob = o + ((long)b * Sq * H + h) * kD;
-  const float g = gate != nullptr ? gate[bh] : 1.0f;
-  const float sl2 = scale_log2 * g * g;  // logits in the log2 domain: d^-½ · g² · log2(e)
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gr = lane >> 2;  // fragment row group
-  const int tg = lane & 3;   // thread in group
-
-  load_tile(q_s, qb, m0, Sq, row_stride, tid);
-  load_tile(k_s[0], kb, 0, Skv, row_stride, tid);
-  load_tile(v_s[0], vb, 0, Skv, row_stride, tid);
-  cp_async_commit();
-
-  uint32_t qf[4][4];
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-  }
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.0f, 0.0f};
-
-  const int n_tiles = (Skv + kBlock - 1) / kBlock;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int cur = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(k_s[cur ^ 1], kb, (j + 1) * kBlock, Skv, row_stride, tid);
-      load_tile(v_s[cur ^ 1], vb, (j + 1) * kBlock, Skv, row_stride, tid);
-    }
-    cp_async_commit();
-    cp_async_wait_1();  // everything but the prefetch just issued has landed
-    __syncthreads();
-
-    if (j == 0) load_a_frags(qf, q_s, warp * 16, gr, tg);
-
-    // S = Q Kᵀ for this warp's 16 rows × 64 kv columns (8 n-tiles of 8)
-    float s[8][4];
-    mma_abt(s, qf, k_s[cur], gr, tg);
-
-    // scale, mask the kv tail, running row max (rows gr and gr + 8)
-    const int n0 = j * kBlock;
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n0 + nt * 8 + 2 * tg + (e & 1);
-        const float val = col < Skv ? s[nt][e] * sl2 : -INFINITY;
-        s[nt][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-    float alpha[2];
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = exp2f(m_run[r] - mx[r]);  // 0 on the first tile (m_run = -inf)
-      m_run[r] = mx[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[nt][e] - m_run[e >> 1]);
-        s[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + rs[r];
-    }
-
-    // O += P V, P rounded to bf16 in registers
-    mma_ab(acc, s, v_s[cur], gr, tg);
-    __syncthreads();  // the next iteration's prefetch overwrites the buffer read here
-  }
-
-  const float inv0 = g / l_run[0];
-  const float inv1 = g / l_run[1];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    acc[nt][0] *= inv0;
-    acc[nt][1] *= inv0;
-    acc[nt][2] *= inv1;
-    acc[nt][3] *= inv1;
-  }
-  const int row0 = m0 + warp * 16 + gr;
-  store_rows(ob, acc, 1.0f, row0, Sq, row_stride, tg);
-  if (lse != nullptr && tg == 0) {  // the quad holds equal m_run/l_run after its shuffles
-    float* lb = lse + (long)bh * Sq;
-    if (row0 < Sq) lb[row0] = (m_run[0] + log2f(l_run[0])) * kLn2;
-    if (row0 + 8 < Sq) lb[row0 + 8] = (m_run[1] + log2f(l_run[1])) * kLn2;
-  }
-}
-
+constexpr int kD = 64;  // head dim
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------- wgmma forward
 
@@ -538,6 +426,178 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   store(cur, m_run, l_run);
 }
 
+// ---------------------------------------------------------------- wgmma forward, S_q <= 64
+
+constexpr int kSmallThreads = 2 * 128 + 32;  // two consumer warpgroups, then a producer warp
+
+// An item set (Q, K and V of one b·h) of the S_q <= 64 forward with kv tile KV.
+template <int KV>
+struct SmallTile {
+  static constexpr int kKV = KV * kD * 2;       // one K or V tile
+  static constexpr int kSet = kBox + 2 * kKV;   // Q | K | V
+  // a set per consumer warpgroup | an O tile per warpgroup | full and empty barriers
+  static constexpr int kSmem = 1024 + 2 * kSet + 2 * kBox + 4 * 8;
+  static_assert(KV % 16 == 0 && kKV % 1024 == 0, "whole k16 steps and swizzle atoms");
+};
+
+// Persistent: block blk walks the items (b·h; one query tile of S_q <= 64
+// rows each) blk, blk + gridDim.x, …; its items 0, 2, 4, … go to consumer
+// warpgroup 0, 1, 3, 5, … to warpgroup 1, each a whole item with both
+// products, so the two never wait for each other. The producer warp's
+// first lane loads each warpgroup's next item set (Q, K, V) once the
+// warpgroup is done with its last one. Boxes are S_q rows of Q and S_kv
+// rows of K and V (S_kv <= KV): no row past the sequence is moved; the
+// tile's rows past the box keep the zeros written at the start (V's must be
+// finite, as P = 0 multiplies them). Two blocks fit an SM (registers and
+// shared memory). More sets a warpgroup in flight measured slower at every
+// probed shape (PERF.md §6).
+template <int KV>
+__global__ void __launch_bounds__(kSmallThreads, 2)
+    gated_flash_fwd_small_kernel(const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 const __grid_constant__ CUtensorMap omap,
+                                 const float* __restrict__ gate, float* __restrict__ lse, int B,
+                                 int H, int Sq, int Skv, float scale_log2) {
+  using T = SmallTile<KV>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  auto set = [&](int wg) { return base + wg * T::kSet; };
+  const uint32_t o_s = base + 2 * T::kSet;  // O tiles of warpgroups 0, 1
+  const uint32_t bars = o_s + 2 * kBox;
+  auto full = [&](int wg) { return bars + 8 * wg; };
+  auto empty = [&](int wg) { return bars + 8 * (2 + wg); };
+  const int n_work = B * H;
+
+  if (threadIdx.x == 256) {
+    for (int wg = 0; wg < 2; ++wg) {
+      sm90::mbar_init(full(wg), 1);
+      sm90::mbar_init(empty(wg), 4);  // one arrival per warp of its warpgroup
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // the producer warp: its first lane issues every load
+    if (threadIdx.x == 256) {
+      const uint32_t bytes = (Sq + 2 * Skv) * kD * 2;
+      for (int w = blockIdx.x, i = 0; w < n_work; w += gridDim.x, ++i) {
+        const int b = w / H, h = w - b * H;
+        const int wg = i & 1, li = i >> 1;
+        const uint32_t s0 = set(wg);
+        sm90::mbar_wait(empty(wg), (li & 1) ^ 1);
+        sm90::mbar_expect_tx(full(wg), bytes);
+        sm90::tma_load_4d(s0, &qmap, full(wg), 0, h, 0, b);
+        sm90::tma_load_4d(s0 + kBox, &kmap, full(wg), 0, h, 0, b);
+        sm90::tma_load_4d(s0 + kBox + T::kKV, &vmap, full(wg), 0, h, 0, b);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;  // consumer thread 0 … 255
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int gr = lane >> 2, tg = lane & 3;
+  const bool leader = (tid & 127) == 0;  // issues and waits for the warpgroup's O stores
+  const uint32_t o_tile = o_s + wg * kBox;
+  // this lane's stmatrix row of the O tile (matrix lane / 8: rows + 8·(lane / 8 % 2),
+  // columns + 8·(lane / 16)) and its 128-byte swizzle
+  const uint32_t o_row = o_tile + (warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * 128;
+  const int o_sw = lane & 7, o_half = lane >> 4;
+
+  // zeros in the rows no box writes: Q's past S_q (rows that are computed and
+  // never stored) and V's past S_kv, in this warpgroup's set
+  const uint32_t qs = set(wg), ks = qs + kBox, vs = ks + T::kKV;
+  for (int c = Sq * 8 + (tid & 127); c < 64 * 8; c += 128) sm90::sts_zero16(qs + 16 * c);
+  for (int c = Skv * 8 + (tid & 127); c < KV * 8; c += 128) sm90::sts_zero16(vs + 16 * c);
+  sm90::fence_proxy_async();
+  sm90::named_barrier(2 + wg, 128);
+
+  float s[KV / 2];          // S, then the probabilities
+  float acc[32];            // O: 8 column blocks of 8 head dims × (rows gr, gr + 8)
+  uint32_t pa[KV / 16][4];  // P rounded to bf16: the A fragments of P V
+  float alpha[2];
+
+  for (int i = wg, w = blockIdx.x + wg * gridDim.x; w < n_work; i += 2, w += 2 * gridDim.x) {
+    const int li = i >> 1;
+    const int b = w / H, h = w - b * H;
+    const float g = gate != nullptr ? gate[w] : 1.0f;
+    const float sl2 = scale_log2 * g * g;  // logits in the log2 domain: d^-½ · g² · log2(e)
+    sm90::mbar_wait(full(wg), li & 1);
+
+    // S = Q Kᵀ: four 16-deep steps over the head dim
+    const uint64_t desc_q = sm90::desc_sw128(qs, 16, 1024);
+    const uint64_t desc_k = sm90::desc_sw128(ks, 16, 1024);
+    sm90::fence_regs<KV / 2>(s);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::WgmmaSS<KV>::mma(s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs<KV / 2>(s);
+
+    // the softmax of one tile: no running state to rescale; columns past
+    // S_kv (stale K rows) get probability 0
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+    if (Skv < KV) {
+      softmax_tile<true>(s, alpha, m_run, l_run, sl2, 2 * tg, Skv);
+    } else {
+      softmax_tile<false>(s, alpha, m_run, l_run, sl2, 2 * tg, Skv);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KV / 16; ++kk) {
+      pa[kk][0] = pack_f32(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_f32(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_f32(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_f32(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O = P V: KV / 16 16-deep steps over the kv rows, V through the transposed-B form
+    const uint64_t desc_v = sm90::desc_sw128(vs, 16, 1024);
+    sm90::fence_regs<32>(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV / 16; ++kk)
+      sm90::WgmmaRS<64, 1>::mma(acc, pa[kk], desc_v + 128 * kk, kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs<32>(acc);
+    sm90::fence_regs<KV / 4>(&pa[0][0]);
+    if (lane == 0) sm90::mbar_arrive(empty(wg));  // this warp is done with Q, K and V
+
+    // O · g / l rounded to bf16 into the warpgroup's O tile (stmatrix, in the
+    // 128-byte swizzle of the map), then one TMA store of its S_q rows, which
+    // runs on beside the next item
+    const float inv[2] = {g / l_run[0], g / l_run[1]};
+    if (leader) sm90::bulk_wait_read();  // the tile's previous store has read it
+    sm90::named_barrier(2 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t p[4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        p[2 * q] = pack_f32(acc[4 * (j + q)] * inv[0], acc[4 * (j + q) + 1] * inv[0]);
+        p[2 * q + 1] = pack_f32(acc[4 * (j + q) + 2] * inv[1], acc[4 * (j + q) + 3] * inv[1]);
+      }
+      sm90::stmatrix_x4(o_row + (((j + o_half) ^ o_sw) << 4), p[0], p[1], p[2], p[3]);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_barrier(2 + wg, 128);
+    if (leader) {
+      sm90::tma_store_4d(&omap, o_tile, 0, h, 0, b);
+      sm90::bulk_commit();
+    }
+    if (lse != nullptr && tg == 0) {  // the quad holds equal m/l after its shuffles
+      const int row0 = warp * 16 + gr;
+      float* lb = lse + (long)w * Sq;
+      if (row0 < Sq) lb[row0] = (m_run[0] + log2f(l_run[0])) * kLn2;
+      if (row0 + 8 < Sq) lb[row0 + 8] = (m_run[1] + log2f(l_run[1])) * kLn2;
+    }
+  }
+  if (leader) sm90::bulk_wait_read();  // the tile stays until its last store has read it
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes. Each launches on `stream`, never
@@ -545,21 +605,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 // launch. q: (B, Sq, H, 64), k/v: (B, Skv, H, 64), o like q, all contiguous
 // bf16, 16-byte aligned; gate: (B, H) f32 or null; lse: (B·H, Sq) f32 for the
 // training forward, or null.
-extern "C" int gated_flash_fwd(const void* q, const void* k, const void* v, const float* gate,
-                               void* o, float* lse, int B, int H, int Sq, int Skv,
-                               float scale_log2, void* stream) {
-  const dim3 grid((Sq + kBlock - 1) / kBlock, B * H);
-  gated_flash_fwd_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), gate, static_cast<__nv_bfloat16*>(o), lse, H, Sq,
-      Skv, scale_log2);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int KV, bool kStream>
 static int launch_fwd_wgmma(const void* q, const void* k, const void* v, const float* gate,
-                            void* o, float* lse, int B, int H, int Sq, int Skv, float scale_log2,
-                            cudaStream_t stream) {
+                            void* o, float* lse, int B, int H, int Sq, int Skv, int blocks,
+                            float scale_log2, cudaStream_t stream) {
   auto kernel = gated_flash_fwd_wgmma_kernel<KV, kStream>;
   static const cudaError_t opted = sm90::allow_smem(kernel, FwdTile<KV>::kSmem);
   if (opted != cudaSuccess) return static_cast<int>(opted);
@@ -567,26 +616,61 @@ static int launch_fwd_wgmma(const void* q, const void* k, const void* v, const f
   if (!sm90::bshd_map(&qmap, q, B, Sq, H, 64) || !sm90::bshd_map(&kmap, k, B, Skv, H, KV) ||
       !sm90::bshd_map(&vmap, v, B, Skv, H, KV))
     return static_cast<int>(cudaErrorInvalidValue);
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int work = (Sq + kQRows - 1) / kQRows * B * H;
-  kernel<<<std::min(work, sms), kFwdThreads, FwdTile<KV>::kSmem, stream>>>(
+  kernel<<<blocks, kFwdThreads, FwdTile<KV>::kSmem, stream>>>(
       qmap, kmap, vmap, gate, static_cast<__nv_bfloat16*>(o), lse, B, H, Sq, Skv, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Work tiles of 128 query rows; `blocks` persistent blocks, at most the work
+// tiles (`forward_plan`).
 extern "C" int gated_flash_fwd_wgmma(const void* q, const void* k, const void* v,
                                      const float* gate, void* o, float* lse, int B, int H, int Sq,
-                                     int Skv, float scale_log2, void* stream) {
+                                     int Skv, int blocks, float scale_log2, void* stream) {
+  if (blocks < 1 || blocks > (Sq + kQRows - 1) / kQRows * B * H)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // one kv tile a work tile (S_kv <= 80) has no tile to overlap inside a work
   // tile: there the pipeline runs on across work tiles; with several it
   // drains at each work tile's end, which measured faster at S_kv >= 1024
   if (Skv <= 80)
-    return launch_fwd_wgmma<80, true>(q, k, v, gate, o, lse, B, H, Sq, Skv, scale_log2, s);
-  return launch_fwd_wgmma<128, false>(q, k, v, gate, o, lse, B, H, Sq, Skv, scale_log2, s);
+    return launch_fwd_wgmma<80, true>(q, k, v, gate, o, lse, B, H, Sq, Skv, blocks, scale_log2, s);
+  return launch_fwd_wgmma<128, false>(q, k, v, gate, o, lse, B, H, Sq, Skv, blocks, scale_log2,
+                                      s);
+}
+
+template <int KV>
+static int launch_fwd_small(const void* q, const void* k, const void* v, const float* gate,
+                            void* o, float* lse, int B, int H, int Sq, int Skv, int blocks,
+                            float scale_log2, cudaStream_t stream) {
+  auto kernel = gated_flash_fwd_small_kernel<KV>;
+  static const cudaError_t opted = sm90::allow_smem(kernel, SmallTile<KV>::kSmem);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  CUtensorMap qmap, kmap, vmap, omap;
+  if (!sm90::bshd_map(&qmap, q, B, Sq, H, Sq) || !sm90::bshd_map(&kmap, k, B, Skv, H, Skv) ||
+      !sm90::bshd_map(&vmap, v, B, Skv, H, Skv) || !sm90::bshd_map(&omap, o, B, Sq, H, Sq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<blocks, kSmallThreads, SmallTile<KV>::kSmem, stream>>>(qmap, kmap, vmap, omap, gate,
+                                                                  lse, B, H, Sq, Skv, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S_q <= 64 and S_kv <= kv_tile (16, 64 or 80): items of one b·h, `blocks`
+// persistent blocks, at most B·H (`forward_plan`; two fit an SM).
+extern "C" int gated_flash_fwd_small(const void* q, const void* k, const void* v,
+                                     const float* gate, void* o, float* lse, int B, int H, int Sq,
+                                     int Skv, int kv_tile, int blocks, float scale_log2,
+                                     void* stream) {
+  if (Sq > 64 || Skv > kv_tile || blocks < 1 || blocks > B * H)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kv_tile) {
+    case 16:
+      return launch_fwd_small<16>(q, k, v, gate, o, lse, B, H, Sq, Skv, blocks, scale_log2, s);
+    case 64:
+      return launch_fwd_small<64>(q, k, v, gate, o, lse, B, H, Sq, Skv, blocks, scale_log2, s);
+    case 80:
+      return launch_fwd_small<80>(q, k, v, gate, o, lse, B, H, Sq, Skv, blocks, scale_log2, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's wgmma/TMA kernels
 // (norm_conv.cu, gated_flash_fwd.cu, gated_flash_bwd.cu, group_norm.cu): mbarriers, TMA
-// tile loads, thread-block cluster barriers and distributed shared memory, the
-// asynchronous warpgroup product (wgmma) with its shared-memory descriptors,
-// ldmatrix, and the host-side encoding of TMA tensor maps.
+// tile loads and stores, thread-block cluster barriers and distributed shared
+// memory, the asynchronous warpgroup product (wgmma) with its shared-memory
+// descriptors, ldmatrix and stmatrix, bf16 packing, and the host-side encoding
+// of TMA tensor maps.
 //
 // Conventions:
 //  * operand tiles in shared memory are rows of 64 bf16 (128 bytes) in the
@@ -30,9 +31,20 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <dlfcn.h>
+#include <stdint.h>
 
-#include "mma_common.cuh"
+namespace hopper {
+
+// two floats -> one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace hopper
 
 namespace sm90 {
 
@@ -161,6 +173,18 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
       : "memory");
 }
 
+// the same for a 4-D map (a (B, S, H, 64) tensor through `bshd_map`: rows of
+// the box past S are not written, so a box never writes into the next batch
+// element)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -168,6 +192,11 @@ __device__ __forceinline__ void bulk_commit() {
 // wait until this thread's bulk stores have read their shared memory
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// 16 zero bytes to shared memory
+__device__ __forceinline__ void sts_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr), "r"(0) : "memory");
 }
 
 // make this thread's shared-memory stores visible to the async proxy (a
@@ -401,6 +430,21 @@ struct WgmmaSS<160> {
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
           "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
           "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<16, 0> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
 };

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
     "gated_flash_fwd", "gated_flash_bwd", "group_norm", "norm_conv"))
-HEADERS = (CSRC / "mma_common.cuh", CSRC / "flash_common.cuh", CSRC / "sm90_common.cuh")
+HEADERS = (CSRC / "sm90_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SM_COUNT = 132  # H100 SXM: the kernels' plans size their grids for it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,8 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 SIGNATURES = {  # C function -> (source stem, argtypes); the stream comes last
-    "gated_flash_fwd": ("gated_flash_fwd", [_P] * 6 + [_I] * 4 + [_F, _P]),
-    "gated_flash_fwd_wgmma": ("gated_flash_fwd", [_P] * 6 + [_I] * 4 + [_F, _P]),
+    "gated_flash_fwd_wgmma": ("gated_flash_fwd", [_P] * 6 + [_I] * 5 + [_F, _P]),
+    "gated_flash_fwd_small": ("gated_flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _P]),
     "gated_flash_bwd_fused": ("gated_flash_bwd", [_P] * 12 + [_I] * 6 + [_F, _P]),
     "gated_flash_bwd_reduce": ("gated_flash_bwd", [_P] * 3 + [_I, _L, _P]),
     "gated_flash_bwd_dq": ("gated_flash_bwd", [_P] * 10 + [_I] * 6 + [_F, _P]),
@@ -109,9 +109,18 @@ def _fn(name: str):
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call the C entry point `name` with `args` and the current stream of
-    `device`; raise if the launch was refused."""
-    with torch.cuda.device(device):
-        rc = _fn(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    `device`, with `device` current for the call; raise if the launch was
+    refused. It makes the calls that `torch.cuda.device` and
+    `torch.cuda.current_stream` make, without building their Python
+    objects: at the small attention shapes a wrapper's call is paced by the
+    host, and those objects were half of it (`--host-cost` of
+    scripts/torch_port/small_attention_probe.py)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    previous = torch.cuda._exchange_device(index)
+    try:
+        rc = _fn(name)(*args, torch._C._cuda_getCurrentRawStream(index))
+    finally:
+        torch.cuda._maybe_exchange_device(previous)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 

@@ -12,10 +12,11 @@ so the kernels scale the logits by g² and the output by g. Two sources in
 * the forward (gated_flash_fwd.cu) replaces all four inference forwards of
   the JAX package's Pallas flash attention; with an lse output it is also
   the training forward (f32 log-sum-exp of each row's logits, natural log).
-  It is two kernels, chosen by the query length: `gated_flash_fwd_wgmma`
-  (wgmma, K/V by TMA, 128 query rows a block) at S_q > SMALL_Q_ROWS, and the
-  first version `gated_flash_fwd` (mma.sync, 64 rows a block) at
-  S_q <= SMALL_Q_ROWS, where a 128-row tile would leave most rows idle;
+  It is two wgmma/TMA kernels, chosen by `forward_plan`:
+  `gated_flash_fwd_small` at S_q <= SMALL_Q_ROWS and S_kv <= 80 (the 64- and
+  16-token blocks: one b·h a work item, whole items per warpgroup, one kv
+  tile), and `gated_flash_fwd_wgmma` elsewhere (128-row query tiles, two
+  warpgroups a tile, online softmax over 128-row kv tiles above 80);
 * the backward (gated_flash_bwd.cu) replaces the four Pallas backward
   bodies: dq, dk, dv, and dgate[b, h] = Σ dq'∘q + Σ dk'∘k + Σ dv'∘v, summed
   here from per-warp partials. `backward_plan` picks the route: at
@@ -38,6 +39,7 @@ The sources are compiled and loaded at first use by `ops/build.py`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -48,7 +50,7 @@ from diffusion_pruning_tpu_torch.ops.build import ptr as _ptr
 from diffusion_pruning_tpu_torch.ops.build import require_cuda as _device
 
 HEAD_DIM = 64
-SMALL_Q_ROWS = 64  # the forward runs the mma.sync kernel at S_q <= this, wgmma above
+SMALL_Q_ROWS = 64  # query rows of one work item of gated_flash_fwd_small (S_q <= this)
 _LOG2E = 1.4426950408889634
 
 
@@ -167,19 +169,104 @@ def _check_rows(name, t, b, h, s_q, device):
                          f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def forward_kernel(s_q: int) -> str:
-    """The forward kernel that runs a query length: `gated_flash_fwd_wgmma`
-    above SMALL_Q_ROWS rows, the mma.sync `gated_flash_fwd` at or below."""
-    return "gated_flash_fwd_wgmma" if s_q > SMALL_Q_ROWS else "gated_flash_fwd"
+# ---------------------------------------------------------------- the forward's plan
+
+FWD_Q_ROWS = 128       # query rows a work tile of gated_flash_fwd_wgmma (two warpgroups)
+FWD_ONE_TILE_KV = 80   # the kv tile where S_kv <= this: one tile, no online rescale
+FWD_KV_ROWS = 128      # the kv tile above it (online softmax)
+FWD_SMALL_TILES = (16, 64, 80)  # kv tiles of gated_flash_fwd_small: the least that holds S_kv runs
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """How the forward runs one shape (`forward_plan`).
+
+    kernel "gated_flash_fwd_small" (S_q <= SMALL_Q_ROWS and S_kv <= 80): a
+    work item is one b·h (a 64-row query tile, S_q rows of it loaded);
+    `grid` persistent blocks walk the B·H items (block blk takes blk,
+    blk + grid, …), whose items 0, 2, 4, … go to its consumer warpgroup 0
+    and 1, 3, 5, … to warpgroup 1, each item whole, one item set (Q, K, V)
+    per warpgroup in flight. kernel "gated_flash_fwd_wgmma" (every other
+    shape): a work tile is (b·h, 128 query rows), rows 64·wg … of it by
+    consumer warpgroup wg, `grid` persistent blocks walking them the same
+    way. `kv_tile` rows of K and V a tile, `kv_tiles` of them a (b, h)."""
+    kernel: str
+    b: int
+    h: int
+    s_q: int
+    s_kv: int
+    q_rows: int
+    kv_tile: int
+    grid: int
+
+    @property
+    def q_tiles(self) -> int:
+        return -(-self.s_q // self.q_rows)
+
+    @property
+    def kv_tiles(self) -> int:
+        return -(-self.s_kv // self.kv_tile)
+
+    @property
+    def items(self) -> int:
+        return self.b * self.h * self.q_tiles
+
+    @property
+    def items_per_warpgroup(self) -> int:
+        """The most work items one consumer warpgroup takes (the wgmma kernel's
+        two warpgroups share each work tile)."""
+        per_block = -(-self.items // self.grid)
+        return -(-per_block // 2) if self.kernel == "gated_flash_fwd_small" else per_block
+
+    @property
+    def launch_args(self) -> Tuple[int, ...]:
+        """The plan's arguments of the kernel's C entry point, before the scale."""
+        if self.kernel == "gated_flash_fwd_small":
+            return (self.kv_tile, self.grid)
+        return (self.grid,)
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(b: int, h: int, s_q: int, s_kv: int) -> ForwardPlan:
+    """The forward's plan for q (B, S_q, H, 64) and k/v (B, S_kv, H, 64).
+
+    * S_q <= 64 and S_kv <= 80 (every 64- and 16-token site of the U-Net):
+      `gated_flash_fwd_small`, whole items per warpgroup, one kv tile, the
+      least of 16, 64 and 80 rows that holds S_kv (S_kv = 16 reads 16 rows,
+      the 77 text tokens one 80-row tile); two blocks per SM, at most B·H
+      blocks, so that at B_eff 16 each of the 320 items has a warpgroup of
+      its own and every load is issued before the first product;
+    * otherwise `gated_flash_fwd_wgmma`: 128-row work tiles, a kv tile of 80
+      rows where S_kv <= 80 (one tile) and 128 above (online softmax), one
+      block per SM with at most the work tiles (S_q <= 64 with S_kv > 80, a
+      ragged shape no U-Net site has, leaves half of each tile's rows idle)."""
+    one_tile = s_kv <= FWD_ONE_TILE_KV
+    kv_tile = FWD_ONE_TILE_KV if one_tile else FWD_KV_ROWS
+    if s_q <= SMALL_Q_ROWS and one_tile:
+        items = b * h
+        tile = next(t for t in FWD_SMALL_TILES if s_kv <= t)
+        return ForwardPlan("gated_flash_fwd_small", b, h, s_q, s_kv, SMALL_Q_ROWS, tile,
+                           min(items, 2 * SM_COUNT))
+    tiles = b * h * -(-s_q // FWD_Q_ROWS)
+    return ForwardPlan("gated_flash_fwd_wgmma", b, h, s_q, s_kv, FWD_Q_ROWS, kv_tile,
+                       min(tiles, SM_COUNT))
+
+
+def forward_kernel(s_q: int, s_kv: int) -> str:
+    """The forward kernel that runs a shape (`forward_plan`):
+    `gated_flash_fwd_small` at S_q <= SMALL_Q_ROWS and S_kv <= 80,
+    `gated_flash_fwd_wgmma` elsewhere."""
+    return forward_plan(1, 1, s_q, s_kv).kernel
 
 
 def _forward(q, k, v, gate, lse):
     b, s_q, h, d = q.shape
+    plan = forward_plan(b, h, s_q, k.shape[1])
     o = torch.empty_like(q)
-    name = forward_kernel(s_q)
-    build.launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(gate),
-                 o.data_ptr(), _ptr(lse), b, h, s_q, k.shape[1], d ** -0.5 * _LOG2E)
-    forward_launches[name] += 1
+    build.launch(plan.kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(gate),
+                 o.data_ptr(), _ptr(lse), b, h, s_q, k.shape[1], *plan.launch_args,
+                 d ** -0.5 * _LOG2E)
+    forward_launches[plan.kernel] += 1
     return o
 
 
@@ -188,7 +275,7 @@ def gated_flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training forward: (o, lse (B·H, S_q) f32, natural log). CPU tensors
     run `gated_attention_reference_lse`; CUDA tensors launch the forward
-    kernel `forward_kernel` picks, with its lse output (counted in
+    kernel `forward_plan` picks, with its lse output (counted in
     `.launches`)."""
     if q.device.type == "cpu":
         return gated_attention_reference_lse(q, k, v, gate)
@@ -473,7 +560,7 @@ def gated_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # launches of each forward kernel, by either wrapper (the wrappers' own
 # `.launches` count their calls)
-forward_launches = {"gated_flash_fwd_wgmma": 0, "gated_flash_fwd": 0}
+forward_launches = {"gated_flash_fwd_wgmma": 0, "gated_flash_fwd_small": 0}
 gated_flash_attention.launches = 0
 gated_flash_forward_lse.launches = 0
 gated_flash_bwd_fused.launches = 0

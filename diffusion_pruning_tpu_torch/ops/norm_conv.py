@@ -29,9 +29,16 @@ the contraction index is contiguous for every tap. `PackedWeight` keeps that
 copy beside the module and rebuilds it when the parameter changed. The linear
 form takes (B, S, C) tokens and `nn.Linear`'s (C_out, C_in) weight as it is.
 
-A CPU tensor takes the plain versions; a CUDA tensor must be bf16 with
-C_in % 8 == 0 (and C_out % 8 == 0 for the linear) and goes to the kernels or
-raises. The conv kernel's plan (patch shape, output-channel tile, split over
+A CPU tensor takes the plain versions; a CUDA tensor must be bf16 and goes
+to the kernels or raises. The kernels read rows of C_in channels by TMA,
+whose row stride must be a multiple of 16 bytes, so on the card an expert's
+C_in that is no multiple of 8 (kept groups of C/32 ∈ {10, 20} channels) is
+zero-padded to one (`pad_conv_operands`, `pad_linear_operands`): x's
+channels, a and b, the packed conv weight (`PackedWeight` keeps its copy
+padded) and the linear weight, and the linear's C_out with its bias (the
+result sliced back). A padded channel has x = a = b = 0, so y = act(0) = 0
+for SiLU and the identity, and its weight column is 0: the result does not
+change. Aligned shapes run as they are, with no copy. The conv kernel's plan (patch shape, output-channel tile, split over
 K) is chosen per shape by `conv_plan`, the linear kernel's (split over K,
 staging of a and b, persistent grid) by `linear_plan`; a split plan writes
 f32 partial sums to a workspace the wrapper allocates, and a second kernel
@@ -83,17 +90,68 @@ def affine_coeffs(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, grou
     return a.reshape(b, c), shift.reshape(b, c)
 
 
+CHANNEL_ALIGN = 8  # channels of a kernel's input row: 16 bytes of bf16, the TMA stride unit
+
+
+def aligned_channels(c: int) -> int:
+    """c rounded up to a multiple of CHANNEL_ALIGN."""
+    return -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def pad_channels(t: torch.Tensor, c_from: int, c_to: int) -> torch.Tensor:
+    """t zero-padded along its last dim from c_from to c_to entries
+    (contiguous); t itself when that dim is not c_from entries or when the
+    two are equal (an operand of another width is left for the checks)."""
+    if t.shape[-1] != c_from or c_from == c_to:
+        return t
+    return F.pad(t, (0, c_to - c_from))
+
+
+def pad_conv_operands(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, packed: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The conv kernel's operands with C_in zero-padded to a multiple of
+    CHANNEL_ALIGN: x (B, C_in, H, W) in channels_last strides, a/b (B, C_in),
+    packed (C_out, 3, 3, C_in, or already padded). Each operand that has the
+    aligned width is returned as it is."""
+    c0 = x.shape[1]
+    c = aligned_channels(c0)
+    if c == c0:
+        return x, a, b, packed
+    x = pad_channels(x.permute(0, 2, 3, 1), c0, c).permute(0, 3, 1, 2)
+    return x, pad_channels(a, c0, c), pad_channels(b, c0, c), pad_channels(packed, c0, c)
+
+
+def pad_linear_operands(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight: torch.Tensor,
+                        lbias: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The linear kernel's operands with C_in and C_out zero-padded to
+    multiples of CHANNEL_ALIGN: x (B, S, C_in), a/b (B, C_in), weight
+    (C_out, C_in), lbias (C_out,). Each operand that has the aligned widths
+    is returned as it is."""
+    c0, n0 = x.shape[-1], weight.shape[0]
+    c, n = aligned_channels(c0), aligned_channels(n0)
+    if weight.shape[1] == c0 and (c, n) != (c0, n0):
+        weight = F.pad(weight, (0, c - c0, 0, n - n0))
+    return (pad_channels(x, c0, c), pad_channels(a, c0, c), pad_channels(b, c0, c), weight,
+            pad_channels(lbias, n0, n))
+
+
 def pack_conv_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """`nn.Conv2d`'s (C_out, C_in, 3, 3) weight as a contiguous
-    (C_out, 3, 3, C_in) tensor of `dtype`."""
-    return weight.detach().to(dtype).permute(0, 2, 3, 1).contiguous()
+    (C_out, 3, 3, C_in) tensor of `dtype`; a CUDA weight's C_in zero-padded
+    to a multiple of CHANNEL_ALIGN, the width the kernel reads."""
+    packed = weight.detach().to(dtype).permute(0, 2, 3, 1)
+    if weight.is_cuda:
+        c = packed.shape[-1]
+        packed = pad_channels(packed, c, aligned_channels(c))
+    return packed.contiguous()
 
 
 class PackedWeight:
-    """The packed copy of one conv weight, kept beside its module. `get`
-    rebuilds it when the parameter's storage, version counter, dtype or device
-    differ from those it was packed from, so `load_state_dict`, `.to()` and an
-    optimizer's in-place step cannot leave it stale."""
+    """The packed copy of one conv weight, kept beside its module (on the
+    card padded as `pack_conv_weight` says). `get` rebuilds it when the
+    parameter's storage, version counter, dtype or device differ from those
+    it was packed from, so `load_state_dict`, `.to()` and an optimizer's
+    in-place step cannot leave it stale."""
 
     def __init__(self):
         self._key = None
@@ -263,8 +321,6 @@ def conv_workspace(plan: SplitPlan, device: torch.device) -> Optional[torch.Tens
 
 
 def _check_operands(x, a, b, weight, w_shape, out_bias, cin, cout):
-    if cin % 8:
-        raise ValueError(f"the kernel takes C_in % 8 == 0, got {cin}")
     for name, t in (("a", a), ("b", b)):
         if t.shape != (x.shape[0], cin) or t.dtype != torch.float32 or t.device != x.device \
                 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -282,19 +338,23 @@ def _check_operands(x, a, b, weight, w_shape, out_bias, cin, cout):
 def norm_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, packed: torch.Tensor,
                  conv_bias: torch.Tensor, silu: bool) -> torch.Tensor:
     """The conv kernel's wrapper. x: (B, C_in, H, W) channels_last; a, b:
-    (B, C_in) f32; packed: (C_out, 3, 3, C_in) in x's dtype; conv_bias:
-    (C_out,) f32. Returns (B, C_out, H, W) channels_last. CPU tensors run
+    (B, C_in) f32; packed: (C_out, 3, 3, C_in) in x's dtype (on the card
+    also C_in padded, as `PackedWeight` keeps it); conv_bias: (C_out,) f32.
+    Returns (B, C_out, H, W) channels_last. CPU tensors run
     `norm_conv3x3_plain`; CUDA tensors launch norm_conv3x3 under
     `conv_plan` (counted in `.launches`), and with a split plan
-    `conv_split_reduce` after it, or raise."""
+    `conv_split_reduce` after it, or raise. A C_in that is no multiple of
+    CHANNEL_ALIGN is zero-padded first (`pad_conv_operands`)."""
     if x.device.type == "cpu":
         return norm_conv3x3_plain(x, a, b, packed, conv_bias, silu)
     build.require_cuda(x)
     if x.dim() != 4:
         raise ValueError("x must be (B, C, H, W)")
+    check_activation("x", x, channels_last=True)
+    if x.shape[1] % CHANNEL_ALIGN:
+        x, a, b, packed = pad_conv_operands(x, a, b, packed)
     bsz, cin, h, w = x.shape
     cout = packed.shape[0]
-    check_activation("x", x, channels_last=True)
     _check_operands(x, a, b, packed, (cout, 3, 3, cin), conv_bias, cin, cout)
     out = torch.empty((bsz, cout, h, w), device=x.device, dtype=x.dtype,
                       memory_format=torch.channels_last)
@@ -351,18 +411,21 @@ def norm_linear(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight: torch
     (B, C_in) f32; weight: (C_out, C_in) in x's dtype; lbias: (C_out,) f32.
     CPU tensors run `norm_linear_plain`; CUDA tensors launch norm_linear
     under `linear_plan` (counted in `.launches`), and with a split plan
-    `conv_split_reduce` after it, or raise."""
+    `conv_split_reduce` after it, or raise. A C_in or C_out that is no
+    multiple of CHANNEL_ALIGN is zero-padded first (`pad_linear_operands`)
+    and the result's padded channels are dropped."""
     if x.device.type == "cpu":
         return norm_linear_plain(x, a, b, weight, lbias)
     build.require_cuda(x)
     if x.dim() != 3:
         raise ValueError("x must be (B, S, C)")
+    check_activation("x", x, channels_last=False)
+    cout_given = weight.shape[0]
+    if x.shape[-1] % CHANNEL_ALIGN or cout_given % CHANNEL_ALIGN:
+        x, a, b, weight, lbias = pad_linear_operands(x, a, b, weight, lbias)
     bsz, s, cin = x.shape
     cout = weight.shape[0]
-    check_activation("x", x, channels_last=False)
     _check_operands(x, a, b, weight, (cout, cin), lbias, cin, cout)
-    if cout % 8:
-        raise ValueError(f"the kernel takes C_out % 8 == 0, got {cout}")
     out = torch.empty((bsz, s, cout), device=x.device, dtype=x.dtype)
     plan = linear_plan(bsz, s, cin, cout)
     ws = conv_workspace(plan, x.device)
@@ -372,7 +435,7 @@ def norm_linear(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, weight: torch
     norm_linear.launches += 1
     if ws is not None:
         conv_split_reduce(ws, lbias, out)
-    return out
+    return out if cout == cout_given else out[..., :cout_given].contiguous()
 
 
 norm_conv3x3.launches = 0

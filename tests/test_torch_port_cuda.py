@@ -17,6 +17,7 @@ from diffusion_pruning_tpu_torch.ops.flash_attention import (
     backward_plan,
     forward_kernel,
     forward_launches,
+    forward_plan,
     gated_attention_reference,
     gated_attention_reference_lse,
     gated_flash_attention,
@@ -71,24 +72,30 @@ def _f32_reference(fn, *args):
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-# S_q > 64 runs the wgmma kernel, S_q <= 64 the mma.sync one; S_kv = 77 (no
-# tile's multiple) at B = 3, so that a TMA box past S_kv must stay inside its
-# batch element
+# `forward_plan`: S_q <= 64 with S_kv <= 80 runs gated_flash_fwd_small (kv
+# tiles of 16, 64 and 80 rows), every other shape the 128-row wgmma kernel;
+# S_kv = 77 (no tile's multiple) at B = 3, so that a TMA box past S_kv must
+# stay inside its batch element; ragged S_q <= 64 at each tile's edge and
+# past 80
 @pytest.mark.parametrize("s_q,s_kv,h", [(1024, 1024, 5), (256, 77, 10), (16, 16, 20),
                                         (100, 77, 3), (4096, 4096, 1), (1024, 77, 5),
-                                        (64, 77, 20), (4096, 77, 5)])
+                                        (64, 77, 20), (4096, 77, 5), (64, 64, 20), (16, 77, 20),
+                                        (1, 1, 3), (40, 16, 20), (63, 77, 3), (64, 80, 3),
+                                        (40, 50, 20), (1, 77, 20), (64, 81, 3), (40, 200, 20)])
 def test_cuda_kernel_matches_plain_version(s_q, s_kv, h):
     """The bf16 kernel against the plain version in f32 (TF32 off) on the
     same bf16 inputs."""
-    q, k, v, gate = _inputs(3 if s_kv == 77 else 2, s_q, s_kv, h, seed=s_q + h)
+    b = 3 if s_kv == 77 else 2
+    q, k, v, gate = _inputs(b, s_q, s_kv, h, seed=s_q + h)
     before = gated_flash_attention.launches
-    kernel = forward_kernel(s_q)
+    kernel = forward_kernel(s_q, s_kv)
     before_kernel = forward_launches[kernel]
     out = gated_flash_attention(q, k, v, gate)
     torch.cuda.synchronize()
     assert gated_flash_attention.launches == before + 1
     assert forward_launches[kernel] == before_kernel + 1
-    assert kernel == ("gated_flash_fwd_wgmma" if s_q > 64 else "gated_flash_fwd")
+    assert kernel == forward_plan(b, h, s_q, s_kv).kernel == (
+        "gated_flash_fwd_small" if s_q <= 64 and s_kv <= 80 else "gated_flash_fwd_wgmma")
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -395,16 +402,53 @@ def test_cuda_fused_norm_wrappers_reject_what_the_kernels_do_not_take():
                              cbias, out)
     with pytest.raises(ValueError, match="does not hold"):
         nc.conv_split_reduce(torch.zeros(2, 100, 16, device="cuda"), cbias, out)
+    # C_in = 12 is zero-padded to 16 (the TMA row stride), the result unchanged
     x12 = x[:, :12].contiguous(memory_format=torch.channels_last)
-    with pytest.raises(ValueError, match="C_in % 8"):
-        nc.norm_conv3x3(x12, a[:, :12].contiguous(), a[:, :12].contiguous(),
-                        packed[..., :12].contiguous(), cbias, True)
+    a12, p12 = a[:, :12].contiguous(), (0.1 * torch.randn(16, 3, 3, 12, device="cuda",
+                                                          generator=g)).bfloat16()
+    out12 = nc.norm_conv3x3(x12, a12, a12, p12, cbias, True)
+    with _no_tf32():
+        ref12 = nc.norm_conv3x3_plain(x12.float(), a12, a12, p12.float(), cbias, True)
+    assert out12.shape == (2, 16, 8, 8)
+    assert per_sample_rel_l2(out12, ref12).max().item() <= NORM_REL_L2
     tokens = x.flatten(2).transpose(1, 2)[:, ::2]            # (B, S, C), rows strided
     weight = torch.zeros(64, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         nc.norm_linear(tokens, a, a, weight, torch.zeros(64, device="cuda"))
     with pytest.raises(ValueError, match="on cpu"):
         nc.norm_linear(tokens.contiguous(), a, a, weight.cpu(), torch.zeros(64, device="cuda"))
+
+
+# an expert's channel widths (C_in, groups): kept groups of C/32 ∈ {10, 20, 40}
+# channels; 90, 310 and 620 are padded to a multiple of 8 on the card, 1240 is not
+@pytest.mark.parametrize("c,groups", [(90, 9), (310, 31), (620, 31), (1240, 31)])
+@pytest.mark.parametrize("side", [16, 8])
+def test_cuda_fused_norm_ops_at_expert_channel_widths(c, groups, side):
+    """The fused conv and linear ops at an expert's channel widths (C_out =
+    C_in), B_eff 16, against their plain versions in f32 on the same bf16
+    inputs, per batch element; one launch of each kernel (and the
+    reduction where its plan splits K)."""
+    x, scale, bias, gate_c, g = _norm_inputs(16, c, side, side, seed=c + side, groups=groups)
+    weight = (torch.randn(c, c, 3, 3, device="cuda", generator=g) * (9 * c) ** -0.5).bfloat16()
+    cbias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    lweight = (torch.randn(c, c, device="cuda", generator=g) * c ** -0.5).bfloat16()
+    lbias = 0.1 * torch.randn(c, device="cuda", generator=g)
+    tokens = x.flatten(2).transpose(1, 2).contiguous()
+    before = (nc.norm_conv3x3.launches, nc.norm_linear.launches)
+    conv = nc.group_norm_silu_conv3x3(x, scale, bias, weight, cbias, gate_c, groups, 1e-5, True,
+                                      packed=nc.PackedWeight())
+    linear = nc.group_norm_linear(tokens, scale, bias, lweight, lbias, gate_c, groups, 1e-6)
+    torch.cuda.synchronize()
+    assert (nc.norm_conv3x3.launches, nc.norm_linear.launches) == (before[0] + 1, before[1] + 1)
+    with _no_tf32():
+        a, bb = nc.affine_coeffs(x, scale, bias, groups, 1e-5, gate_c)
+        conv_ref = nc.norm_conv3x3_plain(x.float(), a, bb, weight.float().permute(0, 2, 3, 1),
+                                         cbias, True)
+        a, bb = nc.affine_coeffs(tokens.transpose(1, 2), scale, bias, groups, 1e-6, gate_c)
+        linear_ref = nc.norm_linear_plain(tokens.float(), a, bb, lweight.float(), lbias)
+    assert conv.shape == conv_ref.shape and linear.shape == linear_ref.shape
+    assert per_sample_rel_l2(conv, conv_ref).max().item() <= NORM_REL_L2
+    assert per_sample_rel_l2(linear, linear_ref).max().item() <= NORM_REL_L2
 
 
 def test_cuda_fused_norm_functions_backpropagate_through_the_unfused_composition():
@@ -454,6 +498,12 @@ def _bwd_route(s_q, s_kv, h):
     return lambda: gated_flash_backward(q, k, v, gate, o, lse, do)
 
 
+def _fwd_route(s_q, s_kv, h):
+    q, k, v, gate = _inputs(16, s_q, s_kv, h, seed=12)
+    assert forward_plan(16, h, s_q, s_kv).kernel == "gated_flash_fwd_small"
+    return lambda: gated_flash_forward_lse(q, k, v, gate)
+
+
 def _conv_route(b, cin, cout, side):
     x, scale, bias, gate_c, g = _norm_inputs(b, cin, side, side, seed=5)
     weight = (torch.randn(cout, cin, 3, 3, device="cuda", generator=g) * (9 * cin) ** -0.5
@@ -475,10 +525,14 @@ def _linear_route(b, s, c):
     return lambda: (nc.norm_linear(x, a, bb, weight, lbias),)
 
 
-# every route of `backward_plan` (one pass at S_q > 64 unsplit and split, at
+# the S_q <= 64 forward with lse (kv tiles of 80, 16 and 64 rows), every
+# route of `backward_plan` (one pass at S_q > 64 unsplit and split, at
 # S_q <= 64; dq then dk/dv, with padded row stats at S_q = 200) and the split
 # workspaces of the conv and the linear
 POISON_ROUTES = {
+    "fwd_small_q_lse_64_77": (_fwd_route, (64, 77, 20)),
+    "fwd_small_q_lse_16_16": (_fwd_route, (16, 16, 20)),
+    "fwd_small_q_lse_40_50": (_fwd_route, (40, 50, 3)),
     "bwd_one_pass": (_bwd_route, (256, 77, 20)),
     "bwd_one_pass_split": (_bwd_route, (1024, 77, 5)),
     "bwd_one_pass_small_q": (_bwd_route, (64, 77, 20)),

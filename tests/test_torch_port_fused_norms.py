@@ -188,6 +188,63 @@ def test_group_norm_linear_matches_jax_kernel(gated):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
 
 
+# An expert keeps whole groups of the full model's C/32 ∈ {10, 20, 40} channels:
+# (C_in, groups) with C_in no multiple of 8 (31 of 10, 31 of 20, 9 of 10),
+# and 31 of 40 (aligned: the control that is not padded)
+EXPERT_CHANNELS = [(310, 31), (620, 31), (90, 9), (1240, 31)]
+
+
+@pytest.mark.parametrize("op", ["conv", "linear"])
+@pytest.mark.parametrize("c,groups", EXPERT_CHANNELS, ids=lambda v: str(v))
+def test_expert_channel_widths_pad_to_the_kernels_alignment(op, c, groups):
+    """At an expert's channel widths the fused ops match the JAX ops (Pallas
+    interpret mode), and the zero padding the card path applies
+    (`pad_conv_operands`, `pad_linear_operands`: C_in, and the linear's
+    C_out, up to a multiple of 8) leaves the kernels' plain versions
+    unchanged bit for bit; an aligned width is not copied."""
+    aligned = nc.aligned_channels(c)
+    # f32 sums of 9·C_in products (up to 11,160) in XLA's and oneDNN's
+    # orders: the rounding grows as the square root of the terms, from the
+    # file's F32_TOL at the 864 of its other conv tests
+    atol = F32_TOL * max(1.0, (9 * c / 864) ** 0.5)
+    assert aligned % 8 == 0 and 0 <= aligned - c < 8 and (aligned == c) == (c % 8 == 0)
+    if op == "conv":
+        a = _conv_args(c, 2, 4, 4, c, c, "soft")
+        want = np.asarray(_jax_conv(a, groups, 1e-5, True))
+        np.testing.assert_allclose(_nhwc(_torch_conv(a, groups, 1e-5, True)), want,
+                                   rtol=F32_TOL, atol=atol)
+        x = _nchw(a["x"], torch.bfloat16)
+        ab = nc.affine_coeffs(x, _t(a["scale"]), _t(a["bias"]), groups, 1e-5, _t(a["gate_c"]))
+        packed = nc.pack_conv_weight(_t(a["kernel"]).permute(3, 2, 0, 1), torch.bfloat16)
+        cbias = _t(a["cbias"])
+        operands = (x, *ab, packed)
+        padded = nc.pad_conv_operands(*operands)
+        assert padded[0].shape[1] == aligned and padded[3].shape[-1] == aligned
+        assert padded[0].is_contiguous(memory_format=torch.channels_last)
+        got = nc.norm_conv3x3_plain(*padded, cbias, True)
+        ref = nc.norm_conv3x3_plain(*operands, cbias, True)
+    else:
+        a = _linear_args(c, 2, 8, c, c, True)
+        args = (_t(a["scale"]), _t(a["bias"]))
+        want = jax_nc.group_norm_linear(jnp.asarray(a["x"]), jnp.asarray(a["scale"]),
+                                        jnp.asarray(a["bias"]), jnp.asarray(a["kernel"]),
+                                        jnp.asarray(a["lbias"]), jnp.asarray(a["gate_c"]),
+                                        groups, 1e-6, True)
+        port = nc.group_norm_linear(_t(a["x"]), *args, _t(a["kernel"]).T, _t(a["lbias"]),
+                                    _t(a["gate_c"]), groups, 1e-6)
+        np.testing.assert_allclose(port.numpy(), np.asarray(want), rtol=F32_TOL, atol=atol)
+        x = _t(a["x"], torch.bfloat16)
+        ab = nc.affine_coeffs(x.transpose(1, 2), *args, groups, 1e-6, _t(a["gate_c"]))
+        operands = (x, *ab, _t(a["kernel"], torch.bfloat16).T.contiguous(), _t(a["lbias"]))
+        padded = nc.pad_linear_operands(*operands)
+        assert padded[0].shape[-1] == aligned and padded[3].shape == (aligned, aligned)
+        assert padded[4].shape == (aligned,) and padded[0].is_contiguous()
+        got = nc.norm_linear_plain(*padded)[..., :c]
+        ref = nc.norm_linear_plain(*operands)
+    assert all((p is t) == (aligned == c) for p, t in zip(padded, operands))
+    assert torch.equal(got, ref)
+
+
 # ---------------------------------------------------------------- (b) gradients
 
 def _leaves(*arrays):

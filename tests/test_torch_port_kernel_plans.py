@@ -1,7 +1,10 @@
 """The conv kernel's plan (`conv_plan` in the port's ops/norm_conv.py), held on
 the CPU: which patch shape, output-channel tile and split over K the
 Hopper kernel `norm_conv3x3` runs each shape of the SD-2.1 U-Net with, and
-that a split plan computes the same function as the unsplit conv.
+that a split plan computes the same function as the unsplit conv. Below it,
+the same for the attention backward's plan (`backward_plan`), the forward's
+(`forward_plan`: kernel, kv tile, whole items per warpgroup, persistent
+grid), the linear's and the GroupNorm's.
 
 Pure torch on the CPU; no card, no JAX."""
 import dataclasses
@@ -307,6 +310,134 @@ def test_backward_wrappers_allocate_what_the_plan_states(monkeypatch, b, s_q, s_
         if gated:
             assert (tuple(part_q.shape), tuple(part_kv.shape)) == plan.dgate_parts
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+# ---------------------------------------------------------------- the forward's plan
+
+RAGGED_FORWARD = [(2, s_q, s_kv, h) for s_q in (1, 40, 63, 64, 65) for s_kv in (1, 16, 77, 80, 81, 200)
+                  for h in (3, 20)]
+FORWARD_CASES = ([(b, *s) for b in (16, 64) for s in SITES_256] + [(4, *s) for s in SITES_512]
+                 + RAGGED_FORWARD)
+
+
+def _forward_writes(plan):
+    """(block, warpgroup, b·h, first row, end row) of every run of query rows
+    a consumer warpgroup stores, by the kernels' index arithmetic
+    (gated_flash_fwd.cu): gated_flash_fwd_small's warpgroup wg takes its
+    block's items wg, wg + 2, … (w = blk + i·grid, one b·h each, rows
+    [0, S_q)); gated_flash_fwd_wgmma's work tile w = blk + i·grid is
+    (b·h = w / q_tiles, rows 128·(w % q_tiles) + 64·wg + [0, 64))."""
+    bh_items = plan.b * plan.h
+    if plan.kernel == "gated_flash_fwd_small":
+        for blk in range(plan.grid):
+            for wg in (0, 1):
+                for w in range(blk + wg * plan.grid, bh_items, 2 * plan.grid):
+                    yield blk, wg, w, 0, plan.s_q
+        return
+    q_tiles = -(-plan.s_q // fa.FWD_Q_ROWS)
+    for blk, w in _walk(plan.grid, bh_items * q_tiles):
+        bh, t = divmod(w, q_tiles)
+        for wg in (0, 1):
+            lo = t * fa.FWD_Q_ROWS + 64 * wg
+            if lo < plan.s_q:
+                yield blk, wg, bh, lo, min(lo + 64, plan.s_q)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", FORWARD_CASES)
+def test_forward_plan_writes_every_query_row_once(b, s_q, s_kv, h):
+    """Each (b·h, query row) is stored by exactly one warpgroup's item."""
+    plan = fa.forward_plan(b, h, s_q, s_kv)
+    writes = list(_forward_writes(plan))
+    _runs_partition([(bh, lo, hi) for _, _, bh, lo, hi in writes], s_q, b * h)
+    owners = {}
+    for blk, wg, bh, lo, _ in writes:
+        owners.setdefault((bh, lo), set()).add((blk, wg))
+    assert all(len(v) == 1 for v in owners.values())
+    if plan.kernel == "gated_flash_fwd_small":  # whole items: one warpgroup a b·h
+        assert len(writes) == b * h
+        per_wg = {}
+        for blk, wg, *_ in writes:
+            per_wg[blk, wg] = per_wg.get((blk, wg), 0) + 1
+        assert max(per_wg.values()) == plan.items_per_warpgroup
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", FORWARD_CASES)
+def test_forward_plan_takes_one_kv_tile_exactly_where_s_kv_fits_80(b, s_q, s_kv, h):
+    """The one-tile route (a kv tile of at most 80 rows that holds S_kv: no
+    online rescale) exactly where S_kv <= 80, 128-row tiles and the online
+    softmax above; the S_q <= 64 kernel there with the least of its tiles
+    that holds S_kv and 64-row items, the 128-row kernel elsewhere."""
+    plan = fa.forward_plan(b, h, s_q, s_kv)
+    assert (plan.kv_tile <= fa.FWD_ONE_TILE_KV) == (s_kv <= fa.FWD_ONE_TILE_KV)
+    assert plan.kv_tiles == 1 or s_kv > fa.FWD_ONE_TILE_KV
+    assert plan.kv_tile * plan.kv_tiles >= s_kv > plan.kv_tile * (plan.kv_tiles - 1)
+    small = s_q <= fa.SMALL_Q_ROWS and s_kv <= fa.FWD_ONE_TILE_KV
+    assert plan.kernel == ("gated_flash_fwd_small" if small else "gated_flash_fwd_wgmma")
+    assert plan.kernel == fa.forward_kernel(s_q, s_kv)
+    if small:
+        assert plan.q_rows == fa.SMALL_Q_ROWS and plan.q_tiles == 1
+        assert plan.kv_tile == min(t for t in fa.FWD_SMALL_TILES if t >= s_kv)
+    else:
+        assert plan.q_rows == fa.FWD_Q_ROWS
+        assert plan.kv_tile == (fa.FWD_ONE_TILE_KV if s_kv <= fa.FWD_ONE_TILE_KV
+                                else fa.FWD_KV_ROWS)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", FORWARD_CASES)
+def test_forward_plan_grid_never_exceeds_the_items(b, s_q, s_kv, h):
+    """A persistent grid of at most the items: two blocks a SM for the S_q <= 64
+    kernel (one item set in flight per warpgroup), one a SM for the 128-row
+    kernel."""
+    plan = fa.forward_plan(b, h, s_q, s_kv)
+    assert 1 <= plan.grid <= plan.items == b * h * plan.q_tiles
+    if plan.kernel == "gated_flash_fwd_small":
+        assert plan.grid == min(plan.items, 2 * fa.SM_COUNT)
+        assert plan.launch_args == (plan.kv_tile, plan.grid)
+    else:
+        assert plan.grid == min(plan.items, fa.SM_COUNT)
+        assert plan.launch_args == (plan.grid,)
+
+
+def test_forward_plan_at_the_unet_sites():
+    """B_eff 16: the 12 sites of the 64- and 16-token blocks run the S_q <= 64
+    kernel with kv tiles of 64, 80, 16 and 80 rows, each of the 320 items a
+    warpgroup of its own; the 20 sites with S_q > 64 the 128-row kernel."""
+    plans = {(s_q, s_kv): fa.forward_plan(16, h, s_q, s_kv) for s_q, s_kv, h in SITES_256}
+    small = {k: p.kv_tile for k, p in plans.items() if p.kernel == "gated_flash_fwd_small"}
+    assert small == {(64, 64): 64, (64, 77): 80, (16, 16): 16, (16, 77): 80}
+    assert all(plans[k].items_per_warpgroup == 1 and plans[k].grid == 264 for k in small)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", [(16, 64, 77, 20), (64, 16, 16, 20), (4, 1024, 77, 5),
+                                          (2, 40, 200, 3), (3, 1, 1, 3), (2, 65, 77, 20)])
+@pytest.mark.parametrize("lse", [False, True])
+def test_forward_wrappers_allocate_what_the_plan_states(monkeypatch, b, s_q, s_kv, h, lse):
+    """Both forward wrappers launch the plan's kernel with the plan's kv
+    tile and grid, and allocate o like q and lse (B·H, S_q) f32
+    (meta tensors, the launches recorded, not run)."""
+    calls = []
+
+    def launch(name, device, *args):
+        calls.append((name, args))
+
+    monkeypatch.setattr(fa, "_device", lambda t: None)
+    monkeypatch.setattr(fa.build, "launch", launch)
+    q = torch.empty(b, s_q, h, 64, device="meta", dtype=torch.bfloat16)
+    k, v = (torch.empty(b, s_kv, h, 64, device="meta", dtype=torch.bfloat16) for _ in range(2))
+    gate = torch.empty(b, h, device="meta")
+    plan = fa.forward_plan(b, h, s_q, s_kv)
+    before = dict(fa.forward_launches)
+    if lse:
+        o, lse_out = fa.gated_flash_forward_lse(q, k, v, gate)
+        assert lse_out.shape == (b * h, s_q) and lse_out.dtype == torch.float32
+    else:
+        o = fa.gated_flash_attention(q, k, v, gate)
+    assert o.shape == q.shape and o.dtype == q.dtype
+    (name, args), = calls
+    assert name == plan.kernel and len(args) == len(fa.build.SIGNATURES[name][1]) - 1
+    assert args[6:10] == (b, h, s_q, s_kv) and args[10:-1] == plan.launch_args
+    assert args[-1] == pytest.approx(64 ** -0.5 * 1.4426950408889634)
+    assert fa.forward_launches[name] == before[name] + 1
 
 
 # ---------------------------------------------------------------- the linear's plan
