@@ -96,8 +96,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   over K at five shapes of the small maps and the linear's
                   at three (the plans' rule); the conv and the linear at an
                   expert's channel widths (C_in 90, 310, 620: zero-padded to
-                  a multiple of 8 on the card; 1240 aligned), per batch
-                  element <= FUSED_REL_L2; then every route of
+                  a multiple of 8 on the card; 1240 aligned), and
+                  group_norm_silu at an expert's norm2 widths (C, G) = (90,
+                  9), (170, 17), (310, 31), (620, 31), (1240, 31), with and
+                  without SiLU, at B_eff 8 and 16, per batch element <=
+                  FUSED_REL_L2; then every route of
                   `backward_plan`, the S_q <= 64 forward with lse and the
                   conv's and the linear's split workspaces run twice with
                   NaN in the allocator's free blocks and in every buffer the
@@ -120,8 +123,28 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   U-Net's d loss / d arch per gate site against the unfused
                   U-Net's (with the fused conv op's gate gradient dropped, a
                   planted fault, the resnet sites must read below the limit);
+ 12. expert serving — K = 8 physically pruned experts of the routed pipeline
+                  (`ExpertServer.from_codebook`, bf16) cut from a seeded
+                  codebook (units kept with p = 0.6, the odd-numbered codes
+                  closing 2-4 depth gates): per expert its MACs ratio,
+                  parameter bytes, dropped subblocks and kept heads at the
+                  1024-token sites; each expert's forward at B_eff 8 through
+                  the kernels, cut from weights whose resnet norm2 biases are
+                  zeroed, against the dense U-Net in f32 with plain attention
+                  under the expert's code (<= UNET_REL_L2; the planted fault
+                  `heads_from_the_front` above it), under each fused flag
+                  (<= FUSED_UNET_REL_L2), with its launches per forward (2 a
+                  kept transformer) and its kernels' device time over the
+                  forward's sites; then 16 prompts at 256px, DDIM-25, CFG
+                  7.5, in two submits of 8 through a `ServingQueue`: `flush`
+                  (experts) and `flush_async` (hybrid) and the gated
+                  pipeline, in turns for two rounds (request ids, slot
+                  accounting, finite images in [0, 1]; img/s of each); one
+                  request of 2 prompts under PNDM and under DPM++; one expert
+                  flush under torch.profiler;
 then a `kernels` JSON line (every kernel of the paths, each with its
-launches in the runs of phases 5, 8 and 11) and, last, the device JSON line.
+launches in the runs of phases 5, 8, 11 and 12) and, last, the device JSON
+line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
 are captured into a CUDA graph whose replay is timed (`device_ms`); they run
@@ -1731,7 +1754,52 @@ def check_expert_channels(device):
             if launched != want:
                 fail(f"expected {want} launches at an expert's channel width, got {launched}")
             rows.append(row)
+    rows += check_expert_group_norm(device, gen)
     torch.cuda.empty_cache()
+    return rows
+
+
+# the GroupNorm of an expert's resnet norm2 (C, groups, map side at 256px):
+# kept groups of C/32 ∈ {10, 20, 40} channels, an odd count; at C/G = 10 and 20
+# no window of whole groups makes a multiple of 8 channels, so `group_norm_plan`
+# takes one group a block with 4- or 8-byte loads over rows of 2·C bytes
+GN_EXPERT_CHANNELS = ((90, 9, 32), (170, 17, 32), (310, 31, 32), (620, 31, 16), (1240, 31, 8))
+
+
+def check_expert_group_norm(device, gen):
+    """group_norm_silu at an expert's norm2 widths, with and without SiLU, at
+    B_eff 8 and 16, a hard-closed group in every row (variance 0), against
+    its plain version in f32 on the same bf16 input per batch element
+    (<= FUSED_REL_L2); one launch each."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import group_norm as gn
+    rows = []
+    for c, groups, side in GN_EXPERT_CHANNELS:
+        for b in (8, FUSED_B):
+            x, scale, bias, gates = fused_inputs(b, c, side, side, gen, groups)
+            x = (x * gates["hard"][:, :, None, None].bfloat16()).contiguous(
+                memory_format=torch.channels_last)
+            plan = gn.group_norm_plan(b, side * side, c, groups)
+            for silu, eps in ((True, 1e-5), (False, 1e-6)):
+                before = launch_counts()
+                out = gn.group_norm_silu(x, scale, bias, groups, eps, silu)
+                torch.cuda.synchronize()
+                launched = {k: v - before[k] for k, v in launch_counts().items()
+                            if v != before[k]}
+                ref = gn.group_norm_silu_plain(x.float(), scale, bias, groups, eps, silu)
+                row = {"phase": "expert_channels", "kernel": "group_norm_silu", "b": b, "c": c,
+                       "groups": groups, "h": side, "w": side, "silu": silu,
+                       "rel_l2": per_sample_rel_l2(out, ref).max().item(),
+                       "max_abs_err": (out.float() - ref).abs().max().item(),
+                       "plan": {"window": plan.window, "vec": plan.vec, "cluster": plan.cluster,
+                                "one_read": plan.one_read, "threads": plan.threads},
+                       "launches": launched, "limit": FUSED_REL_L2}
+                emit(row)
+                if not (row["rel_l2"] <= FUSED_REL_L2 and bool(torch.isfinite(out).all())):
+                    fail(f"group_norm_silu disagrees at an expert's channel width: {row}")
+                if launched != {"group_norm_silu": 1}:
+                    fail(f"expected one group_norm_silu launch, got {launched}")
+                rows.append(row)
     return rows
 
 
@@ -2397,10 +2465,556 @@ def train_fused(pipe, twins, device, gen):
     return summary
 
 
-def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches):
+# ---------------------------------------------------------------- phase 12
+
+EXPERT_KEEP = 0.6          # the share of width units each code keeps
+EXPERT_B_EFF = 8           # the expert forwards of the check: 4 prompts under CFG
+# prompts the served traffic routes to each of the 8 experts, in two submits
+# of 8: every expert serves, and the tier plans (batch_size 4) take every
+# tier shape: 4 and a tail of 1, a padded 4 (3 prompts), 2 and 1
+EXPERT_COUNTS = (5, 3, 1, 2, 1, 1, 2, 1)
+EXPERT_PROMPTS = sum(EXPERT_COUNTS)
+EXPERT_ROUNDS = 2          # timed rounds of expert, hybrid and gated serving, in turns
+# a served image against the same prompt run alone, with the same initial
+# latents, through its expert's pipe (or, a hybrid remainder, through the
+# gated pipe under its code): relative L2 per image. Set from the readings,
+# between the sound rows' and the planted fault's (another row's image;
+# PERF.md)
+SERVED_REL_L2 = 5e-2
+FUSED_TIMED_EXPERTS = 2    # experts whose forward under each fused flag is also timed
+
+
+def expert_codebook(quantizer, spec):
+    """Codes from the seed into the quantizer's `embedding_gs` snapshot (soft
+    values on either side of 0.5): each width unit kept with p = EXPERT_KEEP,
+    the first unit of each site always; the odd-numbered codes close 2-4
+    depth gates. Returns the hard codes (K, vq_dim) on the quantizer's device."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 30)
+    k, nw = quantizer.n_e, spec.num_width
+    codes = (torch.rand(k, spec.vq_dim, generator=gen) < EXPERT_KEEP).float()
+    for sb in spec.subblocks:
+        for site in sb.sites:
+            codes[:, site.start] = 1.0
+    codes[:, nw:] = 1.0
+    for e in range(1, k, 2):
+        n = int(torch.randint(2, 5, (1,), generator=gen))
+        codes[e, nw + torch.randperm(spec.num_depth, generator=gen)[:n]] = 0.0
+    codes = codes.to(quantizer.embedding_gs.device)
+    quantizer.embedding_gs.copy_(torch.where(codes >= 0.5, 0.8, 0.2))
+    return codes
+
+
+def site_tokens(cfg, name: str) -> int:
+    """Tokens of an attention subblock's self-attention ('down.0.attn.1', …)."""
+    parts = name.split(".")
+    level = {"down": lambda: int(parts[1]), "up": lambda: cfg.num_levels - 1 - int(parts[1]),
+             "mid": lambda: cfg.num_levels - 1}[parts[0]]()
+    return (cfg.sample_size >> level) ** 2
+
+
+def expert_summary(server, dense_unet):
+    """Per expert: MACs ratio, parameter bytes (all, and those it does not
+    share with the dense U-Net), dropped subblocks, kept heads (attn1,
+    attn2) at the 1024-token sites."""
+    dense_ptrs = {p.data_ptr() for p in dense_unet.parameters()}
+    rows = []
+    for e, model in enumerate(server.expert_models):
+        plan = model.plan
+        params = list(model.parameters())
+        rows.append({
+            "phase": "expert", "expert": e, "macs_ratio": server.expert_ratios[e],
+            "param_bytes": sum(p.numel() * p.element_size() for p in params),
+            "param_bytes_own": sum(p.numel() * p.element_size() for p in params
+                                   if p.data_ptr() not in dense_ptrs),
+            "dropped": [sb.name for sb in plan.subblocks if sb.dropped],
+            "kept_heads_1024_tokens": {
+                sb.name: [len(sb.site("attn1").kept), len(sb.site("attn2").kept)]
+                for sb in plan.subblocks if sb.kind == "transformer" and not sb.dropped
+                and site_tokens(dense_unet.cfg, sb.name) == 1024}})
+        emit(rows[-1])
+    heads = {len(site.kept) for m in server.expert_models for sb in m.plan.subblocks
+             if sb.kind == "transformer" and not sb.dropped for site in sb.sites[:2]}
+    if not ({h % 2 for h in heads} == {0, 1}):
+        fail(f"the codes keep no odd and even head counts at an attention site: {heads}")
+    return rows
+
+
+def heads_from_the_front(plan):
+    """A planted fault: the plan with each attention site's kept heads taken
+    as the first len(kept) heads instead of the kept ones."""
+    subs = []
+    for sb in plan.subblocks:
+        sites = tuple(dataclasses.replace(site, kept=tuple(range(len(site.kept))))
+                      if site.kind in ("attn1", "attn2") else site for site in sb.sites)
+        subs.append(dataclasses.replace(sb, sites=sites))
+    return dataclasses.replace(plan, subblocks=tuple(subs))
+
+
+OWN_KERNELS = ("gated_flash_fwd_wgmma", "gated_flash_fwd_small", "group_norm_silu",
+               "norm_conv3x3", "norm_linear", "conv_split_reduce")
+
+
+def own_kernel_ms(fn):
+    """Device ms of each of the port's kernels in one call of `fn`, summed
+    over its launches, and of every kernel of the call (`all_kernels`):
+    torch.profiler's kernel times, no host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"all_kernels": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        out["all_kernels"] += us / 1e3
+        for name in OWN_KERNELS:
+            if f"{name}_kernel" in e.key:
+                out[name] = out.get(name, 0.0) + us / 1e3
+    return out
+
+
+def mean_ms(maps):
+    """{name: mean over `maps` of its value (0 where a map lacks it)}."""
+    names = sorted({k for m in maps for k in m})
+    return {k: statistics.mean(m.get(k, 0.0) for m in maps) for k in names}
+
+
+def check_experts(server, unet, codes, device):
+    """Phase 12's check: each expert's bf16 forward through the kernels at
+    B_eff 8 — cut from the dense weights with every resnet norm2 bias zeroed —
+    against the dense U-Net in f32 with plain attention under the expert's
+    hard code (<= UNET_REL_L2), the planted fault `heads_from_the_front` above
+    it, the same forward under each fused flag, launches per forward, and
+    forward times against the gated U-Net's; the port's kernels' device time
+    in one forward (`own_kernel_ms`), each expert's and the gated U-Net's.
+    Then each served expert (`server.expert_models`, bf16, through the
+    kernels): its plan is its code's, and its forward agrees with the same
+    cut of the dense weights in f32 with plain attention (<= UNET_REL_L2)."""
+    import copy
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.pruned import (
+        make_expert_plan, slice_expert_params)
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import build_expert
+
+    cfg = unet.cfg
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    b = EXPERT_B_EFF
+    x = torch.randn(b, cfg.sample_size, cfg.sample_size, 4, device=device, generator=gen)
+    t = torch.randint(0, 1000, (b,), device=device, generator=gen)
+    ehs = torch.randn(b, 77, cfg.cross_attention_dim, device=device, generator=gen)
+    zeroed = {k: (torch.zeros_like(v) if k.endswith("norm2.bias") and ".resnets." in k else v)
+              for k, v in unet.state_dict().items()}
+    f32 = copy.deepcopy(unet).float()
+    f32.load_state_dict(zeroed)
+
+    def forward(model, arch=None, profiled=True):
+        """One forward: output, the launches it made (every counter), and
+        (`profiled`) the kernels' device ms in a second forward."""
+        reset_launch_counts()
+        out = model(x, t, ehs, arch=arch).float()
+        counts = launch_counts()
+        ms = own_kernel_ms(lambda: model(x, t, ehs, arch=arch)) if profiled else None
+        return out, counts, ms
+
+    rows = []
+    with torch.inference_mode():
+        _, dense_counts, dense_ms = forward(unet, codes[:1])
+        gated_fwd_ms = time_ms(lambda: unet(x, t, ehs, arch=codes[:1]), 10)
+        for e, served in enumerate(server.expert_models):
+            plan = served.plan
+            expert = build_expert(cfg, plan, slice_expert_params(zeroed, plan))
+            with unet_attention(fa.gated_attention_reference):
+                ref = f32(x, t, ehs, arch=codes[e: e + 1]).float()
+            out, counts, kernel_ms = forward(expert)
+            if plan != make_expert_plan(unet.spec, (codes[e] >= 0.5).cpu().numpy()):
+                fail(f"served expert {e}'s plan is not its code's")
+            cut = {k: v.float() for k, v in slice_expert_params(unet.state_dict(), plan).items()}
+            with unet_attention(fa.gated_attention_reference):
+                served_ref = build_expert(cfg, plan, cut)(x, t, ehs).float()
+            served_out = served(x, t, ehs).float()
+            del cut
+            faulty = heads_from_the_front(plan)
+            bad = build_expert(cfg, faulty, slice_expert_params(zeroed, faulty))(x, t, ehs).float()
+            kept_res = sum(1 for sb in plan.subblocks if sb.kind == "resnet" and not sb.dropped)
+            kept_tf = sum(1 for sb in plan.subblocks if sb.kind == "transformer" and not sb.dropped)
+            want = {"gated_flash_fwd": 2 * kept_tf}
+            fused = {}
+            timed = e < FUSED_TIMED_EXPERTS
+            for flag, want_flag in (("fused_norms", {"group_norm_silu": 2 * kept_res + kept_tf}),
+                                    ("fused_norm_conv", {"norm_conv3x3": 2 * kept_res + 1,
+                                                         "norm_linear": kept_tf})):
+                twin = build_expert(dataclasses.replace(cfg, **{flag: True}), plan,
+                                    expert.state_dict())
+                f_out, f_counts, f_ms = forward(twin, profiled=timed)
+                fused[flag] = {"rel_l2": ((f_out - ref).norm() / ref.norm()).item(),
+                               "launches_per_forward": {k: v for k, v in f_counts.items() if v},
+                               "finite": bool(torch.isfinite(f_out).all())}
+                if timed:
+                    fused[flag].update(kernel_device_ms=f_ms,
+                                       forward_ms=time_ms(lambda: twin(x, t, ehs), 5))
+                want_all = {**want_flag, **want}
+                if wrapper_counts(f_counts) != {k: want_all.get(k, 0) for k in kernel_wrappers()}:
+                    fail(f"expert {e} under {flag}: expected {want_all} launches per forward, "
+                         f"got {f_counts}")
+                del twin
+            row = {"phase": "expert_check", "expert": e, "b_eff": b,
+                   "rel_l2": ((out - ref).norm() / ref.norm()).item(), "limit": UNET_REL_L2,
+                   "rel_l2_planted_fault_heads_from_the_front":
+                       ((bad - ref).norm() / ref.norm()).item(),
+                   "served_rel_l2": ((served_out - served_ref).norm() / served_ref.norm()).item(),
+                   "served_finite": bool(torch.isfinite(served_out).all()),
+                   "finite": bool(torch.isfinite(out).all()),
+                   "kept_resnets": kept_res, "kept_transformers": kept_tf,
+                   "launches_per_forward": {k: v for k, v in counts.items() if v},
+                   "kernel_device_ms": kernel_ms,
+                   "forward_ms": time_ms(lambda: expert(x, t, ehs), 10),
+                   "gated_forward_ms": gated_fwd_ms, "fused": fused}
+            emit(row)
+            if not row["finite"] or not row["rel_l2"] <= UNET_REL_L2:
+                fail(f"expert {e} disagrees with the f32 dense U-Net under its code: {row}")
+            if not row["rel_l2_planted_fault_heads_from_the_front"] > UNET_REL_L2:
+                fail(f"expert {e}: the planted fault reads within the limit: {row}")
+            if not row["served_finite"] or not row["served_rel_l2"] <= UNET_REL_L2:
+                fail(f"served expert {e} disagrees with its cut in f32: {row}")
+            if wrapper_counts(counts) != {k: want.get(k, 0) for k in kernel_wrappers()}:
+                fail(f"expert {e}: expected {want} launches per forward, got {counts}")
+            for flag, r in fused.items():
+                if not r["finite"] or not r["rel_l2"] <= FUSED_UNET_REL_L2:
+                    fail(f"expert {e} under {flag} disagrees with the f32 dense U-Net: {r}")
+            rows.append(row)
+            del expert, out, ref, bad, served_out, served_ref
+        del f32
+    torch.cuda.empty_cache()
+    summary = {"phase": "expert_check_summary", "b_eff": b, "experts": len(rows),
+               "rel_l2_worst": max(r["rel_l2"] for r in rows),
+               "served_rel_l2_worst": max(r["served_rel_l2"] for r in rows),
+               "planted_fault_least": min(r["rel_l2_planted_fault_heads_from_the_front"]
+                                          for r in rows),
+               "fused_rel_l2_worst": {flag: max(r["fused"][flag]["rel_l2"] for r in rows)
+                                      for flag in ("fused_norms", "fused_norm_conv")},
+               "forward_ms": [r["forward_ms"] for r in rows], "gated_forward_ms": gated_fwd_ms,
+               "device_ms": [r["kernel_device_ms"]["all_kernels"] for r in rows],
+               "gated_device_ms": dense_ms["all_kernels"],
+               "attention_device_ms": [sum(v for k, v in r["kernel_device_ms"].items()
+                                           if k.startswith("gated_flash")) for r in rows],
+               "gated_attention_device_ms": sum(v for k, v in dense_ms.items()
+                                                if k.startswith("gated_flash")),
+               "dense_launches_per_forward": {k: v for k, v in dense_counts.items() if v},
+               # each kernel's device ms over one forward's sites: the mean over
+               # the experts (under a fused flag over the timed ones), the gated U-Net's
+               "kernel_device_ms_mean": mean_ms([r["kernel_device_ms"] for r in rows]),
+               "fused_kernel_device_ms_mean": {
+                   flag: mean_ms([r["fused"][flag]["kernel_device_ms"] for r in rows
+                                  if "kernel_device_ms" in r["fused"][flag]])
+                   for flag in ("fused_norms", "fused_norm_conv")},
+               "gated_kernel_device_ms": dense_ms}
+    emit(summary)
+    return rows, summary
+
+
+def steering_noise(quantizer, codes, experts):
+    """Routing noise (N, vq_dim) that sends prompt i to expert experts[i]:
+    gumbel noise of +-1e3 saturates every gate to that expert's hard code,
+    whose cosine to its own snapshot row is then the highest."""
+    import torch
+    nw, nd = quantizer.spec.num_width, quantizer.spec.num_depth
+    noise = 1e3 * (2 * codes[experts.to(codes.device)] - 1)
+    # the depth samples are ranked: depth slot order[i] takes the i-th sample
+    order = quantizer.depth_order if quantizer.depth_order is not None else range(nd)
+    noise[:, nw:] = noise[:, nw + torch.as_tensor([i % nd for i in order])]
+    return noise
+
+
+def expert_requests(device, mpnet, pipe, codes):
+    """EXPERT_PROMPTS prompts from the seed: CLIP ids, negative ids, MPNet
+    features (the router's input), the routing noise that sends
+    EXPERT_COUNTS[e] of them, shuffled, to expert e (`experts`), and their
+    initial latents."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.text_encoders import mean_pool
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    n = EXPERT_PROMPTS
+    ids = torch.randint(0, 49408, (n, 77), device=device, generator=gen)
+    neg = torch.randint(0, 49408, (n, 77), device=device, generator=gen)
+    mp_ids = torch.randint(0, 30527, (n, 128), device=device, generator=gen)
+    lengths = torch.randint(8, 129, (n, 1), device=device, generator=gen)
+    mask = (torch.arange(128, device=device)[None, :] < lengths).long()
+    cfg = pipe.unet.cfg
+    latents = torch.randn(n, cfg.sample_size, cfg.sample_size, cfg.in_channels, device=device,
+                          generator=gen)
+    with torch.inference_mode():
+        feats = mean_pool(mpnet(mp_ids, mask), mask)
+    experts = torch.repeat_interleave(torch.arange(len(EXPERT_COUNTS)),
+                                      torch.as_tensor(EXPERT_COUNTS))
+    experts = experts[torch.randperm(n, generator=torch.Generator().manual_seed(SEED + 36))]
+    return {"ids": ids, "neg": neg, "feats": feats, "latents": latents, "experts": experts,
+            "noise": steering_noise(pipe.quantizer, codes, experts)}
+
+
+def tier_plans(server, pending, hybrid):
+    """The tiers a flush of `pending` ({expert: prompts}) runs, as
+    {expert or "pooled": [(tier, prompts), ...]}: each expert's tier plan,
+    or under hybrid its full largest tiers plus one pooled plan over all
+    remainders."""
+    plan = lambda n: server.plan_batches(n, server.batch_shapes)  # noqa: E731
+    size = server.batch_size
+    plans = {str(e): plan(n // size * size if hybrid else n) for e, n in sorted(pending.items())}
+    plans = {e: p for e, p in plans.items() if p}
+    rest = sum(n % size for n in pending.values())
+    if hybrid and rest:
+        plans["pooled"] = plan(rest)
+    return plans
+
+
+def serve_queue(server, requests, hybrid):
+    """The prompts through a ServingQueue in two submits of 8, with their
+    routing noise and initial latents, then `flush` (expert mode) or
+    `flush_async` (hybrid); checks the routing, the request ids, the slot
+    accounting and the images. Returns the row and the images (N, H, W, 3)
+    on the host."""
+    import torch
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import ServingQueue
+    queue = ServingQueue(server, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                         hybrid=hybrid)
+    half = EXPERT_PROMPTS // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [rid for lo in (0, half) for rid in queue.submit(
+        requests["ids"][lo: lo + half], requests["neg"][lo: lo + half],
+        hyper_net_input=requests["feats"][lo: lo + half],
+        route_noise=requests["noise"][lo: lo + half],
+        latents=requests["latents"][lo: lo + half])]
+    pending = queue.pending_per_expert()
+    results = queue.flush_async().result(timeout=600) if hybrid else queue.flush()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    images = torch.stack([results[r] for r in sorted(results)]) if results else None
+    tiers = tier_plans(server, pending, hybrid)
+    row = {"phase": "serving_experts", "mode": "hybrid" if hybrid else "experts",
+           "prompts": EXPERT_PROMPTS, "resolution": 256, "steps": STEPS, "guidance": GUIDANCE,
+           "seconds": seconds, "images_per_sec": EXPERT_PROMPTS / seconds,
+           "pending_per_expert": {str(k): v for k, v in sorted(pending.items())},
+           "tiers": tiers, "slots_used": queue.last_slots_used,
+           "slots_planned": sum(t for p in tiers.values() for t, _ in p),
+           "image_min": float(images.min()), "image_max": float(images.max())}
+    emit(row)
+    if pending != dict(enumerate(EXPERT_COUNTS)):
+        fail(f"the routing noise did not send {EXPERT_COUNTS} prompts to the experts: {pending}")
+    if rids != list(range(EXPERT_PROMPTS)) or sorted(results) != rids:
+        fail(f"requests lost or duplicated: submitted {rids}, got {sorted(results)}")
+    if queue.pending_per_expert():
+        fail(f"the queue did not drain every prompt: {queue.pending_per_expert()}")
+    if row["slots_used"] != row["slots_planned"]:
+        fail(f"slots used differ from the tier plans: {row}")
+    if tuple(images.shape) != (EXPERT_PROMPTS, 256, 256, 3) or not bool(
+            torch.isfinite(images).all()) or row["image_min"] < 0 or row["image_max"] > 1:
+        fail(f"expert serving images not finite in [0, 1] of shape (16, 256, 256, 3): {row}")
+    return row, images
+
+
+def checked_rows(requests, hybrid):
+    """The served rows held against a run alone, as (row, gated): in expert
+    mode each expert's last prompt (its tail tier) and expert 0's first (a
+    full tier); under hybrid expert 0's first (its full tier, through the
+    expert) and the last prompt of experts 0, 3 and 7 (pooled remainders,
+    through the gated U-Net under their codes)."""
+    experts = requests["experts"].tolist()
+    rows = {e: [r for r, x in enumerate(experts) if x == e] for e in range(len(EXPERT_COUNTS))}
+    if not hybrid:
+        return [(rows[0][0], False)] + [(rows[e][-1], False) for e in sorted(rows)]
+    return [(rows[0][0], False)] + [(rows[e][-1], True) for e in (0, 3, 7)]
+
+
+def check_served_images(server, requests, images, hybrid):
+    """Each checked row's served image against the same prompt run alone,
+    with the same initial latents, through `server.expert_pipe(e)` or (a
+    hybrid remainder) the gated pipe under expert e's code: relative L2 <=
+    SERVED_REL_L2, and the planted fault (each row's image held against the
+    next checked row's run) above it."""
+    import torch
+    from diffusion_pruning_tpu_torch.core.estimators import hard_concrete
+    base = server.base_pipeline
+    codes = hard_concrete(base.quantizer.embedding_gs.float())
+    checked = checked_rows(requests, hybrid)
+    alone = []
+    for r, gated in checked:
+        e = int(requests["experts"][r])
+        pipe = base if gated else server.expert_pipe(e)
+        pe = base.encode_prompt(requests["ids"][r: r + 1])
+        ne = base.encode_prompt(requests["neg"][r: r + 1])
+        lat = pipe.denoise(None, pe, ne, codes[e: e + 1] if gated else None, STEPS, GUIDANCE,
+                           latents=requests["latents"][r: r + 1])
+        alone.append(pipe.decode(lat)[0].cpu())
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    errs = [rel(images[r], ref) for (r, _), ref in zip(checked, alone)]
+    swapped = [rel(images[r], alone[(i + 1) % len(alone)]) for i, (r, _) in enumerate(checked)]
+    row = {"phase": "serving_experts_check", "mode": "hybrid" if hybrid else "experts",
+           "rows": [[r, int(requests["experts"][r]), "gated" if g else "expert"]
+                    for r, g in checked],
+           "rel_l2": errs, "limit": SERVED_REL_L2,
+           "rel_l2_planted_fault_next_rows_image": swapped}
+    emit(row)
+    if not max(errs) <= SERVED_REL_L2:
+        fail(f"served images disagree with the prompts run alone: {row}")
+    if not min(swapped) > SERVED_REL_L2:
+        fail(f"the planted fault reads within the limit: {row}")
+    return row
+
+
+def serve_gated(pipe, requests):
+    """The same prompts (routing noise, initial latents) through the gated
+    routed pipeline in one call."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images, _, _ = pipe(requests["ids"], requests["neg"], hyper_net_input=requests["feats"],
+                        num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                        latents=requests["latents"], route_noise=requests["noise"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    row = {"phase": "serving_experts", "mode": "gated", "prompts": EXPERT_PROMPTS,
+           "resolution": 256, "seconds": seconds, "images_per_sec": EXPERT_PROMPTS / seconds}
+    emit(row)
+    if not bool(torch.isfinite(images).all()) or images.min() < 0 or images.max() > 1:
+        fail(f"gated serving images not finite in [0, 1]: {row}")
+    return row
+
+
+def serve_samplers(pipe, requests, device):
+    """One 256px request of 2 prompts through the routed pipeline under each
+    of the other samplers: finite images in [0, 1], 32 attention launches a
+    model evaluation."""
+    import torch
+    from diffusion_pruning_tpu_torch.pipelines import PruningPipeline
+    ids, neg, feats = requests["ids"], requests["neg"], requests["feats"]
+    rows = []
+    for name in ("pndm", "dpm++"):
+        routed = PruningPipeline(pipe.unet, pipe.vae, pipe.text_encoder, pipe.hypernet,
+                                 pipe.quantizer, device=device, sampler=name)
+        evals = len(routed._sampler().timesteps(STEPS))
+        gen = torch.Generator(device=device).manual_seed(SEED + 33)
+        before = launch_counts()["gated_flash_fwd"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, indices, _ = routed(ids[:2], neg[:2], gen, hyper_net_input=feats[:2],
+                                    num_inference_steps=STEPS, guidance_scale=GUIDANCE)
+        torch.cuda.synchronize()
+        row = {"phase": "serving_sampler", "sampler": name, "prompts": 2, "resolution": 256,
+               "steps": STEPS, "model_evaluations": evals,
+               "seconds": time.perf_counter() - t0,
+               "launches": launch_counts()["gated_flash_fwd"] - before,
+               "expert_indices": indices.tolist(),
+               "image_min": float(images.min()), "image_max": float(images.max())}
+        emit(row)
+        if tuple(images.shape) != (2, 256, 256, 3) or not bool(torch.isfinite(images).all()) \
+                or row["image_min"] < 0 or row["image_max"] > 1:
+            fail(f"{name}: images not finite in [0, 1]: {row}")
+        if row["launches"] != 32 * evals:
+            fail(f"{name}: expected {32 * evals} attention launches, got {row['launches']}")
+        rows.append(row)
+    return rows
+
+
+def profile_expert_flush(server, requests):
+    """One expert-mode flush of the prompts under torch.profiler: device
+    kernel time by category and the device's busy share. Only the device's
+    activity is recorded: the host's op events of a whole flush slow it
+    and take minutes to reduce."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_queue(server, requests, False)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    row = {"phase": "profile_experts", "mode": "experts", "prompts": EXPERT_PROMPTS,
+           "wall_ms": wall_ms, **device_kernel_times(prof, wall_ms)}
+    emit(row)
+    return row
+
+
+def serve_experts(pipe, mpnet, unet, device):
+    """Phase 12: K = 8 experts cut from a seeded codebook, checked against the
+    f32 dense U-Net, then served: two rounds of expert, hybrid and gated
+    serving of the same 16 prompts (routed to every expert), in turns (every
+    launch count set to 0 before the first and read after the last), the
+    first round's served images held against each prompt run alone, the
+    PNDM and DPM++ requests and one profiled expert flush."""
+    import torch
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import ExpertServer
+
+    parts = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    codes = expert_codebook(pipe.quantizer, unet.spec)
+    server = ExpertServer.from_codebook(pipe, unet.spec, unet.cfg, batch_size=4,
+                                        param_dtype=torch.bfloat16)
+    lap("materialise")
+    expert_summary(server, unet)
+    check_rows, check = check_experts(server, unet, codes, device)
+    lap("expert_check")
+    torch.backends.cudnn.allow_tf32 = True  # serving as phase 5 serves
+    warm = server.warmup(STEPS, GUIDANCE, hybrid=True)
+    lap("warmup")
+    requests = expert_requests(device, mpnet, pipe, codes)
+    seconds = {"experts": [], "hybrid": [], "gated": []}
+    served, tiers = {}, {}
+    reset_launch_counts()
+    for _ in range(EXPERT_ROUNDS):
+        for mode, hybrid in (("experts", False), ("hybrid", True)):
+            row, images = serve_queue(server, requests, hybrid)
+            seconds[mode].append(row["seconds"])
+            served.setdefault(mode, images)
+            tiers[mode] = row["tiers"]
+        seconds["gated"].append(serve_gated(pipe, requests)["seconds"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lap("serving")
+    served_checks = {mode: check_served_images(server, requests, served[mode], mode == "hybrid")
+                     for mode in ("experts", "hybrid")}
+    lap("served_image_check")
+    samplers = serve_samplers(pipe, requests, device)
+    lap("samplers")
+    profiled = profile_expert_flush(server, requests)
+    lap("profiled_flush")
+    torch.backends.cudnn.allow_tf32 = False
+    summary = {"phase": "serving_experts_summary", "experts": len(server.expert_models),
+               "seconds_by_part": parts, "warmup": warm,
+               "prompts_per_expert": list(EXPERT_COUNTS), "tiers": tiers,
+               "seconds": seconds,
+               "img_per_sec": {k: EXPERT_PROMPTS / statistics.mean(v)
+                               for k, v in seconds.items()},
+               "launches": {k: v for k, v in counts.items() if v},
+               "served_rel_l2_worst": {k: max(r["rel_l2"]) for k, r in served_checks.items()},
+               "served_planted_fault_least": {
+                   k: min(r["rel_l2_planted_fault_next_rows_image"])
+                   for k, r in served_checks.items()},
+               "profiled_flush_busy_share": profiled["device_busy_share"],
+               "sampler_seconds": {r["sampler"]: r["seconds"] for r in samplers},
+               "expert_forward_ms_b8": check["forward_ms"],
+               "gated_forward_ms_b8": check["gated_forward_ms"],
+               "expert_forward_device_ms_b8": check["device_ms"],
+               "gated_forward_device_ms_b8": check["gated_device_ms"]}
+    emit(summary)
+    return summary, counts, check
+
+
+def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
+                  expert_counts, expert_check):
     """One forward kernel's line: its share of the phase-3 sites (by
     `forward_kernel`) and of the phase-7 training sites, its launches in the
-    serving and train-step runs."""
+    serving, train-step and expert-serving runs, its device time over one
+    expert forward's sites (phase 12)."""
     from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
     mine = [r for r in rows if r["kernel"] == name]
     mine_train = [r for r in train_rows if forward_kernel(r["s_q"], r["s_kv"]) == name]
@@ -2410,7 +3024,8 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
     ops = sum(r["bound_ms"] * r["sites_per_256px_forward"] for r in mine
               if r["bound_by"] == "operations")
     key = f"kernel:{name}"
-    by_path = {"serving": serve_counts[key], "train_step": train_launches[key]}
+    by_path = {"serving": serve_counts[key], "train_step": train_launches[key],
+               "serving_experts": expert_counts[key]}
     small = name == "gated_flash_fwd_small"
     return {
         "name": name, "route": "cuda",
@@ -2429,6 +3044,8 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
         "library_call": "F.scaled_dot_product_attention of pre-masked q/k/v",
         "shapes": "its attention sites of one SD-2.1 U-Net forward at 256px, B_eff 16, bf16, "
                   "soft gates",
+        "expert_path": expert_path_entry(expert_check["kernel_device_ms_mean"], name,
+                                         expert_check["gated_kernel_device_ms"]),
         "training_forward": {**training_entry(mine_train, "fwd_lse", "fwd_lse_plain_ms",
                                               "fwd_lse_library_ms"),
                              "lse_max_abs_err": train_check["worst"]["lse_max_abs"],
@@ -2437,9 +3054,21 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
     }
 
 
-def fused_kernel_entry(check, name, source, replaces, also, library_call, launches_by_path):
+def expert_path_entry(expert_ms, name, gated_ms=None):
+    """A kernel's device ms over the sites of one expert forward (256px,
+    B_eff 8, kept widths; the mean over the experts), beside the gated
+    U-Net's where measured."""
+    return {"ms_per_forward_mean_over_experts": expert_ms.get(name, 0.0),
+            **({"gated_ms_per_forward": gated_ms.get(name, 0.0)} if gated_ms else {}),
+            "shapes": "the sites of one expert forward at 256px, B_eff 8 (torch.profiler "
+                      "kernel times, phase 12)"}
+
+
+def fused_kernel_entry(check, name, source, replaces, also, library_call, launches_by_path,
+                       expert_ms):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "also_replaces": also, "launches": sum(launches_by_path.values()),
+            "expert_path": expert_path_entry(expert_ms, name),
             "launches_by_path": launches_by_path, **check.entry(),
             **({"identity_tap_silu": check.identity_tap} if hasattr(check, "identity_tap") else {}),
             "least_planted_fault_rel_l2": check.least_fault, "library_call": library_call,
@@ -2718,20 +3347,30 @@ def main() -> None:
     fused_train = train_fused(pipe, twins, device, gen)
     log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
 
+    # 12. expert serving: the VAE and CLIP, which phase 11's train steps turned
+    # to bf16, serve in f32 again
+    t0 = time.perf_counter()
+    pipe.vae.float()
+    pipe.text_encoder.float()
+    expert_serving, expert_counts, expert_check = serve_experts(pipe, mpnet, unet, device)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f}s")
+
     # kernels line: inference times summed over the sites of one 256px
     # forward (B_eff 16) that each forward kernel serves (`forward_plan`),
     # training times over the sites of one student pass of the train step
     # (B = 64)
     train_launches = train_summary["launches"]
     forward_entries = [
-        forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches)
+        forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
+                      expert_counts, expert_check)
         for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd_small")]
     kernels = [*forward_entries,
                *backward_entries(train_rows, train_check, train_launches), fused_kernel_entry(
         fused_checks["group_norm_silu"], "group_norm_silu",
         "diffusion_pruning_tpu_torch/csrc/group_norm.cu",
         "diffusion_pruning_tpu/ops/group_norm.py:26", [], "F.group_norm, then F.silu",
-        {"serving_fused_norms": counts_gn["group_norm_silu"]}),
+        {"serving_fused_norms": counts_gn["group_norm_silu"]},
+        expert_check["fused_kernel_device_ms_mean"]["fused_norms"]),
         fused_kernel_entry(
         fused_checks["norm_conv3x3"], "norm_conv3x3",
         "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
@@ -2739,13 +3378,15 @@ def main() -> None:
         ["diffusion_pruning_tpu/ops/norm_conv.py:140"],
         "gate multiply, F.group_norm, F.silu, F.conv2d (channels_last, bf16)",
         {"serving_fused_norm_conv": counts_nc["norm_conv3x3"],
-         "train_fused_norm_conv": fused_train["launches"]["norm_conv3x3"]}),
+         "train_fused_norm_conv": fused_train["launches"]["norm_conv3x3"]},
+        expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"]),
         fused_kernel_entry(
         fused_checks["norm_linear"], "norm_linear",
         "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
         "diffusion_pruning_tpu/ops/norm_conv.py:279", [], "F.group_norm, then F.linear",
         {"serving_fused_norm_conv": counts_nc["norm_linear"],
-         "train_fused_norm_conv": fused_train["launches"]["norm_linear"]}),
+         "train_fused_norm_conv": fused_train["launches"]["norm_linear"]},
+        expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"]),
         {"name": "conv_split_reduce", "route": "cuda",
          "source": "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
          "replaces": "diffusion_pruning_tpu/ops/norm_conv.py:98",
@@ -2757,6 +3398,8 @@ def main() -> None:
                               "train_fused_norm_conv":
                                   fused_train["launches"]["conv_split_reduce"]},
          **split_reduce_entry(fused_checks["norm_conv3x3"]),
+         "expert_path": expert_path_entry(
+             expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"], "conv_split_reduce"),
          "shapes": "the split conv sites of one SD-2.1 U-Net forward at 256px, B_eff 16"},
     ]
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
@@ -2768,7 +3411,10 @@ def main() -> None:
         f"{train_summary['seconds_per_step_median_warm']:.4f} s "
         f"({train_summary['samples_per_sec']:.2f} samples/s); under fused_norm_conv "
         f"{fused_serving['img_per_sec']['fused_norm_conv']:.4f} img/s against "
-        f"{fused_serving['img_per_sec']['unfused']:.4f} in turns")
+        f"{fused_serving['img_per_sec']['unfused']:.4f} in turns; 16 prompts by experts "
+        f"{expert_serving['img_per_sec']['experts']:.4f} img/s, hybrid "
+        f"{expert_serving['img_per_sec']['hybrid']:.4f}, gated "
+        f"{expert_serving['img_per_sec']['gated']:.4f} in turns")
     # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,6 +5,8 @@ multiplied per head by the same soft gate before scaled-dot-product attention
 (so soft gates scale the logits by g² and the output by g), and the GEGLU
 feed-forward gates both of its halves. Attribute names follow diffusers'
 `BasicTransformerBlock` state dict (`attn1.to_q`, `ff.net.0.proj`, ...).
+`active_heads` and `active_inner` build a physically pruned expert's
+projections: only the kept heads (of the dense head size) and GEGLU units.
 """
 from __future__ import annotations
 
@@ -25,19 +27,22 @@ class GatedAttention(nn.Module):
     attention runs through `gated_flash_attention`: the inference kernel, or
     under autograd the training forward and backward kernels, with the gate
     kept f32 and differentiable (their plain versions for CPU tensors);
-    otherwise through the plain masked path."""
+    otherwise through the plain masked path. `active_heads` < heads keeps
+    that many heads of the dense head size `dim // heads`: q, k and v emit
+    only them and to_out takes them; the output stays `dim` wide."""
 
     def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, active_heads: Optional[int] = None):
         super().__init__()
-        self.heads = heads
         self.head_dim = dim // heads
+        self.heads = active_heads if active_heads is not None else heads
         self.use_flash = use_flash
         ctx = context_dim or dim
-        self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_k = nn.Linear(ctx, dim, bias=False)
-        self.to_v = nn.Linear(ctx, dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+        inner = self.heads * self.head_dim
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx, inner, bias=False)
+        self.to_v = nn.Linear(ctx, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
 
     def forward(self, x, context=None, gate=None):
         b, s, _ = x.shape
@@ -72,11 +77,13 @@ class GatedGEGLU(nn.Module):
 
 
 class GatedFeedForward(nn.Module):
-    def __init__(self, dim: int, mult: int = 4):
+    """`active_inner` < dim·mult keeps that many GEGLU units (an expert's)."""
+
+    def __init__(self, dim: int, mult: int = 4, active_inner: Optional[int] = None):
         super().__init__()
+        inner = active_inner if active_inner is not None else dim * mult
         # diffusers layout: net.0 = GEGLU, net.1 = dropout, net.2 = out proj
-        self.net = nn.ModuleList([GatedGEGLU(dim, dim * mult), nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+        self.net = nn.ModuleList([GatedGEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
 
     def forward(self, x, gate=None):
         return self.net[2](self.net[0](x, gate))
@@ -85,14 +92,16 @@ class GatedFeedForward(nn.Module):
 class GatedTransformerBlock(nn.Module):
     """Pre-LN transformer block: self-attn, cross-attn, gated GEGLU FF."""
 
-    def __init__(self, dim: int, heads: int, context_dim: int, use_flash: bool = False):
+    def __init__(self, dim: int, heads: int, context_dim: int, use_flash: bool = False,
+                 active_heads1: Optional[int] = None, active_heads2: Optional[int] = None,
+                 active_ff_inner: Optional[int] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = GatedAttention(dim, heads, None, use_flash)
+        self.attn1 = GatedAttention(dim, heads, None, use_flash, active_heads1)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = GatedAttention(dim, heads, context_dim, use_flash)
+        self.attn2 = GatedAttention(dim, heads, context_dim, use_flash, active_heads2)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = GatedFeedForward(dim)
+        self.ff = GatedFeedForward(dim, active_inner=active_ff_inner)
 
     def forward(self, x, context, gate_attn1=None, gate_attn2=None, gate_ff=None):
         x = x + self.attn1(self.norm1(x), None, gate_attn1)

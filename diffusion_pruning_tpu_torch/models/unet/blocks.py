@@ -11,7 +11,10 @@ Gate placement follows the JAX package's `models/unet/blocks.py`:
 Attribute names follow diffusers (`norm1`, `conv1`, `time_emb_proj`,
 `proj_in`, `transformer_blocks.0`, ...). The fused paths (`fused_norms`,
 `fused_norm_conv`) read the same `nn.GroupNorm`/`nn.Conv2d`/`nn.Linear`
-parameters, so the state dict does not depend on the flags.
+parameters, so the state dict does not depend on the flags. A physically
+pruned expert's blocks take their kept widths (`hidden_channels` of a
+resnet, `active_*` of a transformer) and run the same ops, fused or not, at
+those widths.
 """
 from __future__ import annotations
 
@@ -48,19 +51,24 @@ def norm_silu_conv(x, norm: nn.GroupNorm, conv: nn.Conv2d, gate, fused_norms: bo
 
 
 class GatedResnetBlock(nn.Module):
-    """SD resnet block with an optional grouped width gate and depth gate."""
+    """SD resnet block with an optional grouped width gate and depth gate.
+    `hidden_channels` builds an expert's block: conv1, time_emb_proj and
+    norm2 emit only the kept groups (a kept unit is one norm2 group of
+    out_channels // groups channels), and conv2 maps them back to
+    `out_channels`."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: int,
                  groups: int = 32, eps: float = 1e-5, fused_norms: bool = False,
-                 fused_norm_conv: bool = False):
+                 fused_norm_conv: bool = False, hidden_channels: Optional[int] = None):
         super().__init__()
+        hidden = hidden_channels or out_channels
         self.fused = (fused_norms, fused_norm_conv)
         self._packed = (PackedWeight(), PackedWeight())
         self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_channels, out_channels)
-        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv1 = nn.Conv2d(in_channels, hidden, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_channels, hidden)
+        self.norm2 = nn.GroupNorm(hidden // (out_channels // groups), hidden, eps=eps)
+        self.conv2 = nn.Conv2d(hidden, out_channels, 3, padding=1)
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
                               if in_channels != out_channels else None)
 
@@ -84,13 +92,15 @@ class GatedTransformer2D(nn.Module):
 
     def __init__(self, channels: int, heads: int, context_dim: int, groups: int = 32,
                  use_flash: bool = False, fused_norms: bool = False,
-                 fused_norm_conv: bool = False):
+                 fused_norm_conv: bool = False, active_heads1: Optional[int] = None,
+                 active_heads2: Optional[int] = None, active_ff_inner: Optional[int] = None):
         super().__init__()
         self.fused_norms, self.fused_norm_conv = fused_norms, fused_norm_conv
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList([
-            GatedTransformerBlock(channels, heads, context_dim, use_flash)])
+            GatedTransformerBlock(channels, heads, context_dim, use_flash, active_heads1,
+                                  active_heads2, active_ff_inner)])
         self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x, context, gates: Optional[Tuple] = None, depth_gate=None):

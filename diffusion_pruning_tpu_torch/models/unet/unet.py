@@ -9,6 +9,12 @@ on logical NCHW tensors inside: contiguous by default, converted once to
 `fused_norm_conv`, whose kernels read that layout (every later op keeps it).
 Module names follow diffusers' `UNet2DConditionModel` state dict, so a
 diffusers checkpoint loads without a key map.
+
+With `plan` (an `ExpertPlan`, `models/unet/pruned.py`) the same class builds
+a physically pruned expert: every subblock at its kept widths, and a dropped
+subblock left out (a `None` in its block's list, so that the kept modules
+keep their diffusers indices and `slice_expert_params` of the dense state
+dict gives exactly the expert's keys). An expert runs without an arch.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from diffusion_pruning_tpu_torch.models.unet.blocks import (
     norm_silu_conv,
 )
 from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+from diffusion_pruning_tpu_torch.models.unet.pruned import ExpertPlan
 from diffusion_pruning_tpu_torch.ops.gates import match_batch
 from diffusion_pruning_tpu_torch.ops.norm_conv import PackedWeight
 
@@ -88,7 +95,8 @@ class _TimeEmbedding(nn.Module):
 
 
 class _Block(nn.Module):
-    """A down/up block: resnets, optional attentions, optional resampler."""
+    """A down/up block: resnets, optional attentions, optional resampler; a
+    subblock an expert drops is None."""
 
     def __init__(self, resnets, attentions=None, downsample=None, upsample=None):
         super().__init__()
@@ -102,23 +110,37 @@ class _Block(nn.Module):
 
 
 class GatedUNet(nn.Module):
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, plan: Optional[ExpertPlan] = None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         self.spec = build_structure(cfg)
         b0 = cfg.block_out_channels[0]
         temb = cfg.time_embed_dim
         g = cfg.norm_num_groups
         L = cfg.num_levels
+        kept = plan.by_name if plan is not None else {}
 
-        def resnet(cin, cout):
+        def resnet(cin, cout, name):
+            p = kept.get(name)
+            if p is not None and p.dropped:
+                return None
+            keep = p.sites[0] if p is not None else None
             return GatedResnetBlock(cin, cout, temb, g, cfg.norm_eps, cfg.fused_norms,
-                                    cfg.fused_norm_conv)
+                                    cfg.fused_norm_conv, keep and keep.kept_channels)
 
-        def transformer(c, heads):
+        def transformer(c, heads, name):
+            p = kept.get(name)
+            if p is not None and p.dropped:
+                return None
+            active = (None, None, None)
+            if p is not None:
+                ff = p.site("ff")
+                active = (len(p.site("attn1").kept), len(p.site("attn2").kept),
+                          ff and ff.kept_channels)
             return GatedTransformer2D(c, heads, cfg.cross_attention_dim, g,
                                       cfg.use_flash_attention, cfg.fused_norms,
-                                      cfg.fused_norm_conv)
+                                      cfg.fused_norm_conv, *active)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = _TimeEmbedding(b0, temb)
@@ -130,11 +152,11 @@ class GatedUNet(nn.Module):
             out = cfg.block_out_channels[i]
             cross = block_type.startswith("CrossAttn")
             resnets, attns = [], []
-            for _ in range(cfg.layers_per_block):
-                resnets.append(resnet(ch, out))
+            for j in range(cfg.layers_per_block):
+                resnets.append(resnet(ch, out, f"down.{i}.resnet.{j}"))
                 ch = out
                 if cross:
-                    attns.append(transformer(out, cfg.heads_at(i)))
+                    attns.append(transformer(out, cfg.heads_at(i), f"down.{i}.attn.{j}"))
                 skips.append(ch)
             down = Downsample(ch) if i < L - 1 else None
             if down is not None:
@@ -142,8 +164,9 @@ class GatedUNet(nn.Module):
             self.down_blocks.append(_Block(resnets, attns if cross else None, downsample=down))
 
         mid = cfg.block_out_channels[-1]
-        self.mid_block = _Block([resnet(mid, mid), resnet(mid, mid)],
-                                [transformer(mid, cfg.heads_at(L - 1))])
+        self.mid_block = _Block([resnet(mid, mid, "mid.resnet.0"),
+                                 resnet(mid, mid, "mid.resnet.1")],
+                                [transformer(mid, cfg.heads_at(L - 1), "mid.attn.0")])
 
         rev = list(reversed(cfg.block_out_channels))
         self.up_blocks = nn.ModuleList()
@@ -151,11 +174,11 @@ class GatedUNet(nn.Module):
             out = rev[i]
             cross = block_type.startswith("CrossAttn")
             resnets, attns = [], []
-            for _ in range(cfg.layers_per_block + 1):
-                resnets.append(resnet(ch + skips.pop(), out))
+            for j in range(cfg.layers_per_block + 1):
+                resnets.append(resnet(ch + skips.pop(), out, f"up.{i}.resnet.{j}"))
                 ch = out
                 if cross:
-                    attns.append(transformer(out, cfg.heads_at(L - 1 - i)))
+                    attns.append(transformer(out, cfg.heads_at(L - 1 - i), f"up.{i}.attn.{j}"))
             up = Upsample(ch) if i < L - 1 else None
             self.up_blocks.append(_Block(resnets, attns if cross else None, upsample=up))
 
@@ -173,13 +196,18 @@ class GatedUNet(nn.Module):
                 encoder_hidden_states: torch.Tensor,
                 arch: Optional[torch.Tensor] = None, return_features: bool = False):
         """sample: (B, H, W, C_in) latents; timesteps: (B,); encoder_hidden_states:
-        (B, 77, cross_dim); arch: (B or B/2 under CFG, vq_dim) or None.
+        (B, 77, cross_dim); arch: (B or B/2 under CFG, vq_dim) or None
+        (always None for an expert, whose kept widths do not fit the dense
+        gate layout).
         Returns (B, H, W, C_out) in the weights' dtype; with `return_features`
         also the block-distillation features {"d0".., "m", "u0"..}, NHWC: the
         hidden state after each down level, after the mid block and after
         each up level."""
         cfg, spec = self.cfg, self.spec
         dtype = self.conv_in.weight.dtype
+        if arch is not None and self.plan is not None:
+            raise ValueError("an expert U-Net (built with a plan) runs without an arch: its "
+                             "kept widths do not fit the dense gate layout")
         if arch is not None:
             if arch.shape[-1] != spec.vq_dim:
                 raise ValueError(
@@ -202,9 +230,10 @@ class GatedUNet(nn.Module):
         for i, block in enumerate(self.down_blocks):
             cross = hasattr(block, "attentions")
             for j, res in enumerate(block.resnets):
-                wg, dg = gates.resnet(f"down.{i}.resnet.{j}")
-                h = call(res, h, temb, wg, dg)
-                if cross:
+                if res is not None:
+                    wg, dg = gates.resnet(f"down.{i}.resnet.{j}")
+                    h = call(res, h, temb, wg, dg)
+                if cross and block.attentions[j] is not None:
                     tg, tdg = gates.transformer(f"down.{i}.attn.{j}")
                     h = call(block.attentions[j], h, ehs, tg, tdg)
                 res_stack.append(h)
@@ -224,11 +253,13 @@ class GatedUNet(nn.Module):
         for i, block in enumerate(self.up_blocks):
             cross = hasattr(block, "attentions")
             for j, res in enumerate(block.resnets):
-                identity = h
-                h = torch.cat([h, res_stack.pop()], dim=1)
-                wg, dg = gates.resnet(f"up.{i}.resnet.{j}")
-                h = call(res, h, temb, wg, dg, identity)
-                if cross:
+                skip = res_stack.pop()  # a dropped resnet's skip is discarded
+                if res is not None:
+                    identity = h
+                    h = torch.cat([h, skip], dim=1)
+                    wg, dg = gates.resnet(f"up.{i}.resnet.{j}")
+                    h = call(res, h, temb, wg, dg, identity)
+                if cross and block.attentions[j] is not None:
                     tg, tdg = gates.transformer(f"up.{i}.attn.{j}")
                     h = call(block.attentions[j], h, ehs, tg, tdg)
             if hasattr(block, "upsamplers"):

@@ -1,0 +1,410 @@
+"""Expert-dispatch serving: route prompts to physically pruned experts.
+
+The port's copy of the JAX package's `pipelines/expert_server.py`. The router
+assigns each prompt to a codebook expert, prompts are grouped per expert, and
+each group runs through that expert's materialised U-Net
+(`models/unet/pruned.py`), which computes only the kept channels, heads and
+units instead of masking them.
+
+Tiered batching: an expert runs one of a few power-of-two batch shapes (1, 2,
+…, batch_size); a group of n prompts is covered by the largest tiers <= n and
+one padded tail tier, so padding stays below the smallest tier that covers
+the tail. `ServingQueue` adds continuous batching across `submit()` calls:
+pending prompts accumulate per expert and `flush()` drains them at the tier
+shapes. Hybrid dispatch sends only full largest-tier batches through experts
+and pools every remainder into one gated batch with per-prompt archs.
+
+Randomness: routing takes the quantizer's gumbel noise (`route_noise`, as
+`PruningPipeline.route` does), and initial latents are either given per
+prompt row or drawn from one `torch.Generator`, tier by tier in dispatch
+order.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from concurrent.futures import Future
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from diffusion_pruning_tpu_torch.core.estimators import hard_concrete
+from diffusion_pruning_tpu_torch.core.structure import StructureSpec
+from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+from diffusion_pruning_tpu_torch.models.unet.pruned import (
+    ExpertPlan,
+    expert_macs_ratio,
+    make_expert_plan,
+    slice_expert_params,
+)
+from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+from diffusion_pruning_tpu_torch.pipelines.pruning_pipeline import PruningPipeline
+
+_NOT_PORTED = ("is not ported: the port's counterpart of the JAX package's AOT programs "
+               "is captured CUDA graphs (ROADMAP A1)")
+
+# (tier size, padded rows) -> the tier's initial latents
+LatentSource = Callable[[int, np.ndarray], torch.Tensor]
+
+
+def build_expert(cfg: UNetConfig, plan: ExpertPlan, state_dict: Dict[str, torch.Tensor]
+                 ) -> GatedUNet:
+    """The expert U-Net of `plan` holding exactly the tensors of
+    `state_dict` (no copy, no random init: the modules are built on the meta
+    device and the tensors assigned), in eval mode."""
+    with torch.device("meta"):
+        model = GatedUNet(cfg, plan=plan)
+    model.load_state_dict(state_dict, strict=True, assign=True)
+    return model.eval().requires_grad_(False)
+
+
+@dataclasses.dataclass
+class ExpertServer:
+    """K materialised experts and the router, behind one `generate()` call."""
+    base_pipeline: PruningPipeline          # router, VAE, text encoder, gated U-Net
+    expert_models: List[GatedUNet]
+    expert_ratios: List[float]
+    batch_size: int = 4
+
+    @classmethod
+    def from_codebook(cls, pipeline: PruningPipeline, spec: StructureSpec, cfg: UNetConfig,
+                      expert_weights: Optional[Sequence[Optional[Dict[str, torch.Tensor]]]] = None,
+                      batch_size: int = 4, param_dtype: Optional[torch.dtype] = None
+                      ) -> "ExpertServer":
+        """Materialise every codebook entry as a pruned expert, cut from the
+        `embedding_gs` snapshot at >= 0.5 (the realisation the router assigns
+        against). Weights are slices of the pipeline's dense U-Net, or the
+        per-expert state dicts of `expert_weights` (the stage-2 output) where
+        given; `param_dtype` casts each expert once (outside
+        `torch.inference_mode`, so the copies keep their version counters). A
+        leaf an expert does not cut shares the dense U-Net's storage when the
+        dtype is unchanged."""
+        codes = (pipeline.quantizer.embedding_gs.float() >= 0.5).float().cpu().numpy()
+        dense = pipeline.unet.state_dict()
+        models, ratios = [], []
+        for e in range(codes.shape[0]):
+            plan = make_expert_plan(spec, codes[e])
+            if expert_weights is not None and expert_weights[e] is not None:
+                sd = dict(expert_weights[e])
+            else:
+                sd = slice_expert_params(dense, plan)
+            with torch.inference_mode(False):
+                sd = {k: v.to(pipeline.device, param_dtype) for k, v in sd.items()}
+            models.append(build_expert(cfg, plan, sd))
+            ratios.append(expert_macs_ratio(spec, plan))
+        return cls(pipeline, models, ratios, batch_size)
+
+    # ------------------------------------------------------------------
+
+    @property
+    def batch_shapes(self) -> Tuple[int, ...]:
+        """Power-of-two tier sizes up to batch_size (ascending)."""
+        shapes, s = [], 1
+        while s < self.batch_size:
+            shapes.append(s)
+            s *= 2
+        shapes.append(self.batch_size)
+        return tuple(shapes)
+
+    @staticmethod
+    def plan_batches(n: int, shapes: Sequence[int]) -> List[Tuple[int, int]]:
+        """Cover n prompts with tier batches: greedy largest-tier-first, then
+        one padded tail tier. Returns [(tier_size, real_count), ...] with
+        sum(real_count) == n."""
+        plan: List[Tuple[int, int]] = []
+        biggest = shapes[-1]
+        while n >= biggest:
+            plan.append((biggest, biggest))
+            n -= biggest
+        if n > 0:
+            plan.append((next(s for s in shapes if s >= n), n))
+        return plan
+
+    def expert_pipe(self, e: int) -> PruningPipeline:
+        """The base pipeline with expert e's U-Net in place of the gated one."""
+        return self.base_pipeline.with_unet(self.expert_models[e])
+
+    def _latent_shape(self) -> Tuple[int, int, int]:
+        cfg = self.base_pipeline.unet.cfg
+        return cfg.sample_size, cfg.sample_size, cfg.in_channels
+
+    @torch.inference_mode()
+    def warmup(self, num_inference_steps: int = 25, guidance_scale: float = 7.5,
+               hybrid: bool = False, aot_dir: Optional[str] = None, decode: bool = True,
+               parallel: int = 1) -> dict:
+        """Run one U-Net forward of every (expert, tier) — and of the gated
+        U-Net per tier under `hybrid` — and one VAE decode per tier, before
+        traffic arrives: that builds the kernels and packs the fused ops'
+        weights. `num_inference_steps` does not change what is run. Returns
+        {"loaded": 0, "built": n}, n the (U-Net, tier) pairs run."""
+        if aot_dir is not None:
+            raise NotImplementedError(f"warmup(aot_dir=...) {_NOT_PORTED}")
+        if parallel > 1:
+            raise NotImplementedError(f"warmup(parallel > 1) {_NOT_PORTED}")
+        base = self.base_pipeline
+        cfg = base.unet.cfg
+        device = base.device
+        factor = 2 if guidance_scale > 1.0 else 1
+        unets = [(m, None) for m in self.expert_models]
+        if hybrid:
+            codes = hard_concrete(base.quantizer.embedding_gs.float())
+            unets.append((base.unet, codes[:1]))
+        built = 0
+        for t in self.batch_shapes:
+            x = torch.zeros((factor * t, *self._latent_shape()), device=device)
+            steps = torch.full((factor * t,), 1, dtype=torch.long, device=device)
+            ehs = torch.zeros((factor * t, cfg.max_text_len, cfg.cross_attention_dim),
+                              device=device)
+            for unet, arch in unets:
+                unet(x, steps, ehs, arch=None if arch is None else arch.expand(t, -1))
+                built += 1
+            if decode:
+                base.decode(torch.zeros((t, *self._latent_shape()), device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return {"loaded": 0, "built": built}
+
+    def route(self, input_ids: torch.Tensor, hyper_net_input: Optional[torch.Tensor] = None,
+              route_noise: Optional[torch.Tensor] = None) -> np.ndarray:
+        prompt_embeds = self.base_pipeline.encode_prompt(input_ids)
+        _, indices = self.base_pipeline.route(prompt_embeds, hyper_net_input, route_noise)
+        return indices.cpu().numpy()
+
+    def encode_route(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
+                     hyper_net_input: Optional[torch.Tensor] = None,
+                     route_noise: Optional[torch.Tensor] = None):
+        """Encode the prompts once and route them: (prompt_embeds (N, 77, D),
+        neg_embeds (N, 77, D), expert indices (N,) on the host). Tiers
+        gather their rows out of these embeddings."""
+        base = self.base_pipeline
+        pe = base.encode_prompt(input_ids)
+        ne = base.encode_prompt(neg_input_ids)
+        if ne.shape[0] == 1:
+            ne = ne.expand(pe.shape[0], -1, -1)
+        _, indices = base.route(pe, hyper_net_input, route_noise)
+        return pe, ne, indices.cpu().numpy()
+
+    def _latent_source(self, latents: Optional[torch.Tensor],
+                       generator: Optional[torch.Generator]) -> LatentSource:
+        """Each tier's initial latents: the rows of `latents` (the pooled
+        prompt rows) where given, else standard normals from `generator`,
+        drawn tier by tier in dispatch order."""
+        if latents is not None:
+            return lambda tier, rows: latents[torch.as_tensor(rows, device=latents.device)]
+        if generator is None:
+            raise ValueError("pass a torch.Generator or the initial latents")
+        return lambda tier, rows: torch.randn((tier, *self._latent_shape()),
+                                              generator=generator, device=generator.device)
+
+    def _run_tiers(self, pipe: PruningPipeline, rows: np.ndarray, pe, ne,
+                   experts: Optional[np.ndarray], arch_table: Optional[torch.Tensor],
+                   take: LatentSource, num_inference_steps: int, guidance_scale: float,
+                   out_images: dict) -> int:
+        """Generate `rows` through `pipe` in tier-planned batches; with
+        `experts` (each row's expert) the gated U-Net runs each row's arch,
+        the expert's row of `arch_table`. Images stay on the device:
+        out_images[row] = (tier images, index in the tier). Returns the
+        slots used."""
+        used = lo = 0
+        for tier, real in self.plan_batches(len(rows), self.batch_shapes):
+            chunk = rows[lo: lo + real]
+            padded = np.concatenate([chunk, np.repeat(chunk[-1:], tier - real)])
+            sel = torch.as_tensor(padded, device=pe.device)
+            arch = None
+            if experts is not None:
+                echunk = experts[lo: lo + real]
+                epad = np.concatenate([echunk, np.repeat(echunk[-1:], tier - real)])
+                arch = arch_table[torch.as_tensor(epad, device=arch_table.device)]
+            lo += real
+            latents = pipe.denoise(None, pe[sel], ne[sel], arch, num_inference_steps,
+                                   guidance_scale, latents=take(tier, padded))
+            imgs = pipe.decode(latents)
+            for j, r in enumerate(chunk):
+                out_images[int(r)] = (imgs, j)
+            used += tier
+        return used
+
+    def _run_expert(self, e: int, rows: np.ndarray, pe, ne, take: LatentSource,
+                    num_inference_steps: int, guidance_scale: float, out_images: dict) -> int:
+        """Generate `rows` through expert e in tier-planned batches."""
+        return self._run_tiers(self.expert_pipe(e), rows, pe, ne, None, None, take,
+                               num_inference_steps, guidance_scale, out_images)
+
+    def _run_gated_leftovers(self, entries: List[Tuple[int, int]], pe, ne, take: LatentSource,
+                             num_inference_steps: int, guidance_scale: float,
+                             out_images: dict) -> int:
+        """One pooled gated batch (per-prompt archs: each row's code,
+        hard_concrete of `embedding_gs`) for the remainders of every expert
+        group (hybrid dispatch). `entries`: (row, expert) pairs."""
+        base = self.base_pipeline
+        rows = np.asarray([r for r, _ in entries])
+        experts = np.asarray([e for _, e in entries])
+        codes = hard_concrete(base.quantizer.embedding_gs.float())
+        return self._run_tiers(base, rows, pe, ne, experts, codes, take, num_inference_steps,
+                               guidance_scale, out_images)
+
+    def _dispatch_groups(self, groups: Dict[int, np.ndarray], pe, ne, take: LatentSource,
+                         num_inference_steps: int, guidance_scale: float, out_images: dict,
+                         hybrid: bool) -> int:
+        """groups: {expert: rows}. hybrid=True sends only full largest-tier
+        batches through the experts; every remainder joins one pooled gated
+        batch. Returns the slots used."""
+        slots = 0
+        leftovers: List[Tuple[int, int]] = []
+        for e, rows in groups.items():
+            full_rows = rows
+            if hybrid:
+                n_full = (len(rows) // self.batch_size) * self.batch_size
+                full_rows = rows[:n_full]
+                leftovers.extend((int(r), int(e)) for r in rows[n_full:])
+            if len(full_rows):
+                slots += self._run_expert(e, full_rows, pe, ne, take, num_inference_steps,
+                                          guidance_scale, out_images)
+        if leftovers:
+            slots += self._run_gated_leftovers(leftovers, pe, ne, take, num_inference_steps,
+                                               guidance_scale, out_images)
+        return slots
+
+    @staticmethod
+    def _materialise(out_images: dict) -> Dict[int, torch.Tensor]:
+        """Copy each tier's images to the host once, then index rows there."""
+        fetched: Dict[int, torch.Tensor] = {}
+        res: Dict[int, torch.Tensor] = {}
+        for r, (arr, j) in out_images.items():
+            if id(arr) not in fetched:
+                fetched[id(arr)] = arr.cpu()
+            res[r] = fetched[id(arr)][j]
+        return res
+
+    def generate(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 hyper_net_input: Optional[torch.Tensor] = None, num_inference_steps: int = 25,
+                 guidance_scale: float = 7.5, hybrid: bool = False,
+                 route_noise: Optional[torch.Tensor] = None,
+                 latents: Optional[torch.Tensor] = None):
+        """(images (N, H, W, 3) on the host, expert indices (N,)): each prompt
+        generated by its assigned expert (hybrid=True: full tiers by the
+        experts, the remainders in one pooled gated batch). `latents`: the
+        initial latents per prompt row (N, h, w, C), else drawn from
+        `generator`."""
+        n = input_ids.shape[0]
+        pe, ne, indices = self.encode_route(input_ids, neg_input_ids, hyper_net_input,
+                                            route_noise)
+        if latents is not None:
+            latents = latents.to(self.base_pipeline.device, torch.float32)
+        out_images: dict = {}
+        groups = {int(e): np.nonzero(indices == e)[0] for e in np.unique(indices)}
+        self.last_slots_used = self._dispatch_groups(
+            groups, pe, ne, self._latent_source(latents, generator), num_inference_steps,
+            guidance_scale, out_images, hybrid)
+        res = self._materialise(out_images)
+        return torch.stack([res[i] for i in range(n)]), torch.from_numpy(indices)
+
+
+@dataclasses.dataclass
+class ServingQueue:
+    """Continuous batching across requests: `submit()` encodes, routes and
+    enqueues prompts; `flush()` drains every expert's pending set at the tier
+    shapes, so requests of different submits share batches."""
+    server: ExpertServer
+    num_inference_steps: int = 25
+    guidance_scale: float = 7.5
+    hybrid: bool = False
+
+    def __post_init__(self):
+        # pending entry: (request id, submit batch index, row in batch, expert)
+        self._pending: List[Tuple[int, int, int, int]] = []
+        # per submit: (prompt_embeds, neg_embeds, initial latents or None), on
+        # the device until flushed
+        self._embeds: Dict[int, tuple] = {}
+        self._next_id = 0
+        self._next_batch = 0
+        self.last_slots_used = 0
+        self._lock = threading.Lock()            # guards _pending and _embeds
+        self._dispatch_lock = threading.Lock()   # one flush on the device at a time
+
+    def submit(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
+               hyper_net_input: Optional[torch.Tensor] = None,
+               route_noise: Optional[torch.Tensor] = None,
+               latents: Optional[torch.Tensor] = None) -> List[int]:
+        """Encode, route and enqueue prompts; returns their request ids.
+        `latents`: their initial latents (N, h, w, C); a flush takes either
+        every pending submit's latents or none (then its generator's)."""
+        n = input_ids.shape[0]
+        pe, ne, experts = self.server.encode_route(input_ids, neg_input_ids, hyper_net_input,
+                                                   route_noise)
+        if latents is not None:
+            latents = latents.to(pe.device, torch.float32)
+        with self._lock:
+            bi = self._next_batch
+            self._next_batch += 1
+            self._embeds[bi] = (pe, ne, latents)
+            ids = list(range(self._next_id, self._next_id + n))
+            self._next_id += n
+            self._pending.extend((rid, bi, r, int(experts[r])) for r, rid in enumerate(ids))
+        return ids
+
+    def pending_per_expert(self) -> Dict[int, int]:
+        with self._lock:
+            experts = [e for _, _, _, e in self._pending]
+        out: Dict[int, int] = {}
+        for e in experts:
+            out[e] = out.get(e, 0) + 1
+        return out
+
+    def _take_pending(self):
+        with self._lock:
+            pending, self._pending = self._pending, []
+            embeds = {bi: self._embeds.pop(bi) for bi in {bi for _, bi, _, _ in pending}}
+        return pending, embeds
+
+    def _flush_entries(self, pending, embeds, generator) -> Dict[int, torch.Tensor]:
+        if not pending:
+            self.last_slots_used = 0
+            return {}
+        batches = sorted(embeds)
+        offset, off = {}, 0
+        for bi in batches:
+            offset[bi] = off
+            off += embeds[bi][0].shape[0]
+        pe = torch.cat([embeds[bi][0] for bi in batches])
+        ne = torch.cat([embeds[bi][1] for bi in batches])
+        given = [embeds[bi][2] is not None for bi in batches]
+        if any(given) and not all(given):
+            raise ValueError("a flush takes the initial latents of every pending submit or "
+                             "of none")
+        latents = torch.cat([embeds[bi][2] for bi in batches]) if all(given) else None
+        rows = np.asarray([offset[bi] + r for _, bi, r, _ in pending])
+        experts = np.asarray([e for _, _, _, e in pending])
+        groups = {int(e): rows[experts == e] for e in np.unique(experts)}
+        out: dict = {}
+        server = self.server
+        self.last_slots_used = server._dispatch_groups(
+            groups, pe, ne, server._latent_source(latents, generator), self.num_inference_steps,
+            self.guidance_scale, out, self.hybrid)
+        res = server._materialise(out)
+        return {pending[j][0]: res[int(rows[j])] for j in range(len(pending))}
+
+    def flush(self, generator: Optional[torch.Generator] = None) -> Dict[int, torch.Tensor]:
+        """Run everything pending; returns {request_id: image} of this flush."""
+        pending, embeds = self._take_pending()
+        with self._dispatch_lock:
+            return self._flush_entries(pending, embeds, generator)
+
+    def flush_async(self, generator: Optional[torch.Generator] = None) -> Future:
+        """Run the pending set in a background thread; returns a Future of
+        {request_id: image}. The caller may keep submitting meanwhile;
+        flushes serialise on a lock."""
+        pending, embeds = self._take_pending()
+        fut: Future = Future()
+
+        def work():
+            with self._dispatch_lock:
+                try:
+                    fut.set_result(self._flush_entries(pending, embeds, generator))
+                except Exception as e:  # surfaced by fut.result()
+                    fut.set_exception(e)
+
+        threading.Thread(target=work, daemon=True).start()
+        return fut

@@ -1,8 +1,9 @@
 """Routed text-to-image pipeline.
 
 encode prompt (CLIP) → route (hypernet → quantizer eval forward: cosine argmax
-against the frozen codebook snapshot + hard-concrete) → CFG DDIM loop with
-the per-prompt arch fixed for the whole trajectory → VAE decode.
+against the frozen codebook snapshot + hard-concrete) → CFG sampling loop
+(`sampler`: "ddim", "pndm" or "dpm++") with the per-prompt arch fixed for the
+whole trajectory → VAE decode.
 
 The pipeline owns its modules and places them on `device`: the CUDA card
 unless the caller passes `device="cpu"`. Randomness comes from explicit
@@ -10,6 +11,7 @@ unless the caller passes `device="cpu"`. Randomness comes from explicit
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence, Union
 
 import torch
@@ -22,9 +24,16 @@ from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
 from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextEncoder
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL
-from diffusion_pruning_tpu_torch.schedulers.ddim import DDIMSampler
-from diffusion_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+from diffusion_pruning_tpu_torch.schedulers import (
+    DDIMSampler,
+    DiffusionSchedule,
+    DPMSolverPPSampler,
+    PNDMSampler,
+)
 from diffusion_pruning_tpu_torch.utils.device import resolve_device
+
+
+SAMPLERS = {"ddim": DDIMSampler, "pndm": PNDMSampler, "dpm++": DPMSolverPPSampler}
 
 
 class PruningPipeline:
@@ -32,7 +41,9 @@ class PruningPipeline:
                  hypernet: Optional[HyperStructure] = None,
                  quantizer: Optional[StructureQuantizer] = None,
                  schedule: Optional[DiffusionSchedule] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, sampler: str = "ddim"):
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {sorted(SAMPLERS)}, got {sampler!r}")
         self.device = resolve_device(device)
         self.unet = self._place(unet)
         self.vae = self._place(vae)
@@ -40,10 +51,21 @@ class PruningPipeline:
         self.hypernet = self._place(hypernet)
         self.quantizer = self._place(quantizer)
         self.schedule = schedule or DiffusionSchedule()
-        self.sampler = DDIMSampler(self.schedule)
+        self.sampler = sampler
 
     def _place(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
         return None if module is None else module.to(self.device).eval()
+
+    def _sampler(self):
+        """The sampler object `self.sampler` names, on this pipeline's schedule."""
+        return SAMPLERS[self.sampler](self.schedule)
+
+    def with_unet(self, unet: GatedUNet) -> "PruningPipeline":
+        """A pipeline that shares this one's text encoder, VAE, router,
+        schedule and sampler and denoises with `unet` (an expert U-Net)."""
+        pipe = copy.copy(self)
+        pipe.unet = self._place(unet)
+        return pipe
 
     # ------------------------------------------------------------------
 
@@ -67,8 +89,8 @@ class PruningPipeline:
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
                 height: Optional[int] = None, width: Optional[int] = None,
                 latents: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """CFG DDIM trajectory. Initial latents are `latents` if given, else
-        standard normals from `generator` (f32, NHWC)."""
+        """CFG trajectory of `self.sampler`. Initial latents are `latents` if
+        given, else standard normals from `generator` (f32, NHWC)."""
         cfg = self.unet.cfg
         vs = self.vae.cfg.spatial_scale
         b = prompt_embeds.shape[0]
@@ -90,7 +112,7 @@ class PruningPipeline:
                 return uncond + guidance_scale * (cond - uncond)
             return self.unet(x, t, ehs, arch=arch)
 
-        return self.sampler.sample(model_fn, latents, num_inference_steps)
+        return self._sampler().sample(model_fn, latents, num_inference_steps)
 
     @torch.inference_mode()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:

@@ -451,6 +451,27 @@ def test_cuda_fused_norm_ops_at_expert_channel_widths(c, groups, side):
     assert per_sample_rel_l2(linear, linear_ref).max().item() <= NORM_REL_L2
 
 
+# the GroupNorm of an expert's resnet norm2 (kept groups of C/32 ∈ {10, 20, 40}
+# channels, an odd count): no window of whole groups makes a multiple of 8
+# channels at C/G = 10 or 20, so one group a block, read with 4- or 8-byte loads
+# from rows of 2·C bytes that are no multiple of 16 (`group_norm_plan`); 1240
+# keeps 40-channel windows
+@pytest.mark.parametrize("c,groups,side", [(90, 9, 32), (170, 17, 32), (310, 31, 32),
+                                           (620, 31, 16), (1240, 31, 8)])
+@pytest.mark.parametrize("b", [8, 16])
+@pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)])
+def test_cuda_group_norm_at_expert_channel_widths(c, groups, side, b, silu, eps):
+    x, scale, bias, gate_c, _ = _norm_inputs(b, c, side, side, seed=c + b, groups=groups)
+    x = x * gate_c[:, :, None, None].bfloat16()  # a zero group: variance 0
+    before = gn.group_norm_silu_forward.launches
+    out = gn.group_norm_silu(x, scale, bias, groups, eps, silu)
+    torch.cuda.synchronize()
+    assert gn.group_norm_silu_forward.launches == before + 1
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    ref = gn.group_norm_silu_plain(x.float(), scale, bias, groups, eps, silu)
+    assert per_sample_rel_l2(out, ref).max().item() <= NORM_REL_L2
+
+
 def test_cuda_fused_norm_functions_backpropagate_through_the_unfused_composition():
     """Forward through the kernels, gradients for x and the gate from the
     recompute, equal to autograd of the unfused composition on the same

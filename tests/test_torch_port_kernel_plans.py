@@ -638,6 +638,53 @@ def test_group_norm_plan_holds_the_512px_slab_in_one_read():
     assert not wide.one_read and wide.window == 300 and wide.vec == 4
 
 
+# an expert's resnet norm2: kept groups of C/32 ∈ {10, 20, 40} channels, an odd
+# count, at the maps of the levels that keep them; (window, vec, one_read) of
+# the route `group_norm_plan` states for them
+GN_EXPERT = {(90, 9): (10, 2, False), (170, 17): (10, 2, False), (310, 31): (10, 2, False),
+             (620, 31): (20, 4, False), (1240, 31): (40, 8, True)}
+
+
+def _gn_thread_visits(plan, nrows):
+    """How often the kernel's threads of one block visit each (vector, row)
+    of its window (`group_norm_silu_kernel`: thread rr·vpr + j0 takes column
+    j0 of rows rr, rr + rpi, …, or every nt-th column of every row where a
+    row has more vectors than the block has threads)."""
+    visits = np.zeros((plan.window // plan.vec, nrows), dtype=np.int64)
+    vpr, nt = plan.window // plan.vec, plan.threads
+    wide = vpr > nt
+    rpi = 1 if wide else nt // vpr
+    for tid in range(nt):
+        rr, j0 = (0, tid) if wide else (tid // vpr, tid % vpr)
+        if rr < rpi:
+            for j in range(j0, vpr, nt if wide else vpr):
+                visits[j, rr::rpi] += 1
+    return visits
+
+
+@pytest.mark.parametrize("c,groups", sorted(GN_EXPERT))
+@pytest.mark.parametrize("side", [32, 16, 8])
+@pytest.mark.parametrize("b", [8, 16])
+def test_group_norm_plan_at_expert_widths_covers_every_group_row_once(c, groups, side, b):
+    """The route an expert's GroupNorm takes (no window of whole groups makes
+    a multiple of 8 channels at C/G = 10 or 20 with an odd group count: one
+    group a block, 4- or 8-byte loads, x read in each pass), and every
+    (batch, group, row) is held by one block and each of its channels by one
+    thread."""
+    plan = gn.group_norm_plan(b, side * side, c, groups)
+    assert (plan.window, plan.vec, plan.one_read) == GN_EXPERT[(c, groups)]
+    # every vector starts at a multiple of its own size: C and the window divide by it
+    assert c % plan.vec == 0 and plan.window % plan.vec == 0
+    held = np.zeros((b, c, side * side), dtype=np.int64)
+    for bi in range(b):
+        for win in range(c // plan.window):
+            for lo, hi in plan.row_ranges():
+                held[bi, win * plan.window:(win + 1) * plan.window, lo:hi] += 1
+    assert (held == 1).all()
+    for lo, hi in plan.row_ranges():
+        assert (_gn_thread_visits(plan, hi - lo) == 1).all()
+
+
 @pytest.mark.parametrize("b,c,side,groups", [(16, 320, 32, 32), (4, 960, 64, 32),
                                              (2, 72, 10, 8), (1, 9600, 8, 32)])
 def test_group_norm_wrapper_launches_the_plan(monkeypatch, b, c, side, groups):

@@ -100,8 +100,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers")
                      or m == "diffusion_pruning_tpu"
                      or m.startswith("diffusion_pruning_tpu."))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        serving_modules = {"diffusion_pruning_tpu_torch.models.unet.pruned",
+                   "diffusion_pruning_tpu_torch.pipelines.expert_server",
+                   "diffusion_pruning_tpu_torch.schedulers.pndm",
+                   "diffusion_pruning_tpu_torch.schedulers.dpm"}
+        print(len(names), bad, sorted(serving_modules - set(names)))
+        sys.exit(1 if bad or len(names) < 20 or not serving_modules <= set(names) else 0)
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
