@@ -142,9 +142,36 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   accounting, finite images in [0, 1]; img/s of each); one
                   request of 2 prompts under PNDM and under DPM++; one expert
                   flush under torch.profiler;
+ 13. stage 1 as a program — seeded random SD-2.1-width weights written in
+                  bf16 as diffusers/HF checkpoint folders (unet/, vae/,
+                  text_encoder/, an MPNet folder) under build/ by the port's
+                  safetensors writer; the prune entry point
+                  (`python -m diffusion_pruning_tpu_torch.cli.prune`) on a
+                  YAML derived from configs/pruning/sd-2-1_coco2014.yaml
+                  (synthetic data, B = 64 at 256px): run 1 in a subprocess
+                  for 3 steps (one pretraining; validation and heatmaps at
+                  step 3; no unet/ export) must leave checkpoint-3 with
+                  state/, quantizer_embeddings.pt (8 × 1620), hypernet/ and
+                  quantizer/; run 2 in this process resumes `latest` to step
+                  6 with 2 micro-batches of 32 a step: its resumed state
+                  equal, bit for bit, to run 1's saved state and exports, each
+                  step's attention launches those of `backward_plan` at B =
+                  32 for both micro-batches, checkpoint-6/unet/ equal to the
+                  written weights, checkpoint-3 rotated away, every logged
+                  loss finite and each step's 64 prompts routed; then
+                  `sample_progressive` (DDIM-25, a snapshot every 10 steps)
+                  against `__call__` on the same latents and routing noise
+                  (<= PROGRESSIVE_MAX_ABS), `SafetyChecker.from_diffusers` on
+                  a written random ViT-L/14 folder whose concept is image 0's
+                  embedding (the 4-tuple, image 0 alone flagged and black),
+                  and the U-Net with 1×1-conv projections against f32 (<=
+                  UNET_REL_L2), plain and under `fused_norm_conv` (no
+                  `norm_linear` launch); seconds by part, the CLI's steps/s
+                  and peak memory on a summary line; the written files are
+                  removed;
 then a `kernels` JSON line (every kernel of the paths, each with its
-launches in the runs of phases 5, 8, 11 and 12) and, last, the device JSON
-line.
+launches in the runs of phases 5, 8, 11, 12 and 13) and, last, the device
+JSON line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
 are captured into a CUDA graph whose replay is timed (`device_ms`); they run
@@ -161,6 +188,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -3010,11 +3038,11 @@ def serve_experts(pipe, mpnet, unet, device):
 
 
 def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
-                  expert_counts, expert_check):
+                  expert_counts, expert_check, cli_counts):
     """One forward kernel's line: its share of the phase-3 sites (by
     `forward_kernel`) and of the phase-7 training sites, its launches in the
-    serving, train-step and expert-serving runs, its device time over one
-    expert forward's sites (phase 12)."""
+    serving, train-step, expert-serving and prune-CLI (run 2) runs, its
+    device time over one expert forward's sites (phase 12)."""
     from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
     mine = [r for r in rows if r["kernel"] == name]
     mine_train = [r for r in train_rows if forward_kernel(r["s_q"], r["s_kv"]) == name]
@@ -3025,7 +3053,7 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
               if r["bound_by"] == "operations")
     key = f"kernel:{name}"
     by_path = {"serving": serve_counts[key], "train_step": train_launches[key],
-               "serving_experts": expert_counts[key]}
+               "serving_experts": expert_counts[key], "stage1_cli": cli_counts[key]}
     small = name == "gated_flash_fwd_small"
     return {
         "name": name, "route": "cuda",
@@ -3075,10 +3103,11 @@ def fused_kernel_entry(check, name, source, replaces, also, library_call, launch
             "shapes": "the sites of one SD-2.1 U-Net forward at 256px, B_eff 16, bf16"}
 
 
-def backward_entries(train_rows, train_check, train_launches):
+def backward_entries(train_rows, train_check, train_launches, cli_counts):
     """The backward kernels' lines: each kernel's times summed over the
     sites of one student pass where `backward_plan` runs it, its launches in
-    the train-step run, its worst readings on its route's phase-7 cases."""
+    the train-step run and the prune CLI's run 2, its worst readings on its
+    route's phase-7 cases."""
     src = "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu"
     fa_py = "diffusion_pruning_tpu/ops/flash_attention.py"
     one, two = (train_check["worst_by_route"][r] for r in ("one_pass", "two_kernel"))
@@ -3097,7 +3126,10 @@ def backward_entries(train_rows, train_check, train_launches):
     for name, kind, line, also, role, max_abs, rel, dgate, library in spec:
         entry = {"name": name, "route": "cuda", "source": src, "replaces": f"{fa_py}:{line}",
                  "also_replaces": [f"{fa_py}:{n}" for n in also], "role": role,
-                 "launches": train_launches[name], "max_abs_err": max_abs,
+                 "launches": train_launches[name] + cli_counts[name],
+                 "launches_by_path": {"train_step": train_launches[name],
+                                      "stage1_cli": cli_counts[name]},
+                 "max_abs_err": max_abs,
                  "rel_l2_worst_head": rel, "dgate_rel_worst": dgate,
                  **training_entry(train_rows, kind, "reduce_plain_ms" if kind == "reduce"
                                   else "bwd_plain_ms", library)}
@@ -3233,6 +3265,500 @@ def check_fused_build(build, sass):
             fail(f"group_norm_silu reads no TMA box: {rows}")
 
 
+# ---------------------------------------------------------------- phase 13
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+STAGE1_DIR = os.path.join(HERE, "build", "stage1_program")  # ignored by git; removed at the end
+CLI_STEPS = (3, 6)            # run 1 ends at step 3, run 2 resumes it to step 6
+CLI_ACCUM = 2                 # run 2's micro-batches a step (2 × 32 at B = 64)
+CODEBOOK_SHAPE = (8, 1620)    # K experts × the SD-2.1 U-Net's arch vector
+SAFETY_TOWER = "vit_l14"      # the safety checker's CLIP tower (CLIPVisionConfig)
+PROGRESSIVE_EVERY = 10        # snapshots of the DDIM-25 progressive trajectory
+# the last snapshot against __call__ with the same latents and routing noise:
+# the same kernels on the same batch, so every element is expected to repeat
+PROGRESSIVE_MAX_ABS = 0.0
+LOSS_KEYS = ("loss", "diffusion_loss", "distillation_loss", "block_loss", "contrastive_loss",
+             "resource_loss", "resource_ratio", "grad_norm")
+
+
+def write_sd_weights(root, device):
+    """Seeded random weights at SD-2.1 width in the layout of a diffusers
+    checkpoint and an HF MPNet folder, bf16, through safetensors:
+    unet/, vae/, text_encoder/ under `root`, and root/mpnet. Returns the
+    bytes written."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.text_encoders import (
+        CLIPTextConfig, CLIPTextEncoder, MPNetConfig, MPNetEncoder)
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+    from safetensors.torch import save_file
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    parts = (("unet", "diffusion_pytorch_model.safetensors", GatedUNet, UNetConfig.sd21(256)),
+             ("vae", "diffusion_pytorch_model.safetensors", AutoencoderKL, VAEConfig.sd()),
+             ("text_encoder", "model.safetensors", CLIPTextEncoder, CLIPTextConfig.sd21()),
+             ("mpnet", "model.safetensors", MPNetEncoder, MPNetConfig.base()))
+    nbytes = 0
+    for sub, fname, cls, cfg in parts:
+        with torch.device(device):
+            module = cls(cfg)
+        random_init_(module, gen)
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, fname)
+        save_file({k: v.bfloat16().contiguous() for k, v in module.state_dict().items()}, path)
+        nbytes += os.path.getsize(path)
+        del module
+    torch.cuda.empty_cache()
+    return nbytes
+
+
+def stage1_yaml(path, **changes):
+    """configs/pruning/sd-2-1_coco2014.yaml with `changes` (dotted paths) and
+    no data_dir, read and written by the port's own YAML code."""
+    from diffusion_pruning_tpu_torch.utils.config import load_config
+    cfg = load_config(os.path.join(HERE, "configs", "pruning", "sd-2-1_coco2014.yaml"))
+    cfg.set_path("data.data_dir", None)
+    cfg.set_path("training.logging.logging_dir", os.path.join(STAGE1_DIR, "runs"))
+    for key, value in changes.items():
+        cfg.set_path(key, value)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    cfg.dump(path)
+    return path
+
+
+def cli_argv(config_path, weights):
+    return ["--base_config_path", config_path, "--pretrained_model_name_or_path", weights,
+            "--prompt_encoder_model_name_or_path", os.path.join(weights, "mpnet"),
+            "--wandb_run_name", "cli", "--seed", str(SEED)]
+
+
+def metrics_lines(run_dir):
+    """The run directory's logged lines: (the steps', the validations')."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    return [m for m in lines if "loss" in m], [m for m in lines if "val_loss" in m]
+
+
+def to_host(tree):
+    """A copy of a state tree with every tensor cloned to the host."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return tree.detach().to("cpu", copy=True) if torch.is_tensor(tree) else tree
+
+
+def state_equal(a, b, path=""):
+    """Paths where two saved states (dicts, lists, tensors, numbers) differ."""
+    import torch
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b))}"]
+        return [d for k in a for d in state_equal(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path}: length"]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in state_equal(x, y, f"{path}/{i}")]
+    if torch.is_tensor(a):
+        return [] if torch.equal(a.cpu(), b.cpu()) else [path]
+    return [] if a == b else [path]
+
+
+def cli_step_launches(b):
+    """Each attention kernel's launches in one micro-batch of `b` at 256px:
+    the teacher's 32 lse-free forwards, the student's 32 forwards with lse,
+    and the backward kernels `backward_plan` picks at each site."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    out = collections.Counter({"gated_flash_fwd": 32, "gated_flash_fwd_lse": 32})
+    for s_q, s_kv, h, sites in TRAIN_CASES:
+        for name, n in fa.backward_plan(b, h, s_q, s_kv).launches.items():
+            out[name] += n * sites
+    return out
+
+
+def run_cli_in_process(argv, device):
+    """The prune entry point's `main(argv)` in this process, timed by part:
+    the factory (from the call to the loop's start), the steps (each checked
+    for its attention launches: `CLI_ACCUM` micro-batches of `cli_step_launches`),
+    validation, the checkpoint saves with their export, the resume (whose
+    state is kept for the caller). The loop is asked to log every step (its
+    `LoopConfig.log_every`, 10 from the entry point), so that each step's
+    losses, expert usage and the loop's own steps/s reach metrics.jsonl."""
+    import torch
+    import diffusion_pruning_tpu_torch.training as training
+    from diffusion_pruning_tpu_torch.cli import prune
+    from diffusion_pruning_tpu_torch.training import loop as loop_module
+
+    parts = collections.defaultdict(float)
+    steps, resumed = [], {}
+    per_step = collections.Counter()
+    for name, n in cli_step_launches(TRAIN_B // CLI_ACCUM).items():
+        per_step[name] = n * CLI_ACCUM
+    real_make_step = training.make_pruner_step
+
+    def make_step(*args, **kwargs):
+        step = real_make_step(*args, **kwargs)
+
+        def timed(batch, **kw):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: v - before[k] for k, v in launch_counts().items()}
+            checked = wrapper_counts(launches)
+            if checked != {k: per_step.get(k, 0) for k in checked}:
+                fail(f"expected {dict(per_step)} launches per CLI step, got {launches}")
+            steps.append({"seconds": seconds, "launches": launches})
+            return out
+        return timed
+
+    def timed_method(name, part):
+        real = getattr(loop_module.PrunerLoop, name)
+
+        def wrapper(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(self, *a, **k)
+            torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t0
+            if name == "maybe_resume":
+                resumed.update(step=self.global_step, state=to_host(self.state_dict()))
+            return out
+        return wrapper
+
+    real_train = loop_module.PrunerLoop.train
+
+    def train(self, *a, **k):
+        parts["factory_build_and_load"] = time.perf_counter() - t_main
+        return real_train(self, *a, **k)
+
+    real_export = loop_module.export_pruning_checkpoint
+
+    def export(*a, **k):
+        t0 = time.perf_counter()
+        real_export(*a, **k)
+        parts["export"] += time.perf_counter() - t0
+
+    saved = {name: getattr(loop_module.PrunerLoop, name)
+             for name in ("maybe_resume", "save_checkpoint", "validate")}
+    real_loop_config = loop_module.LoopConfig
+    try:
+        training.make_pruner_step = make_step
+        loop_module.LoopConfig = functools.partial(real_loop_config, log_every=1)
+        loop_module.export_pruning_checkpoint = export
+        for name, part in (("maybe_resume", "resume"), ("save_checkpoint", "checkpoint_save"),
+                           ("validate", "validation")):
+            setattr(loop_module.PrunerLoop, name, timed_method(name, part))
+        loop_module.PrunerLoop.train = train
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t_main = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            loop = prune.main(argv)
+        counts = launch_counts()
+    finally:
+        training.make_pruner_step = real_make_step
+        loop_module.LoopConfig = real_loop_config
+        loop_module.export_pruning_checkpoint = real_export
+        for name, fn in saved.items():
+            setattr(loop_module.PrunerLoop, name, fn)
+        loop_module.PrunerLoop.train = real_train
+    parts["steps"] = sum(s["seconds"] for s in steps)
+    parts["checkpoint_save"] -= parts["export"]
+    return loop, dict(parts), steps, resumed, counts, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_cli_runs(weights, device):
+    """Run 1 as a user runs it (a subprocess: 3 steps, one of them
+    pretraining, validation and heatmaps at step 3, no unet/ export), then run
+    2 in this process: resume from `latest` to step 6 with 2 micro-batches a
+    step and the unet/ export. Returns the summary row and run 2's kernel
+    counts."""
+    import torch
+    from diffusion_pruning_tpu_torch.utils.checkpoint import CheckpointManager, load_torch_artifact
+    from diffusion_pruning_tpu_torch.utils.export import load_torch_state_dict
+
+    parts = {}
+    yaml1 = stage1_yaml(os.path.join(STAGE1_DIR, "run1", "sd21_prune.yaml"), **{
+        "training.max_train_steps": CLI_STEPS[0], "training.hypernet_pretraining_steps": 1,
+        "training.validation_steps": CLI_STEPS[0], "training.image_logging_steps": CLI_STEPS[0],
+        "training.logging.export_unet": False})
+    yaml2 = stage1_yaml(os.path.join(STAGE1_DIR, "run2", "sd21_prune.yaml"), **{
+        "training.max_train_steps": CLI_STEPS[1], "training.hypernet_pretraining_steps": 1,
+        "training.validation_steps": CLI_STEPS[0], "training.image_logging_steps": CLI_STEPS[0],
+        "training.gradient_accumulation_steps": CLI_ACCUM,
+        "training.logging.resume_from_checkpoint": "latest"})
+    run_dir = os.path.join(STAGE1_DIR, "runs", "sd21_prune", "cli")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "diffusion_pruning_tpu_torch.cli.prune",
+                           *cli_argv(yaml1, weights)], capture_output=True, text=True,
+                          timeout=600, cwd=HERE)
+    parts["run1_subprocess"] = time.perf_counter() - t0
+    with open(os.path.join(HERE, "build", "stage1_cli_run1.log"), "w") as f:  # ignored by git
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"prune run 1 exited {proc.returncode}: {proc.stderr[-3000:]}")
+    ckpt = CheckpointManager(run_dir)
+    d3 = ckpt.dir_for(CLI_STEPS[0])
+    layout = sorted(os.listdir(d3)) if os.path.isdir(d3) else None
+    if ckpt.list_steps() != [CLI_STEPS[0]] or layout != [
+            "hypernet", "quantizer", "quantizer_embeddings.pt", "state"]:
+        fail(f"run 1 left {ckpt.list_steps()} with {layout}")
+    saved = ckpt.restore(CLI_STEPS[0])
+    emb = load_torch_artifact(os.path.join(d3, "quantizer_embeddings.pt"))
+    exported_hn = load_torch_state_dict(os.path.join(d3, "hypernet"))
+    exported_q = load_torch_state_dict(os.path.join(d3, "quantizer"))
+    if tuple(emb.shape) != CODEBOOK_SHAPE:
+        fail(f"quantizer_embeddings.pt is {tuple(emb.shape)}, not {CODEBOOK_SHAPE}")
+    # run 1 logs at the entry point's period (10 steps): its validation alone
+    train1, val1 = metrics_lines(run_dir)
+    if train1 or [m["step"] for m in val1] != [CLI_STEPS[0]] or not all(
+            math.isfinite(v) for k, v in val1[0].items() if k.startswith("val_")):
+        fail(f"run 1 logged steps {[m['step'] for m in train1]} and validations {val1}")
+
+    loop, run2_parts, steps, resumed, counts, peak = run_cli_in_process(
+        cli_argv(yaml2, weights), device)
+    parts.update({f"run2_{k}": v for k, v in run2_parts.items()})
+    # the state run 2 resumed against run 1's saved tensors and artifacts
+    diff = state_equal(resumed.get("state", {}), saved)
+    r = resumed["state"]
+    export_diff = [k for k in r["hypernet"]  # the heads' weights and biases
+                   if not torch.equal(r["hypernet"][k].float(), exported_hn[k])]
+    export_diff += [k for k in ("embedding.weight", "embedding_gs")
+                    if not torch.equal(r["quantizer"][k].cpu(), exported_q[k])]
+    if not torch.equal(r["quantizer"]["embedding_gs"].cpu(), emb):
+        export_diff.append("quantizer_embeddings.pt")
+    if resumed.get("step") != CLI_STEPS[0] or diff or export_diff:
+        fail(f"run 2 resumed step {resumed.get('step')}, differing from run 1's saved state at "
+             f"{diff[:8]} and its exports at {export_diff}")
+    # the unet/ export against the weights the factory loaded, and the rotation
+    d6 = ckpt.dir_for(CLI_STEPS[1])
+    if ckpt.list_steps() != [CLI_STEPS[1]]:
+        fail(f"rotation left {ckpt.list_steps()}")
+    src = load_torch_state_dict(os.path.join(weights, "unet"))
+    out = load_torch_state_dict(os.path.join(d6, "unet"))
+    unet_diff = sorted(set(src) ^ set(out)) + [
+        k for k in src if k in out and not (out[k].dtype == torch.float32
+                                            and torch.equal(out[k], src[k].float()))]
+    if unet_diff:
+        fail(f"checkpoint-{CLI_STEPS[1]}/unet differs from the loaded weights at {unet_diff[:8]}")
+    lines, vals = metrics_lines(run_dir)
+    bad = [m["step"] for m in lines if not all(math.isfinite(m[k]) for k in LOSS_KEYS)
+           or sum(m[f"expert_usage/{e}"] for e in range(8)) != TRAIN_B or m["skipped"]]
+    bad += [m["step"] for m in vals if not all(
+        math.isfinite(v) for k, v in m.items() if k.startswith("val_"))]
+    if ([m["step"] for m in lines] != list(range(CLI_STEPS[0] + 1, CLI_STEPS[1] + 1))
+            or [m["step"] for m in vals] != list(CLI_STEPS) or bad):
+        fail(f"the CLI logged steps {[m['step'] for m in lines]} and validations "
+             f"{[m['step'] for m in vals]}; non-finite, skipped or not {TRAIN_B} routed at {bad}")
+    if len(steps) != CLI_STEPS[1] - CLI_STEPS[0]:
+        fail(f"run 2 took {len(steps)} steps")
+    row = {"phase": "stage1_cli", "batch": TRAIN_B, "resolution": 256,
+           "run2_micro_batches": CLI_ACCUM, "resumed_step": resumed["step"],
+           "resumed_state_equal_to_run1_saved": True, "unet_export_equal_to_loaded": True,
+           "unet_export_tensors": len(out), "rotation_left": ckpt.list_steps(),
+           "losses": [{k: m[k] for k in ("step", "loss", "resource_ratio")} for m in lines],
+           "expert_usage": [[m[f"expert_usage/{e}"] for e in range(8)] for m in lines],
+           "cli_steps_per_sec": [m["steps_per_sec"] for m in lines],
+           "run2_step_seconds": [s["seconds"] for s in steps],
+           "run2_launches_per_step": steps[-1]["launches"],
+           "run2_peak_memory_gib": peak, "seconds_by_part": parts}
+    emit(row)
+    del loop
+    torch.cuda.empty_cache()
+    return row, counts
+
+
+
+def check_progressive(pipe, mpnet, device):
+    """`sample_progressive` at 256px, DDIM-25, a snapshot every 10 steps,
+    against `__call__` under DDIM on the same latents and routing noise (2
+    prompts, CFG 7.5); 800 lse-free forward launches. Returns the call's
+    images and inputs for the safety check."""
+    import torch
+    from diffusion_pruning_tpu_torch.core.estimators import sample_gumbel
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    b, vocab = 2, pipe.text_encoder.cfg.vocab_size
+    ids = torch.randint(0, vocab, (b, 77), device=device, generator=gen)
+    neg = torch.zeros_like(ids)
+    feats = torch.randn(b, pipe.hypernet.input_dim, device=device, generator=gen)
+    size = pipe.unet.cfg.sample_size
+    latents = torch.randn(b, size, size, 4, device=device, generator=gen)
+    noise = sample_gumbel((b, pipe.unet.spec.vq_dim), gen)
+    kw = dict(hyper_net_input=feats, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+              latents=latents, route_noise=noise)
+    pipe.sampler = "ddim"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    snaps, idx = pipe.sample_progressive(ids, neg, snapshot_every=PROGRESSIVE_EVERY, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = wrapper_counts(launch_counts())
+    images, call_idx, _ = pipe(ids, neg, **kw)
+    err = (snaps[-1] - images).abs().max().item()
+    row = {"phase": "progressive", "resolution": size * 8, "prompts": b, "steps": STEPS,
+           "snapshots": len(snaps), "last_vs_call_max_abs": err, "limit": PROGRESSIVE_MAX_ABS,
+           "indices_equal": bool(torch.equal(idx, call_idx)), "seconds": seconds,
+           "launches": launches,
+           "finite_in_unit_range": all(bool(torch.isfinite(s).all() and s.min() >= 0
+                                            and s.max() <= 1) for s in snaps)}
+    emit(row)
+    want = {k: (STEPS * 32 if k == "gated_flash_fwd" else 0) for k in launches}
+    if not (err <= PROGRESSIVE_MAX_ABS and row["indices_equal"] and row["finite_in_unit_range"]
+            and len(snaps) == math.ceil(STEPS / PROGRESSIVE_EVERY) and launches == want):
+        fail(f"progressive sampling: {row}")
+    return images, ids, neg, kw
+
+
+def check_safety(pipe, images, ids, neg, kw, device):
+    """`SafetyChecker.from_diffusers` on a written random ViT-L/14
+    `safety_checker/` whose first concept is image 0's embedding (through
+    the written weights): `__call__` returns 4, flags image 0 alone, blacks
+    it out and leaves image 1 as it was."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+    from diffusion_pruning_tpu_torch.models.safety import SafetyChecker, clip_preprocess
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+    from safetensors.torch import save_file
+
+    vcfg = getattr(CLIPVisionConfig, SAFETY_TOWER)()
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    with torch.device(device):
+        enc = CLIPVisionEncoder(vcfg)
+    random_init_(enc, gen)
+    for p in enc.parameters():  # the weights as the bf16 file will hold them
+        p.data.copy_(p.data.bfloat16().float())
+    with torch.inference_mode():
+        emb = enc(clip_preprocess(images, vcfg.image_size))[1].float()
+    unit = emb / emb.norm(dim=-1, keepdim=True)
+    cos_other = (unit[1] @ unit[0]).item()
+    threshold = (1.0 + cos_other) / 2 if cos_other < 0.999 else None
+    if threshold is None:
+        fail(f"the two images' embeddings are too alike to plant a concept: cos {cos_other}")
+    other = torch.randn(2, vcfg.projection_dim, device=device, generator=gen)
+    sd = {f"vision_model.{k}" if k.startswith("vision_model.") else k: v.bfloat16()
+          for k, v in enc.state_dict().items()}
+    sd.update(concept_embeds=torch.cat([emb[:1], other[:1]]),
+              concept_embeds_weights=torch.tensor([threshold, 0.5], device=device),
+              special_care_embeds=other[1:], special_care_embeds_weights=torch.tensor(
+                  [0.5], device=device))
+    folder = os.path.join(STAGE1_DIR, "safety_checker")
+    os.makedirs(folder, exist_ok=True)
+    save_file(sd, os.path.join(folder, "model.safetensors"))
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump({"projection_dim": vcfg.projection_dim, "vision_config": {
+            "hidden_size": vcfg.hidden_size, "intermediate_size": vcfg.intermediate_size,
+            "num_hidden_layers": vcfg.num_layers, "num_attention_heads": vcfg.num_heads,
+            "image_size": vcfg.image_size, "patch_size": vcfg.patch_size,
+            "hidden_act": vcfg.hidden_act}}, f)
+    del enc, sd
+    t0 = time.perf_counter()
+    checker = SafetyChecker.from_diffusers(folder)
+    load_s = time.perf_counter() - t0
+    pipe.safety_checker = checker.to(device).eval()
+    try:
+        out = pipe(ids, neg, **kw)
+    finally:
+        pipe.safety_checker = None
+    ok = len(out) == 4
+    row = {"phase": "safety", "tower": f"CLIPVisionConfig.{SAFETY_TOWER} (random, bf16 on disk)",
+           "returned": len(out), "cos_image1_to_planted": cos_other, "threshold": threshold,
+           "load_seconds": load_s}
+    if ok:
+        got, _, _, nsfw = out
+        row.update(nsfw=nsfw.tolist(), image0_black=bool((got[0] == 0).all()),
+                   image1_unchanged=bool(torch.equal(got[1], images[1])))
+        ok = row["nsfw"] == [True, False] and row["image0_black"] and row["image1_unchanged"]
+    emit(row)
+    if not ok:
+        fail(f"the safety checker: {row}")
+
+
+def check_conv_projection(cfg, device, gen):
+    """The full-width U-Net with 1×1-conv proj_in/proj_out (random, bf16, the
+    kernels) against an f32 copy with plain attention, at B_eff 16, plain
+    and under `fused_norm_conv` (45 conv launches a forward and no
+    `norm_linear`: its norm stays unfused)."""
+    import copy
+    import torch
+    from diffusion_pruning_tpu_torch.ops.flash_attention import gated_attention_reference
+
+    unet = build_unet(cfg, device, gen)
+    x, t, ehs, arch = unet_inputs(unet, device)
+    twin = fused_twin(unet, fused_norm_conv=True)
+    row = {"phase": "conv_projection_unet", "resolution": cfg.sample_size * 8,
+           "b_eff": x.shape[0],
+           "proj_in_weight": list(unet.state_dict()[
+               "mid_block.attentions.0.proj_in.weight"].shape), "limit": UNET_REL_L2}
+    with torch.inference_mode():
+        f32 = copy.deepcopy(unet).float()
+        with unet_attention(gated_attention_reference):
+            ref = f32(x, t, ehs, arch=arch).float()
+        del f32
+        torch.cuda.empty_cache()
+        for name, model in (("unfused", unet), ("fused_norm_conv", twin)):
+            reset_launch_counts()
+            out = model(x, t, ehs, arch=arch).float()
+            counts = {k: v for k, v in wrapper_counts(launch_counts()).items() if v}
+            row[name] = {"rel_l2_vs_f32": ((out - ref).norm() / ref.norm()).item(),
+                         "finite": bool(torch.isfinite(out).all()), "launches": counts}
+    emit(row)
+    want = {"unfused": {"gated_flash_fwd": 32},
+            "fused_norm_conv": {"gated_flash_fwd": 32, "norm_conv3x3": 45}}
+    for name in want:
+        r = row[name]
+        if not (r["finite"] and r["rel_l2_vs_f32"] <= UNET_REL_L2 and r["launches"] == want[name]):
+            fail(f"the conv-projection U-Net ({name}): {r}; expected launches {want[name]}")
+    del unet, twin
+    torch.cuda.empty_cache()
+    return row
+
+
+def stage1_program(pipe, mpnet, device):
+    """Phase 13: stage 1 as a user runs it, and the rest of the pipeline."""
+    import shutil
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+
+    parts = {}
+    shutil.rmtree(STAGE1_DIR, ignore_errors=True)
+    weights = os.path.join(STAGE1_DIR, "weights")
+    t0 = time.perf_counter()
+    nbytes = write_sd_weights(weights, device)
+    parts["write_weights"] = time.perf_counter() - t0
+    try:
+        cli, cli_counts = check_cli_runs(weights, device)
+        parts.update(cli["seconds_by_part"])
+        torch.backends.cudnn.allow_tf32 = True  # serving as phase 5 serves
+        t0 = time.perf_counter()
+        images, ids, neg, kw = check_progressive(pipe, mpnet, device)
+        parts["progressive"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check_safety(pipe, images, ids, neg, kw, device)
+        parts["safety"] = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32 = False  # the f32 reference in full f32
+        t0 = time.perf_counter()
+        conv = check_conv_projection(UNetConfig.sd21(256, use_linear_projection=False), device,
+                                     torch.Generator(device=device).manual_seed(SEED + 16))
+        parts["conv_projection"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(STAGE1_DIR, ignore_errors=True)
+    summary = {"phase": "stage1_program_summary", "weights_written_gib": nbytes / 2 ** 30,
+               "seconds_by_part": parts, "cli_steps_per_sec": cli["cli_steps_per_sec"],
+               "cli_run2_peak_memory_gib": cli["run2_peak_memory_gib"],
+               "conv_projection_rel_l2": {k: conv[k]["rel_l2_vs_f32"]
+                                          for k in ("unfused", "fused_norm_conv")}}
+    emit(summary)
+    return summary, cli_counts
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> None:
@@ -3355,6 +3881,12 @@ def main() -> None:
     expert_serving, expert_counts, expert_check = serve_experts(pipe, mpnet, unet, device)
     log(f"phase 12 took {time.perf_counter() - t0:.1f}s")
 
+    # 13. stage 1 as a program (the prune entry point twice, from checkpoint
+    # folders at full width) and the rest of the pipeline
+    t0 = time.perf_counter()
+    stage1, cli_counts = stage1_program(pipe, mpnet, device)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f}s")
+
     # kernels line: inference times summed over the sites of one 256px
     # forward (B_eff 16) that each forward kernel serves (`forward_plan`),
     # training times over the sites of one student pass of the train step
@@ -3362,10 +3894,11 @@ def main() -> None:
     train_launches = train_summary["launches"]
     forward_entries = [
         forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
-                      expert_counts, expert_check)
+                      expert_counts, expert_check, cli_counts)
         for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd_small")]
     kernels = [*forward_entries,
-               *backward_entries(train_rows, train_check, train_launches), fused_kernel_entry(
+               *backward_entries(train_rows, train_check, train_launches, cli_counts),
+               fused_kernel_entry(
         fused_checks["group_norm_silu"], "group_norm_silu",
         "diffusion_pruning_tpu_torch/csrc/group_norm.cu",
         "diffusion_pruning_tpu/ops/group_norm.py:26", [], "F.group_norm, then F.silu",
@@ -3414,7 +3947,8 @@ def main() -> None:
         f"{fused_serving['img_per_sec']['unfused']:.4f} in turns; 16 prompts by experts "
         f"{expert_serving['img_per_sec']['experts']:.4f} img/s, hybrid "
         f"{expert_serving['img_per_sec']['hybrid']:.4f}, gated "
-        f"{expert_serving['img_per_sec']['gated']:.4f} in turns")
+        f"{expert_serving['img_per_sec']['gated']:.4f} in turns; prune CLI steps/s "
+        f"{stage1['cli_steps_per_sec']}")
     # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from diffusion_pruning_tpu_torch.models.clip_vision import CLIPVisionEncoder
 from diffusion_pruning_tpu_torch.models.hypernet import HyperStructure
 from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
 from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextEncoder, MPNetEncoder
@@ -64,7 +65,20 @@ _MPNET_RULES = (
     (r"^relative_attention_bias$", "encoder.relative_attention_bias.embedding"),
 )
 
-_HYPERNET_RULES = ((r"^head_(\d+)_(kernel|bias)$", r"mh_fc.\1.\2"),)
+_CLIP_VISION_RULES = (
+    (r"^layers_(\d+)_ln1\.", r"vision_model.encoder.layers.\1.layer_norm1."),
+    (r"^layers_(\d+)_ln2\.", r"vision_model.encoder.layers.\1.layer_norm2."),
+    (r"^layers_(\d+)_(q|k|v)\.", r"vision_model.encoder.layers.\1.self_attn.\2_proj."),
+    (r"^layers_(\d+)_out\.", r"vision_model.encoder.layers.\1.self_attn.out_proj."),
+    (r"^layers_(\d+)_(fc1|fc2)\.", r"vision_model.encoder.layers.\1.mlp.\2."),
+    (r"^(class_embedding)$", r"vision_model.embeddings.\1"),
+    (r"^(patch_embedding)\.", r"vision_model.embeddings.\1."),
+    (r"^position_embedding$", "vision_model.embeddings.position_embedding.embedding"),
+    (r"^pre_layernorm\.", "vision_model.pre_layrnorm."),
+    (r"^post_layernorm\.", "vision_model.post_layernorm."),
+)
+
+_HYPERNET_RULES = ((r"^head_(\d+)_(kernel|bias|g)$", r"mh_fc.\1.\2"),)
 
 _QUANTIZER_RULES = ((r"^embedding$", "embedding.embedding"),)
 
@@ -93,6 +107,7 @@ def _leaf(key: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
 def _rules_for(model: nn.Module):
     table = ((GatedUNet, _UNET_RULES), (AutoencoderKL, _VAE_RULES),
              (CLIPTextEncoder, _CLIP_RULES), (MPNetEncoder, _MPNET_RULES),
+             (CLIPVisionEncoder, _CLIP_VISION_RULES),
              (HyperStructure, _HYPERNET_RULES), (StructureQuantizer, _QUANTIZER_RULES))
     for cls, rules in table:
         if isinstance(model, cls):

@@ -12,6 +12,13 @@ Gumbel noise is an explicit argument everywhere. At eval it defaults to
 semantics; the JAX package draws it from `jax.random.PRNGKey(0)` instead, and
 the two give different bits, so the tests hand the JAX noise to the port. In
 training the caller passes it (the train step draws it from its generator).
+
+Options, as in the JAX package: `non_zero_width` (reopen the first unit of a
+width group whose gates all close; default on), `optimal_transport`
+(Sinkhorn assignment in training; off: the argmax of the cosine scores),
+`resource_aware_normalization` (scale the normalised similarity vectors by
+the prunable-MACs template of `core.resource.ResourceModel`). Sinkhorn runs
+with the JAX package's defaults (epsilon 0.05, 3 iterations).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from diffusion_pruning_tpu_torch.core.estimators import (
     importance_gumbel_sigmoid,
     sample_gumbel,
 )
+from diffusion_pruning_tpu_torch.core.resource import ResourceModel
 from diffusion_pruning_tpu_torch.core.sinkhorn import sinkhorn_assign
 from diffusion_pruning_tpu_torch.core.structure import StructureSpec
 
@@ -36,13 +44,18 @@ class StructureQuantizer(nn.Module):
     `embedding_gs` buffer, the snapshot eval routing compares against."""
 
     def __init__(self, spec: StructureSpec, n_e: int = 8, temperature: float = 0.4,
-                 base: float = 2.0, depth_order: Optional[Tuple[int, ...]] = None):
+                 base: float = 2.0, depth_order: Optional[Tuple[int, ...]] = None,
+                 non_zero_width: bool = True, resource_aware_normalization: bool = False,
+                 optimal_transport: bool = True):
         super().__init__()
         self.spec = spec
         self.n_e = n_e
         self.temperature = temperature
         self.base = base
         self.depth_order = depth_order
+        self.non_zero_width = non_zero_width
+        self.resource_aware_normalization = resource_aware_normalization
+        self.optimal_transport = optimal_transport
         self.embedding = nn.Embedding(n_e, spec.vq_dim)
         self.register_buffer("embedding_gs", torch.zeros(n_e, spec.vq_dim))
         gids, first, template, soft_mask, depth_col = self._tables()
@@ -50,6 +63,9 @@ class StructureQuantizer(nn.Module):
                         ("_norm_template", template), ("_soft_mask", soft_mask),
                         ("_depth_col", depth_col), ("_depth_perm", self._perm())):
             self.register_buffer(name, torch.as_tensor(t), persistent=False)
+        self.register_buffer("_macs_template", torch.as_tensor(
+            ResourceModel(spec).prunable_macs_template()) if resource_aware_normalization
+            else None, persistent=False)
 
     def _perm(self) -> np.ndarray:
         """Gather index: depth slot depth_order[i] takes the i-th ranked sample."""
@@ -94,11 +110,13 @@ class StructureQuantizer(nn.Module):
         nw = spec.num_width
         zw, zd = z[:, :nw], z[:, nw:]
         yw = torch.sigmoid((zw + noise[:, :nw] + self.base) / self.temperature)
-        # a width group whose gates all close gets its first unit reopened
-        alive = torch.zeros(z.shape[0], len(spec.width_list), device=z.device, dtype=z.dtype)
-        alive.index_add_(1, self._group_ids, hard_concrete(yw))
-        dead = (alive == 0).to(yw.dtype)
-        yw = yw + 0.5 * dead[:, self._group_ids] * self._group_first[None, :]
+        if self.non_zero_width:
+            # a width group whose gates all close gets its first unit reopened
+            alive = torch.zeros(yw.shape[0], len(spec.width_list), device=z.device,
+                                dtype=z.dtype)
+            alive.index_add_(1, self._group_ids, hard_concrete(yw))
+            dead = (alive == 0).to(yw.dtype)
+            yw = yw + 0.5 * dead[:, self._group_ids] * self._group_first[None, :]
         if spec.num_depth > 0:
             yd = importance_gumbel_sigmoid(zd, noise[:, nw:], self.temperature, self.base)
             return torch.cat([yw, yd[:, self._depth_perm]], dim=1)
@@ -107,11 +125,15 @@ class StructureQuantizer(nn.Module):
     def width_depth_normalize(self, x: torch.Tensor) -> torch.Tensor:
         """Hard-concrete everywhere except the width slabs of depth-gated
         subblocks, which become soft width·depth products; then scale width
-        slots by 1/√group_size."""
+        slots by 1/√group_size (and, with `resource_aware_normalization`,
+        every slot by its prunable MACs)."""
         out = hard_concrete(x)
         sm = self._soft_mask
         out = out * (1.0 - sm) + x * x[:, self._depth_col] * sm
-        return out * self._norm_template
+        out = out * self._norm_template
+        if self._macs_template is not None:
+            out = out * self._macs_template
+        return out
 
     def _scores(self, gates: torch.Tensor, codes_gs: torch.Tensor) -> torch.Tensor:
         u = self.width_depth_normalize(gates)
@@ -145,12 +167,16 @@ class StructureQuantizer(nn.Module):
         noise of the codebook rows and of the logits z. z_q are the
         gumbel-sigmoid'd codebook rows the prompts are assigned to,
         differentiable in `embedding.weight`; the assignment (Sinkhorn over
-        the batch) and the new `embedding_gs` snapshot carry no gradient."""
+        the batch, or the cosine argmax without `optimal_transport`) and the
+        new `embedding_gs` snapshot carry no gradient."""
         embedding_gs = self.gumbel_sigmoid_trick(self.embedding.weight, codebook_noise)
         with torch.no_grad():
             scores = self._scores(self.gumbel_sigmoid_trick(z, gates_noise),
                                   embedding_gs.detach())
-            indices = sinkhorn_assign(scores)
+            if self.optimal_transport:
+                indices = sinkhorn_assign(scores)
+            else:
+                indices = torch.argmax(scores, dim=-1)
         return embedding_gs[indices], indices, embedding_gs.detach()
 
     @torch.no_grad()

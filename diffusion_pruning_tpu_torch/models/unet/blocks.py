@@ -18,6 +18,7 @@ those widths.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch.nn as nn
@@ -86,22 +87,28 @@ class GatedResnetBlock(nn.Module):
 
 
 class GatedTransformer2D(nn.Module):
-    """Spatial transformer: GroupNorm(eps 1e-6) → linear proj_in → one
-    transformer block → proj_out → +residual; the depth gate's identity is
-    the input."""
+    """Spatial transformer: GroupNorm(eps 1e-6) → proj_in → one transformer
+    block → proj_out → +residual; the depth gate's identity is the input.
+    proj_in and proj_out are linear (`use_linear_projection`, SD-2.x) or 1×1
+    convs (SD-1.x, weights (C, C, 1, 1)); only the linear proj_in folds its
+    norm in under `fused_norm_conv`."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, groups: int = 32,
                  use_flash: bool = False, fused_norms: bool = False,
                  fused_norm_conv: bool = False, active_heads1: Optional[int] = None,
-                 active_heads2: Optional[int] = None, active_ff_inner: Optional[int] = None):
+                 active_heads2: Optional[int] = None, active_ff_inner: Optional[int] = None,
+                 use_linear_projection: bool = True):
         super().__init__()
         self.fused_norms, self.fused_norm_conv = fused_norms, fused_norm_conv
+        self.use_linear_projection = use_linear_projection
         self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.proj_in = nn.Linear(channels, channels)
+        proj = nn.Linear if use_linear_projection else functools.partial(nn.Conv2d,
+                                                                         kernel_size=1)
+        self.proj_in = proj(channels, channels)
         self.transformer_blocks = nn.ModuleList([
             GatedTransformerBlock(channels, heads, context_dim, use_flash, active_heads1,
                                   active_heads2, active_ff_inner)])
-        self.proj_out = nn.Linear(channels, channels)
+        self.proj_out = proj(channels, channels)
 
     def forward(self, x, context, gates: Optional[Tuple] = None, depth_gate=None):
         """gates: ((attn1, attn2, ff),) gate slices of the one layer (each
@@ -109,17 +116,24 @@ class GatedTransformer2D(nn.Module):
         b, c, hh, ww = x.shape
         residual = x
         norm = self.norm
-        if self.fused_norm_conv:  # norm (no SiLU) folded into proj_in's input read
+        if self.fused_norm_conv and self.use_linear_projection:
+            # norm (no SiLU) folded into proj_in's input read
             y = group_norm_linear(x.permute(0, 2, 3, 1).reshape(b, hh * ww, c), norm.weight,
                                   norm.bias, self.proj_in.weight, self.proj_in.bias, None,
                                   norm.num_groups, norm.eps)
         else:
             y = (group_norm_silu(x, norm.weight, norm.bias, norm.num_groups, norm.eps, False)
                  if self.fused_norms else norm(x))
-            y = self.proj_in(y.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+            if self.use_linear_projection:
+                y = self.proj_in(y.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
+            else:
+                y = self.proj_in(y).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
         g1, g2, gf = gates[0] if gates is not None else (None, None, None)
         y = self.transformer_blocks[0](y, context, g1, g2, gf)
-        y = self.proj_out(y).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        if self.use_linear_projection:
+            y = self.proj_out(y).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        else:
+            y = self.proj_out(y.reshape(b, hh, ww, c).permute(0, 3, 1, 2))
         out = y + residual
         if depth_gate is not None:
             out = depth_lerp(depth_gate, residual, out)

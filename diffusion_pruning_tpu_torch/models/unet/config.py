@@ -56,6 +56,7 @@ class UNetConfig:
     cross_attention_dim: int = 1024
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
+    # linear proj_in/proj_out (SD-2.x); False = 1×1 convs (SD-1.x)
     use_linear_projection: bool = True
     max_text_len: int = 77
     freq_shift: int = 0
@@ -75,13 +76,10 @@ class UNetConfig:
     fused_norms: bool = False
     # fold GroupNorm(+gate)+SiLU into the input read of the consumer product
     # (ops/norm_conv.py): the resnets' norm→conv3x3 pairs, conv_norm_out→
-    # conv_out and the transformers' norm→proj_in; wins over `fused_norms`
+    # conv_out and the transformers' norm→proj_in (a linear proj_in only;
+    # a 1×1 conv proj_in keeps its norm unfused); wins over `fused_norms`
     # wherever it applies. Both flags keep the unfused state dict
     fused_norm_conv: bool = False
-
-    def __post_init__(self):
-        if not self.use_linear_projection:
-            raise NotImplementedError("only linear proj_in/out (SD-2.x) is ported")
 
     @property
     def num_levels(self) -> int:

@@ -140,7 +140,8 @@ class GatedUNet(nn.Module):
                           ff and ff.kept_channels)
             return GatedTransformer2D(c, heads, cfg.cross_attention_dim, g,
                                       cfg.use_flash_attention, cfg.fused_norms,
-                                      cfg.fused_norm_conv, *active)
+                                      cfg.fused_norm_conv, *active,
+                                      use_linear_projection=cfg.use_linear_projection)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = _TimeEmbedding(b0, temb)

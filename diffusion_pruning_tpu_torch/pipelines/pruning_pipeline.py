@@ -8,6 +8,13 @@ whole trajectory → VAE decode.
 The pipeline owns its modules and places them on `device`: the CUDA card
 unless the caller passes `device="cpu"`. Randomness comes from explicit
 `torch.Generator`s (or explicit latents). Images come back NHWC in [0, 1].
+
+Besides `__call__`: `generate_samples` (a fixed or absent architecture),
+`quantizer_samples` (each codebook entry's), `sample_progressive` (routed
+DDIM with a decoded snapshot every few steps) and `depth_analysis_arch`.
+With a `safety_checker` (`models/safety.SafetyChecker`), `__call__` screens
+the decoded images: flagged ones come back black, and the flags are a fourth
+return value.
 """
 from __future__ import annotations
 
@@ -41,7 +48,8 @@ class PruningPipeline:
                  hypernet: Optional[HyperStructure] = None,
                  quantizer: Optional[StructureQuantizer] = None,
                  schedule: Optional[DiffusionSchedule] = None,
-                 device: Optional[Union[str, torch.device]] = None, sampler: str = "ddim"):
+                 device: Optional[Union[str, torch.device]] = None, sampler: str = "ddim",
+                 safety_checker=None):
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {sorted(SAMPLERS)}, got {sampler!r}")
         self.device = resolve_device(device)
@@ -52,6 +60,7 @@ class PruningPipeline:
         self.quantizer = self._place(quantizer)
         self.schedule = schedule or DiffusionSchedule()
         self.sampler = sampler
+        self.safety_checker = self._place(safety_checker)
 
     def _place(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
         return None if module is None else module.to(self.device).eval()
@@ -83,25 +92,22 @@ class PruningPipeline:
         logits = self.hypernet(feats.to(self.device).float())
         return self.quantizer.forward_eval(logits, noise)
 
-    @torch.inference_mode()
-    def denoise(self, generator: Optional[torch.Generator], prompt_embeds: torch.Tensor,
-                neg_embeds: torch.Tensor, arch: Optional[torch.Tensor],
-                num_inference_steps: int = 50, guidance_scale: float = 7.5,
-                height: Optional[int] = None, width: Optional[int] = None,
-                latents: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """CFG trajectory of `self.sampler`. Initial latents are `latents` if
-        given, else standard normals from `generator` (f32, NHWC)."""
-        cfg = self.unet.cfg
-        vs = self.vae.cfg.spatial_scale
-        b = prompt_embeds.shape[0]
+    def _initial_latents(self, generator: Optional[torch.Generator], b: int,
+                         latents: Optional[torch.Tensor], height: Optional[int] = None,
+                         width: Optional[int] = None) -> torch.Tensor:
+        """`latents` if given, else standard normals from `generator` (f32, NHWC)."""
         if latents is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or the initial latents")
+            cfg, vs = self.unet.cfg, self.vae.cfg.spatial_scale
             h = (height or cfg.sample_size * vs) // vs
             w = (width or cfg.sample_size * vs) // vs
             latents = torch.randn((b, h, w, cfg.in_channels), generator=generator,
                                   device=generator.device)
-        latents = latents.to(self.device, torch.float32)
+        return latents.to(self.device, torch.float32)
+
+    def _model_fn(self, prompt_embeds, neg_embeds, arch, guidance_scale: float):
+        """The CFG U-Net call model_fn(x, t) of one trajectory."""
         do_cfg = guidance_scale > 1.0
         ehs = torch.cat([neg_embeds, prompt_embeds]) if do_cfg else prompt_embeds
 
@@ -112,6 +118,19 @@ class PruningPipeline:
                 return uncond + guidance_scale * (cond - uncond)
             return self.unet(x, t, ehs, arch=arch)
 
+        return model_fn
+
+    @torch.inference_mode()
+    def denoise(self, generator: Optional[torch.Generator], prompt_embeds: torch.Tensor,
+                neg_embeds: torch.Tensor, arch: Optional[torch.Tensor],
+                num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                height: Optional[int] = None, width: Optional[int] = None,
+                latents: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """CFG trajectory of `self.sampler`. Initial latents are `latents` if
+        given, else standard normals from `generator` (f32, NHWC)."""
+        latents = self._initial_latents(generator, prompt_embeds.shape[0], latents, height,
+                                        width)
+        model_fn = self._model_fn(prompt_embeds, neg_embeds, arch, guidance_scale)
         return self._sampler().sample(model_fn, latents, num_inference_steps)
 
     @torch.inference_mode()
@@ -128,7 +147,9 @@ class PruningPipeline:
                  output_type: str = "pil", height: Optional[int] = None,
                  width: Optional[int] = None, latents: Optional[torch.Tensor] = None,
                  route_noise: Optional[torch.Tensor] = None):
-        """Routed generation → (images, expert_indices, resource_ratios)."""
+        """Routed generation → (images, expert_indices, resource_ratios), and
+        the safety checker's flags (B,) fourth when one is set (flagged
+        images black)."""
         prompt_embeds = self.encode_prompt(input_ids)
         neg_embeds = self.encode_prompt(neg_input_ids)
         arch, indices = self.route(prompt_embeds, hyper_net_input, route_noise)
@@ -136,6 +157,9 @@ class PruningPipeline:
                            guidance_scale, height, width, latents)
         ratios = ResourceModel(self.unet.spec).resource_ratio(arch)
         images = self.decode(out) if output_type != "latent" else out
+        if self.safety_checker is not None and output_type != "latent":
+            images, nsfw = self.safety_checker(images)
+            return images, indices, ratios, nsfw
         return images, indices, ratios
 
     def generate_samples(self, input_ids, neg_input_ids, generator=None, arch=None,
@@ -158,3 +182,33 @@ class PruningPipeline:
         arch = codes[torch.as_tensor(list(expert_ids), device=self.device)]
         return self.generate_samples(input_ids, neg_input_ids, generator, arch,
                                      num_inference_steps, guidance_scale, latents)
+
+    def sample_progressive(self, input_ids, neg_input_ids, generator=None,
+                           hyper_net_input=None, num_inference_steps=50, guidance_scale=7.5,
+                           snapshot_every=10, latents=None, route_noise=None):
+        """Routed DDIM generation that decodes the latents every
+        `snapshot_every` steps → (snapshots: a list of (B, H, W, 3) images,
+        the last after the final step; expert indices). The trajectory is
+        `__call__`'s under DDIM, run in chunks."""
+        prompt_embeds = self.encode_prompt(input_ids)
+        neg_embeds = self.encode_prompt(neg_input_ids)
+        arch, indices = self.route(prompt_embeds, hyper_net_input, route_noise)
+        x = self._initial_latents(generator, prompt_embeds.shape[0], latents)
+        model_fn = self._model_fn(prompt_embeds, neg_embeds, arch, guidance_scale)
+        sampler = DDIMSampler(self.schedule)
+        ts = sampler.timesteps(num_inference_steps).tolist()
+        snaps = []
+        with torch.inference_mode():
+            for start in range(0, num_inference_steps, snapshot_every):
+                x = sampler.run(model_fn, x, ts[start:start + snapshot_every],
+                                num_inference_steps)
+                snaps.append(self.decode(x))
+        return snaps, indices
+
+    def depth_analysis_arch(self, depth_indices: Sequence[int], batch: int = 1) -> torch.Tensor:
+        """All-ones arch (batch, vq_dim) with the given depth gates zeroed."""
+        spec = self.unet.spec
+        arch = torch.ones(batch, spec.vq_dim, device=self.device)
+        for d in depth_indices:
+            arch[:, spec.num_width + d] = 0.0
+        return arch

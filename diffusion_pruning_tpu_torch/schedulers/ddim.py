@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -32,11 +32,21 @@ class DDIMSampler:
                latents: torch.Tensor, num_inference_steps: int = 50) -> torch.Tensor:
         """model_fn(latents, t_batch) -> model output (ε or v, per schedule);
         CFG combination happens inside model_fn."""
+        return self.run(model_fn, latents, self.timesteps(num_inference_steps).tolist(),
+                        num_inference_steps)
+
+    @torch.no_grad()
+    def run(self, model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+            latents: torch.Tensor, timesteps: Sequence[int],
+            num_inference_steps: int) -> torch.Tensor:
+        """The DDIM updates at `timesteps`, a run of consecutive entries of
+        `self.timesteps(num_inference_steps)` (a whole trajectory or a chunk
+        of one)."""
         sched = self.schedule
         ratio = sched.num_train_timesteps // num_inference_steps
         ac = sched.alphas_cumprod
         x = latents
-        for t in self.timesteps(num_inference_steps).tolist():
+        for t in timesteps:
             t_b = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
             out = model_fn(x, t_b)
             # f32 update, as the JAX package's f32 coefficients promote it

@@ -24,7 +24,18 @@ drawn from an explicit `torch.Generator` on the step's device:
 
 A batch holds `input_ids` (B, 77), `mpnet_embeddings` (B, D) and either
 `pixel_values` (B, H, W, 3) or the latent-cache moments `latent_mean` and
-`latent_logvar` (B, h, w, 4).
+`latent_logvar` (B, h, w, 4). Under the hypernet's `single_arch_param` the
+gumbel draws of the router (`gumbel`, `gates_gumbel`) have one row, as its
+logits do.
+
+Gradient accumulation (`accum_steps` > 1, the original APTP code's
+`gradient_accumulation_steps`): the batch splits into that many equal
+micro-batches, each its own forward and backward (Sinkhorn and the
+contrastive loss span one micro-batch); the loss terms and the gradients
+are their means, the codebook snapshot is the last micro-batch's, and the
+per-sample outputs cover the whole batch. The skip test and the update run
+once, on the mean gradients, and the warmup advances once. `draws` is then a
+list with one mapping per micro-batch.
 
 Stage boundaries: a step called with `mark=fn` calls fn(name) as each stage
 ends, in this order: "encode", "router", "teacher", "student", "losses",
@@ -157,6 +168,7 @@ def complete_draws(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
         lat = (b, px.shape[1] // vcfg.spatial_scale, px.shape[2] // vcfg.spatial_scale,
                vcfg.latent_channels)
     vq = mods.quantizer.spec.vq_dim
+    rows = 1 if mods.hypernet.single_arch_param else b  # the router's logits
     max_t = cfg.max_scheduler_steps or mods.schedule.num_train_timesteps
 
     def normal(shape):
@@ -167,9 +179,9 @@ def complete_draws(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
         "noise": lambda: normal(lat),
         "timesteps": lambda: torch.randint(0, max_t, (b,), generator=generator,
                                            device=generator.device),
-        "gumbel": lambda: sample_gumbel((b, vq), generator),
+        "gumbel": lambda: sample_gumbel((rows, vq), generator),
         "codebook_gumbel": lambda: sample_gumbel((mods.quantizer.n_e, vq), generator),
-        "gates_gumbel": lambda: sample_gumbel((b, vq), generator),
+        "gates_gumbel": lambda: sample_gumbel((rows, vq), generator),
     }
     if cfg.noise_offset:
         makers["noise_offset"] = lambda: normal((b, 1, 1, lat[-1]))
@@ -217,6 +229,8 @@ def compute_losses(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
     z_q, indices, embedding_gs = q.forward_train(logits, draws["codebook_gumbel"],
                                                  draws["gates_gumbel"])
     gates = q.gumbel_sigmoid_trick(logits, draws["gumbel"])
+    if mods.hypernet.single_arch_param:  # one arch vector, tiled over the batch
+        gates = gates.expand(text_emb.shape[0], -1)
     c_loss, arch_sim = contrastive_loss(text_emb, q.width_depth_normalize(gates),
                                         cfg.prompt_temperature, cfg.arch_temperature)
     arch_used = gates if pretrain else z_q
@@ -268,11 +282,28 @@ def _global_norm(grads) -> torch.Tensor:
                                                  for g in grads]))
 
 
+def _micro_batches(batch, draws, accum_steps: int):
+    """[(micro-batch, its draws)]: the batch split into `accum_steps` equal
+    parts along the batch axis, with `draws` a list of one mapping each (or
+    None)."""
+    if accum_steps == 1:
+        return [(batch, draws)]
+    b = batch["input_ids"].shape[0]
+    if b % accum_steps:
+        raise ValueError(f"batch {b} does not split into {accum_steps} micro-batches")
+    draws = [None] * accum_steps if draws is None else list(draws)
+    if len(draws) != accum_steps:
+        raise ValueError(f"pass one draws mapping per micro-batch ({accum_steps})")
+    parts = {k: v.chunk(accum_steps) for k, v in batch.items()}
+    return [({k: p[i] for k, p in parts.items()}, draws[i]) for i in range(accum_steps)]
+
+
 def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.optim.Optimizer,
-                     pretrain: bool = False) -> Callable:
+                     pretrain: bool = False, accum_steps: int = 1) -> Callable:
     """The train step: step(batch, draws=None, generator=None) -> (metrics,
-    aux), with an optional `mark` (module docstring). pretrain=True trains on the hypernet's own gates, else on the
-    codebook rows z_q.
+    aux), with an optional `mark` (module docstring). pretrain=True trains on
+    the hypernet's own gates, else on the codebook rows z_q; `accum_steps`
+    splits the batch into micro-batches (module docstring).
 
     It updates the hypernet and codebook in place through `optimizer` (from
     `make_optimizer`) and writes the codebook snapshot into
@@ -285,16 +316,23 @@ def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.op
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(batch, draws=None, generator=None, mark=_no_mark):
-        draws = complete_draws(mods, cfg, batch, draws, generator)
         optimizer.zero_grad(set_to_none=True)
-        loss, aux = compute_losses(mods, cfg, batch, draws, pretrain, p_actual, mark)
-        loss.backward()
-        mark("backward")
+        auxes = []
+        for mb, mb_draws in _micro_batches(batch, draws, accum_steps):
+            mb_draws = complete_draws(mods, cfg, mb, mb_draws, generator)
+            loss, aux = compute_losses(mods, cfg, mb, mb_draws, pretrain, p_actual, mark)
+            loss.backward()
+            mark("backward")
+            auxes.append(aux)
         for p in params:  # a parameter the loss does not reach gets a zero update
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif accum_steps > 1:
+                p.grad.div_(accum_steps)
+        terms = {k: sum(a[k].detach() for a in auxes) / accum_steps if accum_steps > 1
+                 else auxes[0][k].detach() for k in LOSS_TERMS}
         gnorm = _global_norm([p.grad for p in params])
-        skipped = not bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        skipped = not bool(torch.isfinite(terms["loss"]) & torch.isfinite(gnorm))
         if not skipped:
             for group in optimizer.param_groups:
                 if cfg.max_grad_norm:
@@ -305,13 +343,13 @@ def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.op
                 group["lr"] = warmup_lr(cfg, group["peak_lr"], _applied_updates(optimizer, group))
             optimizer.step()
         with torch.no_grad():
-            mods.quantizer.embedding_gs.copy_(aux["embedding_gs"])
+            mods.quantizer.embedding_gs.copy_(auxes[-1]["embedding_gs"])
         mark("optimizer")
-        metrics = {k: aux[k].detach() for k in LOSS_TERMS}
-        metrics["grad_norm"] = gnorm
-        metrics["skipped"] = skipped
-        return metrics, {"expert_indices": aux["expert_indices"],
-                         "batch_resource_ratios": aux["batch_resource_ratios"].detach()}
+        metrics = dict(terms, grad_norm=gnorm, skipped=skipped)
+        return metrics, {
+            "expert_indices": torch.cat([a["expert_indices"] for a in auxes]),
+            "batch_resource_ratios": torch.cat([a["batch_resource_ratios"].detach()
+                                                for a in auxes])}
 
     return step
 

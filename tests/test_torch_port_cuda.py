@@ -591,3 +591,78 @@ def test_cuda_kernels_write_every_element_they_read_back(monkeypatch, route):
     for first, second in zip(*results):
         assert torch.isfinite(first).all()
         assert torch.equal(first, second)
+
+
+# ---------------------------------------------------------------- stage 1 as a program
+
+def _attention_sites_of_wide_tiny():
+    """(s_q, s_kv, heads) of every attention site of the tiny U-Net widened to
+    64-wide heads, at the prune entry point's 32×32 latents (64px through
+    the tiny VAE's 2× downsampling): five transformers at 32×32 with one
+    head, the mid block's at 16×16 with two."""
+    return [(1024, 1024, 1)] * 5 + [(1024, 77, 1)] * 5 + [(256, 256, 2), (256, 77, 2)]
+
+
+def test_cuda_prune_cli_runs_two_steps_through_the_attention_kernels(tmp_path, monkeypatch):
+    """The prune entry point on the card, configs/pruning/tiny_smoke.yaml cut
+    to 2 steps (one pretraining), B = 2, synthetic data. The tiny U-Net's
+    heads are 16 wide and the kernels take 64, so the factory's U-Net config
+    is widened to (64, 128) channels with 1 and 2 heads. Every step runs the
+    kernels: 12 forwards with lse (the student), 12 without (the teacher) and
+    the backward kernels `backward_plan` picks at each site; finite losses
+    and a checkpoint."""
+    import functools
+    import json
+    import math
+    import os
+
+    from diffusion_pruning_tpu_torch.cli import prune
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.training import factory
+    from diffusion_pruning_tpu_torch.training import loop as loop_module
+    from diffusion_pruning_tpu_torch.training.loop import LoopConfig
+    from diffusion_pruning_tpu_torch.utils.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "pruning", "tiny_smoke.yaml"))
+    for key, value in (("training.max_train_steps", 2), ("training.hypernet_pretraining_steps", 1),
+                       ("training.logging.logging_dir", str(tmp_path / "runs")),
+                       ("training.logging.export_unet", False)):
+        cfg.set_path(key, value)
+    cfg.dump(str(tmp_path / "tiny.yaml"))
+    wide = UNetConfig.tiny(block_out_channels=(64, 128), attention_head_dim=(1, 2),
+                           use_flash_attention=True)
+    monkeypatch.setattr(factory, "unet_config_from_yaml", lambda c, tiny=False: wide)
+    monkeypatch.setattr(loop_module, "LoopConfig", functools.partial(LoopConfig, log_every=1))
+    wrappers = (gated_flash_attention, gated_flash_forward_lse, gated_flash_bwd_fused,
+                gated_flash_bwd_reduce, gated_flash_bwd_dq, gated_flash_bwd_dkv)
+    for w in wrappers:
+        w.launches = 0
+    loop = prune.main(["--base_config_path", str(tmp_path / "tiny.yaml"),
+                       "--pretrained_model_name_or_path", "", "--wandb_run_name", "r"])
+    want = {"gated_flash_attention": 12, "gated_flash_forward_lse": 12}
+    for s_q, s_kv, h in _attention_sites_of_wide_tiny():
+        for name, n in backward_plan(2, h, s_q, s_kv).launches.items():
+            want[name] = want.get(name, 0) + n
+    got = {w.__name__: w.launches for w in wrappers}
+    assert got == {name: 2 * want.get(name, 0) for name in got}
+    assert loop.global_step == 2 and loop.ckpt.list_steps() == [2]
+    with open(os.path.join(loop.run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert [m["step"] for m in lines] == [1, 2]
+    assert all(math.isfinite(m["loss"]) and not m["skipped"] for m in lines)
+
+
+def test_cuda_safetensors_round_trip(tmp_path):
+    """CUDA tensors (bf16, strided) written by the export come back from
+    `load_torch_state_dict` equal, in f32, on the host."""
+    from diffusion_pruning_tpu_torch.utils import export
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tensors = {"f32": torch.randn(5, 3, device="cuda", generator=g),
+               "bf16": torch.randn(4, 64, device="cuda", generator=g).bfloat16(),
+               "strided": torch.randn(6, 4, device="cuda", generator=g).t()}
+    export._save(str(tmp_path), "X", {}, tensors)
+    back = export.load_torch_state_dict(str(tmp_path))
+    for k, v in tensors.items():
+        assert back[k].device.type == "cpu" and back[k].dtype == torch.float32
+        assert torch.equal(back[k], v.float().cpu()), k

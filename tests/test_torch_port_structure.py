@@ -97,13 +97,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers")
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers", "yaml",
+                                            "PIL", "safetensors", "wandb")
                      or m == "diffusion_pruning_tpu"
                      or m.startswith("diffusion_pruning_tpu."))
         serving_modules = {"diffusion_pruning_tpu_torch.models.unet.pruned",
                    "diffusion_pruning_tpu_torch.pipelines.expert_server",
                    "diffusion_pruning_tpu_torch.schedulers.pndm",
-                   "diffusion_pruning_tpu_torch.schedulers.dpm"}
+                   "diffusion_pruning_tpu_torch.schedulers.dpm",
+                   "diffusion_pruning_tpu_torch.cli.prune",
+                   "diffusion_pruning_tpu_torch.training.loop",
+                   "diffusion_pruning_tpu_torch.training.factory",
+                   "diffusion_pruning_tpu_torch.models.clip_vision",
+                   "diffusion_pruning_tpu_torch.models.safety",
+                   *("diffusion_pruning_tpu_torch.utils." + m for m in (
+                       "config", "arg_utils", "logging_utils", "checkpoint", "export"))}
         print(len(names), bad, sorted(serving_modules - set(names)))
         sys.exit(1 if bad or len(names) < 20 or not serving_modules <= set(names) else 0)
     """)
@@ -206,8 +214,13 @@ def test_kernel_wrapper_rejects_other_devices():
 
 @pytest.mark.parametrize("override", [dict(use_linear_projection=False)])
 def test_unported_config_options_are_refused(override):
-    with pytest.raises(NotImplementedError):
-        UNetConfig.tiny(**override)
+    """No option of the JAX package's UNetConfig is refused any more: the
+    last one, `use_linear_projection=False` (1×1-conv proj_in/proj_out),
+    builds with the diffusers conv weights (C, C, 1, 1)."""
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    sd = GatedUNet(UNetConfig.tiny(**override)).state_dict()
+    assert sd["down_blocks.0.attentions.0.proj_in.weight"].shape == (32, 32, 1, 1)
+    assert sd["mid_block.attentions.0.proj_out.weight"].shape == (64, 64, 1, 1)
 
 
 @pytest.mark.parametrize("override", [dict(fused_norms=True), dict(fused_norm_conv=True),
