@@ -167,11 +167,37 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   and the U-Net with 1×1-conv projections against f32 (<=
                   UNET_REL_L2), plain and under `fused_norm_conv` (no
                   `norm_linear` launch); seconds by part, the CLI's steps/s
-                  and peak memory on a summary line; the written files are
-                  removed;
+                  and peak memory on a summary line (its stage-1 run starts
+                  from a codebook biased toward pruning, quantizer_base 0,
+                  so that its rows prune as a trained router's would);
+ 14. stage 2 as a program — the finetune entry point on a YAML derived from
+                  configs/finetuning/sd-2-1_coco2014.yaml (synthetic data,
+                  B = 128 at 256px, v-prediction, min-SNR γ 5, AdamW at
+                  1e-5 × √128) on phase 13's weights, fine-tuning the row of
+                  phase 13's codebook with the least MACs ratio (below
+                  FT_MACS_MAX): run 1 in a subprocess for 3 steps
+                  (validation at step 3, checkpoint-3 with arch_vector.pt,
+                  the model card), run 2 in this process resumes `latest`
+                  to step 7 with --use_ema and 2 micro-batches of 64 a step
+                  (validation at step 6):
+                  its resumed state equal bit for bit to run 1's saved one,
+                  arch_vector.pt equal to the codebook row, the teacher's
+                  weights unchanged bit for bit, the student a bf16 copy of
+                  f32 masters, each step's launches those of `forward_plan`
+                  and `backward_plan` at the expert's kept heads; a B = 8
+                  step's student gradients through the kernels against
+                  plain attention (cosine per leaf > GRAD_COS, and a planted
+                  fault, dk dropped, below it); the training forward and the
+                  backward kernels at each of the expert's shapes at B = 64
+                  (run 2's micro-batch) and B = 128 (run 1's batch) against
+                  their plain versions and timed beside their bound;
+                  the magnitude baseline in a subprocess for 2 steps of 32;
+                  seconds by part, step times, samples/s, the loop's steps/s
+                  and peak memory on a summary line; phase 13's and 14's written
+                  files are removed;
 then a `kernels` JSON line (every kernel of the paths, each with its
-launches in the runs of phases 5, 8, 11, 12 and 13) and, last, the device
-JSON line.
+launches in the runs of phases 5, 8, 11, 12, 13 and 14) and, last, the
+device JSON line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
 are captured into a CUDA graph whose replay is timed (`device_ms`); they run
@@ -970,12 +996,12 @@ def fused_kernel_alone(q, k, v, gate, o, lse, do):
     b, s_q, h, d = q.shape
     plan = fa.backward_plan(b, h, s_q, k.shape[1])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    part = torch.empty(plan.dgate_parts[0], device=q.device)
+    part = None if gate is None else torch.empty(plan.dgate_parts[0], device=q.device)
     ws = (None if plan.workspace_shape is None
           else torch.empty(plan.workspace_shape, device=q.device))
     build.launch("gated_flash_bwd_fused", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), build.ptr(gate), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), build.ptr(ws), part.data_ptr(), b, h, s_q,
+                 dk.data_ptr(), dv.data_ptr(), build.ptr(ws), build.ptr(part), b, h, s_q,
                  k.shape[1], plan.chunks, plan.blocks, d ** -0.5)
     return dq, ws, part
 
@@ -3038,11 +3064,13 @@ def serve_experts(pipe, mpnet, unet, device):
 
 
 def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
-                  expert_counts, expert_check, cli_counts):
+                  expert_counts, expert_check, cli_counts, ft_counts, ft_totals):
     """One forward kernel's line: its share of the phase-3 sites (by
     `forward_kernel`) and of the phase-7 training sites, its launches in the
-    serving, train-step, expert-serving and prune-CLI (run 2) runs, its
-    device time over one expert forward's sites (phase 12)."""
+    serving, train-step, expert-serving, prune-CLI (run 2) and finetune-CLI
+    (run 2) runs, its device time over one expert forward's sites (phase 12)
+    and, with lse, over the fine-tuned expert's sites at each batch phase 14
+    times (null where the expert has no site of this kernel)."""
     from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
     mine = [r for r in rows if r["kernel"] == name]
     mine_train = [r for r in train_rows if forward_kernel(r["s_q"], r["s_kv"]) == name]
@@ -3053,7 +3081,8 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
               if r["bound_by"] == "operations")
     key = f"kernel:{name}"
     by_path = {"serving": serve_counts[key], "train_step": train_launches[key],
-               "serving_experts": expert_counts[key], "stage1_cli": cli_counts[key]}
+               "serving_experts": expert_counts[key], "stage1_cli": cli_counts[key],
+               "finetune": ft_counts[key]}
     small = name == "gated_flash_fwd_small"
     return {
         "name": name, "route": "cuda",
@@ -3079,15 +3108,30 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
                              "lse_max_abs_err": train_check["worst"]["lse_max_abs"],
                              "library_call": "F.scaled_dot_product_attention forward of "
                                              "pre-masked q/k/v under autograd"},
+        "finetune_path": {**{f"b{b}": finetune_reading(t, f"{name}_lse")
+                             for b, t in sorted(ft_totals.items())},
+                          "shapes": "with lse, no gate, at the kept heads of the fine-tuned "
+                                    "expert's attention sites, at run 2's micro-batch (B = "
+                                    f"{FT_B // FT_ACCUM}) and run 1's batch (B = {FT_B}), "
+                                    "phase 14"},
     }
+
+
+def finetune_reading(totals, kind):
+    """A kernel's device ms and bound summed over the fine-tuned expert's
+    sites where it runs at one batch (phase 14); null where it runs at none,
+    since nothing was timed."""
+    sites = int(totals.get(f"{kind}_sites", 0))
+    return {"ms": totals[f"{kind}_ms"] if sites else None,
+            "bound_ms": totals[f"{kind}_bound_ms"] if sites else None, "sites": sites}
 
 
 def expert_path_entry(expert_ms, name, gated_ms=None):
     """A kernel's device ms over the sites of one expert forward (256px,
     B_eff 8, kept widths; the mean over the experts), beside the gated
-    U-Net's where measured."""
-    return {"ms_per_forward_mean_over_experts": expert_ms.get(name, 0.0),
-            **({"gated_ms_per_forward": gated_ms.get(name, 0.0)} if gated_ms else {}),
+    U-Net's where measured; null where the profile shows no launch of it."""
+    return {"ms_per_forward_mean_over_experts": expert_ms.get(name),
+            **({"gated_ms_per_forward": gated_ms.get(name)} if gated_ms else {}),
             "shapes": "the sites of one expert forward at 256px, B_eff 8 (torch.profiler "
                       "kernel times, phase 12)"}
 
@@ -3103,11 +3147,13 @@ def fused_kernel_entry(check, name, source, replaces, also, library_call, launch
             "shapes": "the sites of one SD-2.1 U-Net forward at 256px, B_eff 16, bf16"}
 
 
-def backward_entries(train_rows, train_check, train_launches, cli_counts):
+def backward_entries(train_rows, train_check, train_launches, cli_counts, ft_counts, ft_totals):
     """The backward kernels' lines: each kernel's times summed over the
     sites of one student pass where `backward_plan` runs it, its launches in
-    the train-step run and the prune CLI's run 2, its worst readings on its
-    route's phase-7 cases."""
+    the train-step run, the prune CLI's run 2 and the finetune CLI's run 2,
+    its worst readings on its route's phase-7 cases, and its times over the
+    fine-tuned expert's sites at each batch phase 14 times (no gate; null
+    where `backward_plan` runs it at none of them)."""
     src = "diffusion_pruning_tpu_torch/csrc/gated_flash_bwd.cu"
     fa_py = "diffusion_pruning_tpu/ops/flash_attention.py"
     one, two = (train_check["worst_by_route"][r] for r in ("one_pass", "two_kernel"))
@@ -3126,9 +3172,16 @@ def backward_entries(train_rows, train_check, train_launches, cli_counts):
     for name, kind, line, also, role, max_abs, rel, dgate, library in spec:
         entry = {"name": name, "route": "cuda", "source": src, "replaces": f"{fa_py}:{line}",
                  "also_replaces": [f"{fa_py}:{n}" for n in also], "role": role,
-                 "launches": train_launches[name] + cli_counts[name],
+                 "launches": train_launches[name] + cli_counts[name] + ft_counts[name],
                  "launches_by_path": {"train_step": train_launches[name],
-                                      "stage1_cli": cli_counts[name]},
+                                      "stage1_cli": cli_counts[name],
+                                      "finetune": ft_counts[name]},
+                 "finetune_path": {**{f"b{b}": finetune_reading(t, kind)
+                                      for b, t in sorted(ft_totals.items())},
+                                   "shapes": "no gate, at the kept heads of the fine-tuned "
+                                             "expert's attention sites, at run 2's micro-batch "
+                                             f"(B = {FT_B // FT_ACCUM}) and run 1's batch "
+                                             f"(B = {FT_B}), phase 14"},
                  "max_abs_err": max_abs,
                  "rel_l2_worst_head": rel, "dgate_rel_worst": dgate,
                  **training_entry(train_rows, kind, "reduce_plain_ms" if kind == "reduce"
@@ -3277,6 +3330,11 @@ PROGRESSIVE_EVERY = 10        # snapshots of the DDIM-25 progressive trajectory
 # the last snapshot against __call__ with the same latents and routing noise:
 # the same kernels on the same batch, so every element is expected to repeat
 PROGRESSIVE_MAX_ABS = 0.0
+# the stage-1 run starts from a codebook whose gates open half the time
+# (quantizer_base 0 in place of 3): 6 steps cannot train a router to its 0.6
+# target, and a codebook biased open keeps every unit (MACs ratio 0.99-1.0),
+# which leaves phase 14 no pruned expert to fine-tune
+STAGE1_QUANTIZER_BASE = 0.0
 LOSS_KEYS = ("loss", "diffusion_loss", "distillation_loss", "block_loss", "contrastive_loss",
              "resource_loss", "resource_ratio", "grad_norm")
 
@@ -3485,10 +3543,12 @@ def check_cli_runs(weights, device):
 
     parts = {}
     yaml1 = stage1_yaml(os.path.join(STAGE1_DIR, "run1", "sd21_prune.yaml"), **{
+        "model.quantizer.quantizer_base": STAGE1_QUANTIZER_BASE,
         "training.max_train_steps": CLI_STEPS[0], "training.hypernet_pretraining_steps": 1,
         "training.validation_steps": CLI_STEPS[0], "training.image_logging_steps": CLI_STEPS[0],
         "training.logging.export_unet": False})
     yaml2 = stage1_yaml(os.path.join(STAGE1_DIR, "run2", "sd21_prune.yaml"), **{
+        "model.quantizer.quantizer_base": STAGE1_QUANTIZER_BASE,
         "training.max_train_steps": CLI_STEPS[1], "training.hypernet_pretraining_steps": 1,
         "training.validation_steps": CLI_STEPS[0], "training.image_logging_steps": CLI_STEPS[0],
         "training.gradient_accumulation_steps": CLI_ACCUM,
@@ -3559,7 +3619,7 @@ def check_cli_runs(weights, device):
              f"{[m['step'] for m in vals]}; non-finite, skipped or not {TRAIN_B} routed at {bad}")
     if len(steps) != CLI_STEPS[1] - CLI_STEPS[0]:
         fail(f"run 2 took {len(steps)} steps")
-    row = {"phase": "stage1_cli", "batch": TRAIN_B, "resolution": 256,
+    row = {"phase": "stage1_cli", "batch": TRAIN_B, "resolution": 256, "run_dir": run_dir,
            "run2_micro_batches": CLI_ACCUM, "resumed_step": resumed["step"],
            "resumed_state_equal_to_run1_saved": True, "unet_export_equal_to_loaded": True,
            "unet_export_tensors": len(out), "rotation_left": ckpt.list_steps(),
@@ -3722,7 +3782,9 @@ def check_conv_projection(cfg, device, gen):
 
 
 def stage1_program(pipe, mpnet, device):
-    """Phase 13: stage 1 as a user runs it, and the rest of the pipeline."""
+    """Phase 13: stage 1 as a user runs it, and the rest of the pipeline. The
+    written folder (weights and the stage-1 run) stays for phase 14; the
+    caller removes it."""
     import shutil
     import torch
     from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
@@ -3733,30 +3795,511 @@ def stage1_program(pipe, mpnet, device):
     t0 = time.perf_counter()
     nbytes = write_sd_weights(weights, device)
     parts["write_weights"] = time.perf_counter() - t0
-    try:
-        cli, cli_counts = check_cli_runs(weights, device)
-        parts.update(cli["seconds_by_part"])
-        torch.backends.cudnn.allow_tf32 = True  # serving as phase 5 serves
-        t0 = time.perf_counter()
-        images, ids, neg, kw = check_progressive(pipe, mpnet, device)
-        parts["progressive"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        check_safety(pipe, images, ids, neg, kw, device)
-        parts["safety"] = time.perf_counter() - t0
-        torch.backends.cudnn.allow_tf32 = False  # the f32 reference in full f32
-        t0 = time.perf_counter()
-        conv = check_conv_projection(UNetConfig.sd21(256, use_linear_projection=False), device,
-                                     torch.Generator(device=device).manual_seed(SEED + 16))
-        parts["conv_projection"] = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(STAGE1_DIR, ignore_errors=True)
+    cli, cli_counts = check_cli_runs(weights, device)
+    parts.update(cli["seconds_by_part"])
+    torch.backends.cudnn.allow_tf32 = True  # serving as phase 5 serves
+    t0 = time.perf_counter()
+    images, ids, neg, kw = check_progressive(pipe, mpnet, device)
+    parts["progressive"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check_safety(pipe, images, ids, neg, kw, device)
+    parts["safety"] = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = False  # the f32 reference in full f32
+    t0 = time.perf_counter()
+    conv = check_conv_projection(UNetConfig.sd21(256, use_linear_projection=False), device,
+                                 torch.Generator(device=device).manual_seed(SEED + 16))
+    parts["conv_projection"] = time.perf_counter() - t0
     summary = {"phase": "stage1_program_summary", "weights_written_gib": nbytes / 2 ** 30,
+               "weights": weights, "run_dir": cli["run_dir"],
                "seconds_by_part": parts, "cli_steps_per_sec": cli["cli_steps_per_sec"],
                "cli_run2_peak_memory_gib": cli["run2_peak_memory_gib"],
                "conv_projection_rel_l2": {k: conv[k]["rel_l2_vs_f32"]
                                           for k in ("unfused", "fused_norm_conv")}}
     emit(summary)
     return summary, cli_counts
+
+
+# ---------------------------------------------------------------- phase 14
+
+FT_DIR = os.path.join(STAGE1_DIR, "finetune")  # under phase 13's folder; removed with it
+FT_STEPS = (3, 7)          # run 1 ends at step 3; run 2 resumes it to step 7 (3 warm steps)
+FT_B = 128                 # configs/finetuning/sd-2-1_coco2014.yaml's train_batch_size
+FT_ACCUM = 2               # run 2's micro-batches a step (2 × 64)
+FT_GRAD_B = 8              # the gradient check's batch
+FT_MACS_MAX = 0.75         # the fine-tuned expert's MACs ratio lies below this
+FT_BASELINE_STEPS = 2
+FT_BASELINE_B = 32         # the baseline's batch: a check of the entry point, not a reading
+FT_LOSS_KEYS = ("loss", "diffusion_loss", "distillation_loss", "block_loss", "grad_norm")
+
+
+RUN1_PEAK = ("import runpy, sys, torch; sys.argv[0] = 'finetune'; "
+             "runpy.run_module('diffusion_pruning_tpu_torch.cli.finetune', run_name='__main__', "
+             "alter_sys=True); "
+             "print('peak_memory_gib', torch.cuda.max_memory_allocated() / 2 ** 30)")
+
+
+def finetune_yaml(path, **changes):
+    """configs/finetuning/sd-2-1_coco2014.yaml with `changes` (dotted paths)
+    and no data_dir, read and written by the port's own YAML code."""
+    from diffusion_pruning_tpu_torch.utils.config import load_config
+    cfg = load_config(os.path.join(HERE, "configs", "finetuning", "sd-2-1_coco2014.yaml"))
+    cfg.set_path("data.data_dir", None)
+    cfg.set_path("training.logging.logging_dir", os.path.join(FT_DIR, "runs"))
+    for key, value in changes.items():
+        cfg.set_path(key, value)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    cfg.dump(path)
+    return path
+
+
+def pick_expert(pruning_dir):
+    """The codebook row of the stage-1 run's latest checkpoint with the least
+    MACs ratio: (row index, ratio, row, plan, every row's ratio)."""
+    from diffusion_pruning_tpu_torch.core.structure import build_structure
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.models.unet.pruned import expert_macs_ratio, make_expert_plan
+    from diffusion_pruning_tpu_torch.utils.checkpoint import (latest_checkpoint_dir,
+                                                              load_torch_artifact)
+    spec = build_structure(UNetConfig.sd21(256))
+    rows = load_torch_artifact(os.path.join(latest_checkpoint_dir(pruning_dir),
+                                            "quantizer_embeddings.pt"))
+    ratios = [expert_macs_ratio(spec, make_expert_plan(spec, r)) for r in rows]
+    e = min(range(len(ratios)), key=ratios.__getitem__)
+    if not ratios[e] < FT_MACS_MAX:
+        fail(f"no codebook row of {pruning_dir} lies below MACs ratio {FT_MACS_MAX}: {ratios}")
+    return e, ratios[e], rows[e], make_expert_plan(spec, rows[e]), ratios
+
+
+def expert_attention_sites(cfg, plan):
+    """(S_q, S_kv, kept heads) of each attention site the expert runs."""
+    out = []
+    for sb in plan.subblocks:
+        if sb.kind == "transformer" and not sb.dropped:
+            s = site_tokens(cfg, sb.name)
+            out += [(s, s, len(sb.site("attn1").kept)), (s, 77, len(sb.site("attn2").kept))]
+    return out
+
+
+def finetune_step_launches(cfg, plan, b, micro):
+    """Each attention wrapper's and forward kernel's launches in one step of
+    `micro` micro-batches of `b`: the teacher's 32 lse-free forwards at dense
+    heads, the student's forward with lse at each kept site, and the backward
+    kernels `backward_plan` picks there at the kept head count."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    out = collections.Counter()
+    for s_q, s_kv, _, sites in TRAIN_CASES:
+        out["gated_flash_fwd"] += sites * micro
+        out[f"kernel:{fa.forward_kernel(s_q, s_kv)}"] += sites * micro
+    for s_q, s_kv, h in expert_attention_sites(cfg, plan):
+        out["gated_flash_fwd_lse"] += micro
+        out[f"kernel:{fa.forward_kernel(s_q, s_kv)}"] += micro
+        for name, n in fa.backward_plan(b, h, s_q, s_kv).launches.items():
+            out[name] += n * micro
+    return dict(out)
+
+
+def finetune_argv(config_path, weights, pruning_dir, expert, *extra):
+    return ["--base_config_path", config_path, "--pretrained_model_name_or_path", weights,
+            "--pruning_ckpt_dir", pruning_dir, "--expert_id", str(expert),
+            "--wandb_run_name", "cli", "--seed", str(SEED), *extra]
+
+
+def log_seconds(path):
+    """(seconds since the epoch, message) of each line of a run's train.log."""
+    import datetime
+    out = []
+    with open(path) as f:
+        for line in f:
+            try:
+                stamp = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+            except ValueError:
+                continue
+            out.append((stamp.timestamp(), line[24:].strip()))
+    return out
+
+
+def run_finetune_in_process(argv, per_step):
+    """The finetune entry point's `main(argv)` in this process, timed by part
+    (the factory from the call to the loop's start, each step, the
+    checkpoint saves, the resume), each step's launches checked against
+    `per_step`. Returns the loop, the parts, the steps, the state right after
+    the resume, the modules, the teacher's state before any step (on the
+    host), the counts and the peak memory."""
+    import torch
+    import diffusion_pruning_tpu_torch.training as training
+    from diffusion_pruning_tpu_torch.cli import finetune
+    from diffusion_pruning_tpu_torch.training import loop as loop_module
+
+    parts = collections.defaultdict(float)
+    steps, resumed, held = [], {}, {}
+    real_make_step = training.make_finetune_step
+
+    def make_step(mods, cfg, *args, **kwargs):
+        held["mods"], held["cfg"] = mods, cfg
+        held["teacher"] = to_host(mods.teacher.state_dict())
+        step = real_make_step(mods, cfg, *args, **kwargs)
+
+        def timed(batch, **kw):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: v - before[k] for k, v in launch_counts().items()}
+            checked = wrapper_counts(launches)
+            checked.update({k: launches[k] for k in launches if k.startswith("kernel:")})
+            if checked != {k: per_step.get(k, 0) for k in checked}:
+                fail(f"expected {per_step} launches per finetune step, got {launches}")
+            steps.append({"seconds": seconds, "launches": launches,
+                          **{k: float(out[k]) for k in FT_LOSS_KEYS}, "skipped": out["skipped"]})
+            return out
+        return timed
+
+    def timed_method(name, part):
+        real = getattr(loop_module.FineTuneLoop, name)
+
+        def wrapper(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(self, *a, **k)
+            torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t0
+            if name == "maybe_resume":
+                resumed.update(step=self.global_step, state=to_host(self.state_dict()))
+            return out
+        return wrapper
+
+    real_train = loop_module.FineTuneLoop.train
+
+    def train(self, *a, **k):
+        parts["factory_build_and_load"] = time.perf_counter() - t_main
+        return real_train(self, *a, **k)
+
+    saved = {name: getattr(loop_module.FineTuneLoop, name)
+             for name in ("maybe_resume", "save_checkpoint", "validate")}
+    real_loop_config = loop_module.LoopConfig
+    try:
+        training.make_finetune_step = make_step
+        loop_module.LoopConfig = functools.partial(real_loop_config, log_every=1)
+        for name, part in (("maybe_resume", "resume"), ("save_checkpoint", "checkpoint_save"),
+                           ("validate", "validation")):
+            setattr(loop_module.FineTuneLoop, name, timed_method(name, part))
+        loop_module.FineTuneLoop.train = train
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t_main = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            loop = finetune.main(argv)
+        counts = launch_counts()
+    finally:
+        training.make_finetune_step = real_make_step
+        loop_module.LoopConfig = real_loop_config
+        for name, fn in saved.items():
+            setattr(loop_module.FineTuneLoop, name, fn)
+        loop_module.FineTuneLoop.train = real_train
+    parts["steps"] = sum(s["seconds"] for s in steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return loop, dict(parts), steps, resumed, held, counts, peak
+
+
+def finetune_grads(mods, cfg, batch, draws):
+    """The student's gradient of every weight at its current values (no
+    update), f32 on the host side of the comparison."""
+    from diffusion_pruning_tpu_torch.training.finetuner import compute_losses
+    student = mods.student
+    for p in student.parameters():
+        p.grad = None
+    loss, _ = compute_losses(mods, cfg, batch, draws)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone() for n, p in student.named_parameters()}
+    for p in student.parameters():
+        p.grad = None
+    return grads
+
+
+@contextlib.contextmanager
+def without_dk():
+    """A planted fault: the backward kernels' dk dropped."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    real = fa.gated_flash_backward
+
+    def faulty(*args):
+        dq, dk, dv, dgate = real(*args)
+        return dq, dk.zero_(), dv, dgate
+
+    fa.gated_flash_backward = faulty
+    try:
+        yield
+    finally:
+        fa.gated_flash_backward = real
+
+
+def check_finetune_grads(mods, ft_cfg, device):
+    """A B = FT_GRAD_B step's student gradients through the kernels against
+    the same step with plain attention (bf16 compute copy, under autograd),
+    on one batch and one set of draws: cosine per leaf > GRAD_COS; and a
+    planted fault (the backward kernels' dk dropped) that the limit must catch."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops.flash_attention import gated_attention_reference
+    from diffusion_pruning_tpu_torch.training.finetuner import complete_draws
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    res = mods.student.cfg.sample_size * mods.vae.cfg.spatial_scale
+    batch = {"pixel_values": torch.rand(FT_GRAD_B, res, res, 3, device=device, generator=gen)
+             * 2 - 1,
+             "input_ids": torch.randint(0, mods.text_encoder.cfg.vocab_size, (FT_GRAD_B, 77),
+                                        device=device, generator=gen)}
+    draws = complete_draws(mods, ft_cfg, batch, None, gen)
+    kernel = finetune_grads(mods, ft_cfg, batch, draws)
+    with unet_attention(gated_attention_reference):
+        plain = finetune_grads(mods, ft_cfg, batch, draws)
+    cos = leaf_cosines(kernel, plain)
+    worst = min(cos, key=cos.get)
+    with without_dk():
+        cos_fault = leaf_cosines(finetune_grads(mods, ft_cfg, batch, draws), plain)
+    worst_fault = min(cos_fault, key=cos_fault.get)
+    row = {"phase": "finetune_grad_check", "batch": FT_GRAD_B, "limit": GRAD_COS,
+           "leaves": len(cos), "min_cos": cos[worst], "min_cos_leaf": worst,
+           "median_cos": statistics.median(cos.values()),
+           "planted_fault_no_dk_min_cos": cos_fault[worst_fault],
+           "planted_fault_leaf": worst_fault}
+    emit(row)
+    if not row["min_cos"] > GRAD_COS:
+        fail(f"finetune grads through the kernels disagree with plain attention: {row}")
+    if not row["planted_fault_no_dk_min_cos"] <= GRAD_COS:
+        fail(f"the planted fault reads within the limit {GRAD_COS}: {row}")
+    return row
+
+
+def check_expert_kernels(cfg, plan, device, b):
+    """The training forward (no gate) and the backward kernels at each
+    distinct (S_q, S_kv, kept heads) shape of the expert at batch `b`: held
+    against their plain versions in f32 on the same bf16 inputs (o, dq, dk, dv
+    per (batch, head) relative L2, lse max abs) and timed (`device_ms`) beside
+    their bound; sums over the expert's sites of one student pass."""
+    import torch
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    shapes = collections.Counter(expert_attention_sites(cfg, plan))
+    rows = []
+    totals = collections.defaultdict(float)
+    for (s_q, s_kv, h), sites in sorted(shapes.items()):
+        q, do = (torch.randn(b, s_q, h, 64, device=device, generator=gen).bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(b, s_kv, h, 64, device=device, generator=gen).bfloat16()
+                for _ in range(2))
+        o, lse = fa.gated_flash_forward_lse(q, k, v, None)
+        dq, dk, dv, _ = fa.gated_flash_backward(q, k, v, None, o, lse, do)
+        reading = {}
+        for lo in range(0, b, 32):  # the f32 references a quarter of the batch at a time
+            sl, rows_sl = slice(lo, lo + 32), slice(lo * h, (lo + 32) * h)  # lse: (B·H, S_q)
+            qf, kf, vf, dof = (t[sl].float() for t in (q, k, v, do))
+            o_r, lse_r = fa.gated_attention_reference_lse(qf, kf, vf, None)
+            dq_r, dk_r, dv_r, _ = fa.gated_flash_backward_reference(
+                qf, kf, vf, None, o[sl].float(), lse[rows_sl], dof)
+            part = {"lse_max_abs": (lse[rows_sl] - lse_r).abs().max().item(),
+                    "o": per_head_rel_l2(o[sl], o_r).max().item(),
+                    "dq": per_head_rel_l2(dq[sl], dq_r).max().item(),
+                    "dk": per_head_rel_l2(dk[sl], dk_r).max().item(),
+                    "dv": per_head_rel_l2(dv[sl], dv_r).max().item()}
+            reading = {key: max(reading.get(key, 0.0), value) for key, value in part.items()}
+            del qf, kf, vf, dof, o_r, lse_r, dq_r, dk_r, dv_r
+        limits = {"lse_max_abs": LSE_ATOL, "o": REL_L2, "dq": GRAD_REL_L2, "dk": GRAD_REL_L2,
+                  "dv": GRAD_REL_L2}
+        plan_b = fa.backward_plan(b, h, s_q, s_kv)
+        row = {"phase": "finetune_kernel_check", "b": b, "s_q": s_q, "s_kv": s_kv, "h": h,
+               "sites": sites, "forward_kernel": fa.forward_kernel(s_q, s_kv),
+               "backward_route": plan_b.route, "backward_chunks": plan_b.chunks, **reading}
+        args = (q, k, v, None, o, lse, do)
+        n = 10 if s_q * s_kv >= 2 ** 20 else 20
+        timed = {"fwd_lse": lambda: fa.gated_flash_forward_lse(q, k, v, None)}
+        if plan_b.route == "two_kernel":
+            _, stats, _ = fa.gated_flash_bwd_dq(*args)
+            timed["dq"] = lambda: fa.gated_flash_bwd_dq(*args)
+            timed["dkv"] = lambda: fa.gated_flash_bwd_dkv(q, k, v, None, stats, do)
+        else:
+            timed["fused"] = lambda: fused_kernel_alone(*args)
+            if plan_b.chunks > 1:
+                ws = torch.randn(plan_b.workspace_shape, device=device)
+                dk2, dv2 = torch.empty_like(k), torch.empty_like(v)
+                timed["reduce"] = lambda: fa.gated_flash_bwd_reduce(ws, dk2, dv2)
+        for kind, fn in timed.items():
+            row[f"{kind}_ms"] = device_ms(fn, n)
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = training_bound(kind, b, h, s_q,
+                                                                              s_kv)
+            totals[f"{kind}_ms"] += row[f"{kind}_ms"] * sites
+            totals[f"{kind}_bound_ms"] += row[f"{kind}_bound_ms"] * sites
+            totals[f"{kind}_sites"] += sites
+        fwd_name = fa.forward_kernel(s_q, s_kv)
+        totals[f"{fwd_name}_lse_ms"] += row["fwd_lse_ms"] * sites
+        totals[f"{fwd_name}_lse_bound_ms"] += row["fwd_lse_bound_ms"] * sites
+        totals[f"{fwd_name}_lse_sites"] += sites
+        emit(row)
+        bad = [key for key, value in reading.items()
+               if not (math.isfinite(value) and value <= limits[key])]
+        if bad:
+            fail(f"the training kernels disagree at the expert's shape ({bad}): {row}")
+        rows.append(row)
+        del q, k, v, do, o, lse, dq, dk, dv
+        torch.cuda.empty_cache()
+    worst = {key: max(r[key] for r in rows) for key in ("lse_max_abs", "o", "dq", "dk", "dv")}
+    return rows, dict(totals), worst
+
+
+def check_finetune_runs(weights, pruning_dir, device):
+    """Phase 14's runs: run 1 as a user runs it (a subprocess: 3 steps at B =
+    128, validation at step 3, a checkpoint and the model card), run 2 in this
+    process (resume from `latest` to step 7 with --use_ema and 2
+    micro-batches a step), the gradient check, the kernels at the expert's
+    shapes, and the magnitude baseline (a subprocess, 2 steps)."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.utils.checkpoint import CheckpointManager, load_torch_artifact
+
+    parts = {}
+    t0 = time.perf_counter()
+    expert, macs, row_e, plan, ratios = pick_expert(pruning_dir)
+    cfg256 = UNetConfig.sd21(256)
+    sites = expert_attention_sites(cfg256, plan)
+    emit({"phase": "finetune_expert", "expert": expert, "macs_ratio": macs,
+          "codebook_macs_ratios": ratios, "attention_sites": len(sites),
+          "kept_heads": sorted({h for _, _, h in sites}),
+          "dropped": [sb.name for sb in plan.subblocks if sb.dropped]})
+    yaml1 = finetune_yaml(os.path.join(FT_DIR, "run1", "sd21_finetune.yaml"), **{
+        "training.max_train_steps": FT_STEPS[0], "training.validation_steps": FT_STEPS[0]})
+    yaml2 = finetune_yaml(os.path.join(FT_DIR, "run2", "sd21_finetune.yaml"), **{
+        "training.max_train_steps": FT_STEPS[1], "training.validation_steps": FT_STEPS[0],
+        "training.gradient_accumulation_steps": FT_ACCUM,
+        "training.logging.resume_from_checkpoint": "latest"})
+    run_dir = os.path.join(FT_DIR, "runs", "sd21_finetune", f"cli-expert{expert}")
+    parts["pick_expert_and_yaml"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    # `python -m diffusion_pruning_tpu_torch.cli.finetune ...` through runpy,
+    # which then prints the process's peak device memory
+    proc = subprocess.run([sys.executable, "-c", RUN1_PEAK,
+                           *finetune_argv(yaml1, weights, pruning_dir, expert)],
+                          capture_output=True, text=True, timeout=600, cwd=HERE)
+    parts["run1_subprocess"] = time.time() - t0
+    with open(os.path.join(HERE, "build", "finetune_cli_run1.log"), "w") as f:  # ignored by git
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"finetune run 1 exited {proc.returncode}: {proc.stderr[-3000:]}")
+    stamps = log_seconds(os.path.join(run_dir, "train.log"))
+    parts["run1_start_to_first_log"] = stamps[0][0] - t0  # interpreter, imports, flags
+    parts["run1_first_log_to_checkpoint_saved"] = next(
+        s for s, msg in stamps if "saved checkpoint" in msg) - stamps[0][0]
+    if f"expert {expert}: MACs ratio {macs:.3f} of dense" not in proc.stderr:
+        fail(f"run 1 did not print expert {expert}'s MACs ratio {macs:.3f}")
+    run1_peak = float(proc.stdout.split("peak_memory_gib")[-1])
+    ckpt = CheckpointManager(run_dir)
+    d3 = ckpt.dir_for(FT_STEPS[0])
+    layout = sorted(os.listdir(d3)) if os.path.isdir(d3) else None
+    if ckpt.list_steps() != [FT_STEPS[0]] or layout != ["arch_vector.pt", "state"]:
+        fail(f"finetune run 1 left {ckpt.list_steps()} with {layout}")
+    with open(os.path.join(run_dir, "README.md")) as f:
+        card = f.read()
+    if f"# APTP expert {expert}" not in card or f"**{macs:.3f}**" not in card:
+        fail(f"the model card does not name expert {expert} and its MACs ratio: {card[:400]}")
+    saved = CheckpointManager(run_dir).restore(FT_STEPS[0])
+    train1, val1 = metrics_lines(run_dir)
+    if train1 or [m["step"] for m in val1] != [FT_STEPS[0]] or not all(
+            math.isfinite(v) for k, v in val1[0].items() if k.startswith("val_")):
+        fail(f"finetune run 1 logged steps {[m['step'] for m in train1]} and validations {val1}")
+
+    per_step = finetune_step_launches(cfg256, plan, FT_B // FT_ACCUM, FT_ACCUM)
+    loop, run2_parts, steps, resumed, held, counts, peak = run_finetune_in_process(
+        finetune_argv(yaml2, weights, pruning_dir, expert, "--use_ema"), per_step)
+    parts.update({f"run2_{k}": v for k, v in run2_parts.items()})
+    mods = held["mods"]
+    diff = state_equal({k: v for k, v in resumed.get("state", {}).items() if k != "ema"}, saved)
+    ema_diff = state_equal(resumed["state"]["ema"], saved["student"])
+    arch_diff = [p for p in (os.path.join(run_dir, "arch_vector.pt"),
+                             os.path.join(ckpt.dir_for(FT_STEPS[1]), "arch_vector.pt"))
+                 if not torch.equal(load_torch_artifact(p), row_e)]
+    teacher_diff = state_equal(to_host(mods.teacher.state_dict()), held["teacher"])
+    masters = loop.masters
+    precision = {"copy_dtype": str(masters.copies[0].dtype),
+                 "master_dtype": str(masters.masters[0].dtype),
+                 "copy_is_rounded_masters": all(torch.equal(c.detach(), m.to(c.dtype))
+                                                for c, m in zip(masters.copies, masters.masters))}
+    if (resumed.get("step") != FT_STEPS[0] or diff or ema_diff or arch_diff or teacher_diff
+            or precision != {"copy_dtype": "torch.bfloat16", "master_dtype": "torch.float32",
+                             "copy_is_rounded_masters": True}):
+        fail(f"finetune run 2 resumed step {resumed.get('step')}; differing from run 1's saved "
+             f"state at {diff[:8]}, EMA {ema_diff[:4]}; arch vectors {arch_diff}; teacher "
+             f"changed at {teacher_diff[:8]}; precision {precision}")
+    if ckpt.list_steps() != [FT_STEPS[1]] or "ema" not in ckpt.restore(FT_STEPS[1]):
+        fail(f"finetune rotation left {ckpt.list_steps()}, or checkpoint-{FT_STEPS[1]} has "
+             "no EMA")
+    lines, _ = metrics_lines(run_dir)
+    bad = [m["step"] for m in lines if not all(math.isfinite(m[k]) for k in FT_LOSS_KEYS)
+           or m["skipped"]]
+    if [m["step"] for m in lines] != list(range(FT_STEPS[0] + 1, FT_STEPS[1] + 1)) or bad:
+        fail(f"finetune run 2 logged steps {[m['step'] for m in lines]}; non-finite or skipped "
+             f"at {bad}")
+    if len(steps) != FT_STEPS[1] - FT_STEPS[0]:
+        fail(f"finetune run 2 took {len(steps)} steps")
+
+    t0 = time.perf_counter()
+    grad_check = check_finetune_grads(mods, held["cfg"], device)
+    parts["grad_check"] = time.perf_counter() - t0
+    warm = [s["seconds"] for s in steps[1:]]
+    run2 = {"launches_per_step": steps[-1]["launches"], "launches_expected": per_step,
+            "step_seconds": [s["seconds"] for s in steps],
+            "losses": [{k: m[k] for k in ("step", "loss", "diffusion_loss", "distillation_loss",
+                                          "block_loss", "grad_norm")} for m in lines],
+            "cli_steps_per_sec": [m["steps_per_sec"] for m in lines],
+            "warm_steps": len(warm), "seconds_per_step_median_warm": statistics.median(warm),
+            "samples_per_sec": FT_B / statistics.median(warm), "peak_memory_gib": peak,
+            "run1_peak_memory_gib": run1_peak}
+    del loop, mods, held, masters
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    at_shapes = {}  # run 2's micro-batch, whose launches the kernels line counts, and run 1's
+    for b in sorted({FT_B // FT_ACCUM, FT_B}):
+        kernel_rows, kernel_totals, kernel_worst = check_expert_kernels(cfg256, plan, device, b)
+        at_shapes[b] = {"worst": kernel_worst, "totals_over_sites": kernel_totals,
+                        "shapes": len(kernel_rows)}
+    parts["kernels_at_expert_shapes"] = time.perf_counter() - t0
+
+    yaml_b = finetune_yaml(os.path.join(FT_DIR, "baseline", "sd21_baseline.yaml"), **{
+        "training.max_train_steps": FT_BASELINE_STEPS,
+        "data.dataloader.train_batch_size": FT_BASELINE_B})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "diffusion_pruning_tpu_torch.cli.finetune_baseline",
+                           "--base_config_path", yaml_b, "--pretrained_model_name_or_path", weights,
+                           "--pruning_type", "magnitude", "--seed", str(SEED)],
+                          capture_output=True, text=True, timeout=600, cwd=HERE)
+    parts["baseline_subprocess"] = time.perf_counter() - t0
+    with open(os.path.join(HERE, "build", "finetune_baseline.log"), "w") as f:  # ignored by git
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"the magnitude baseline exited {proc.returncode}: {proc.stderr[-3000:]}")
+    found = [line for line in proc.stderr.splitlines() if "magnitude: MACs ratio " in line]
+    base_dir = CheckpointManager(os.path.join(FT_DIR, "runs", "sd21_baseline",
+                                              "baseline-magnitude"))
+    base_layout = sorted(os.listdir(base_dir.dir_for(FT_BASELINE_STEPS))) if os.path.isdir(
+        base_dir.dir_for(FT_BASELINE_STEPS)) else None
+    base_macs = float(found[0].split("MACs ratio ")[1].split()[0]) if found else None
+    if base_macs is None or not base_macs < 1.0 or base_layout != ["arch_vector.pt", "state"]:
+        fail(f"the magnitude baseline printed {found} and left {base_layout}")
+
+    row = {"phase": "finetune_cli", "batch": FT_B, "resolution": 256, "expert": expert,
+           "macs_ratio": macs, "run2_micro_batches": FT_ACCUM, "run2_use_ema": True,
+           "resumed_step": resumed["step"], "resumed_state_equal_to_run1_saved": True,
+           "teacher_unchanged": True, "precision": precision, **run2,
+           "grad_check_min_cos": grad_check["min_cos"],
+           "kernels_at_expert_shapes": at_shapes,
+           "magnitude_baseline": {"macs_ratio": base_macs, "steps": FT_BASELINE_STEPS,
+                                  "batch": FT_BASELINE_B},
+           "seconds_by_part": parts}
+    emit(row)
+    return row, counts
 
 
 # ---------------------------------------------------------------- main
@@ -3883,21 +4426,33 @@ def main() -> None:
 
     # 13. stage 1 as a program (the prune entry point twice, from checkpoint
     # folders at full width) and the rest of the pipeline
-    t0 = time.perf_counter()
-    stage1, cli_counts = stage1_program(pipe, mpnet, device)
-    log(f"phase 13 took {time.perf_counter() - t0:.1f}s")
+    import shutil
+    try:
+        t0 = time.perf_counter()
+        stage1, cli_counts = stage1_program(pipe, mpnet, device)
+        log(f"phase 13 took {time.perf_counter() - t0:.1f}s")
+
+        # 14. stage 2 as a program: the finetune entry point twice at full
+        # width from phase 13's stage-1 run, and the magnitude baseline
+        t0 = time.perf_counter()
+        stage2, ft_counts = check_finetune_runs(stage1["weights"], stage1["run_dir"], device)
+        log(f"phase 14 took {time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(STAGE1_DIR, ignore_errors=True)
 
     # kernels line: inference times summed over the sites of one 256px
     # forward (B_eff 16) that each forward kernel serves (`forward_plan`),
     # training times over the sites of one student pass of the train step
     # (B = 64)
     train_launches = train_summary["launches"]
+    ft_totals = {b: r["totals_over_sites"] for b, r in stage2["kernels_at_expert_shapes"].items()}
     forward_entries = [
         forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
-                      expert_counts, expert_check, cli_counts)
+                      expert_counts, expert_check, cli_counts, ft_counts, ft_totals)
         for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd_small")]
     kernels = [*forward_entries,
-               *backward_entries(train_rows, train_check, train_launches, cli_counts),
+               *backward_entries(train_rows, train_check, train_launches, cli_counts, ft_counts,
+                                 ft_totals),
                fused_kernel_entry(
         fused_checks["group_norm_silu"], "group_norm_silu",
         "diffusion_pruning_tpu_torch/csrc/group_norm.cu",
@@ -3948,7 +4503,11 @@ def main() -> None:
         f"{expert_serving['img_per_sec']['experts']:.4f} img/s, hybrid "
         f"{expert_serving['img_per_sec']['hybrid']:.4f}, gated "
         f"{expert_serving['img_per_sec']['gated']:.4f} in turns; prune CLI steps/s "
-        f"{stage1['cli_steps_per_sec']}")
+        f"{stage1['cli_steps_per_sec']}; finetune step (B = {FT_B}, expert "
+        f"{stage2['expert']}, MACs {stage2['macs_ratio']:.3f}; median of "
+        f"{stage2['warm_steps']} warm steps) "
+        f"{stage2['seconds_per_step_median_warm']:.4f} s ({stage2['samples_per_sec']:.2f} "
+        f"samples/s), CLI steps/s {stage2['cli_steps_per_sec']}")
     # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

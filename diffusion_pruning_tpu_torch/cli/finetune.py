@@ -1,0 +1,213 @@
+"""Stage 2 (expert fine-tuning) entry point: a stage-1 checkpoint, a YAML
+config and flags → one fine-tuned physically pruned expert, on one CUDA card.
+
+  python -m diffusion_pruning_tpu_torch.cli.finetune \
+      --base_config_path configs/finetuning/sd-2-1_coco2014.yaml \
+      --pretrained_model_name_or_path /path/to/stable-diffusion-2-1 \
+      --pruning_ckpt_dir runs/sd-2-1_coco2014/<run> --expert_id 3
+
+The steps of the JAX package's `scripts/aptp/finetune.py`: config and flags →
+run directory → codebook row `--expert_id` of `quantizer_embeddings.pt` in the
+newest `checkpoint-N/` of `--pruning_ckpt_dir` as the arch vector (written to
+the run directory as `arch_vector.pt`) → the dense U-Net from local weights
+(`training/factory.py`; without `<sd_root>/unet` every model is the tiny one,
+randomly initialised) → the expert cut from it as a student that owns its
+tensors, f32 masters in the optimizer and a compute copy in `--compute_dtype`
+→ the dense U-Net as the frozen teacher in `training.mixed_precision` (else
+the compute dtype) → the MACs ratio printed → AdamW → the loop (synthetic
+batches, since the dataset is missing; `gradient_accumulation_steps`
+micro-batches a step; `resume_from_checkpoint`) → the model card.
+`--device cpu` runs on the CPU (the plain versions of the kernels); without
+it there must be a card.
+
+Beyond the JAX entry point: the config's `noise_offset`,
+`input_perturbation`, `max_grad_norm` and `adam_mu_bf16` reach the step;
+`--use_ema` (or `model.unet.use_ema`) keeps an EMA of the weights at decay
+`EMA_DECAY`; two synthetic batches are validated every `validation_steps`.
+
+Not yet here, each raising before anything is built: a real dataset
+(`data_dir` that exists) and the Hub upload (ROADMAP A6); more than one
+device (`--mesh_shape`), `optim.zero1` and `optim.tensor_parallel` (the
+data-parallel slice, ROADMAP A4).
+"""
+from __future__ import annotations
+
+import os
+import sys
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+EMA_DECAY = 0.9999  # diffusers' EMAModel default
+
+
+def check_supported(args, cfg) -> None:
+    """Raise for what the single-device port does not run yet."""
+    from diffusion_pruning_tpu_torch.training.finetuner import DATA_PARALLEL
+    optim = cfg.training.get("optim") or {}
+    if args.mesh_shape is not None and int(args.mesh_shape) > 1:
+        raise NotImplementedError(f"--mesh_shape > 1: {DATA_PARALLEL}")
+    if int(optim.get("tensor_parallel", 1) or 1) > 1:
+        raise NotImplementedError(f"optim.tensor_parallel > 1: {DATA_PARALLEL}")
+    if optim.get("zero1", False):
+        raise NotImplementedError(f"optim.zero1: {DATA_PARALLEL}")
+    data_dir = cfg.data.get("data_dir") or ""
+    if os.path.exists(data_dir):
+        raise NotImplementedError(f"data_dir {data_dir!r} exists: real datasets and their "
+                                  "tokenizers are ROADMAP A6, not ported yet")
+    if cfg.get_path("training.hf_hub.push_to_hub", False):
+        raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A6, "
+                                  "not ported yet")
+
+
+def finetune_config(cfg):
+    from diffusion_pruning_tpu_torch.training import FineTuneConfig
+    losses, optim, unet = cfg.training.losses, cfg.training.optim, cfg.model.unet
+    return FineTuneConfig(
+        snr_gamma=losses.diffusion_loss.get("snr_gamma"),
+        diffusion_weight=losses.diffusion_loss.get("weight", 1.0),
+        distillation_weight=(losses.get("distillation_loss") or {}).get("weight", 0.2),
+        block_weight=(losses.get("block_loss") or {}).get("weight", 0.2),
+        unet_lr=float(optim.get("unet_learning_rate", 1e-5)),
+        lr_warmup_steps=optim.get("lr_warmup_steps", 100),
+        scale_lr=optim.get("scale_lr", True),
+        max_grad_norm=optim.get("max_grad_norm"),
+        adam_mu_bf16=bool(optim.get("adam_mu_bf16", False)),
+        noise_offset=unet.get("noise_offset", 0.0) or 0.0,
+        input_perturbation=unet.get("input_perturbation", 0.0) or 0.0,
+    )
+
+
+def resolve(args) -> torch.device:
+    """The card, unless `--device` names another device; raises without one."""
+    from diffusion_pruning_tpu_torch.utils.device import resolve_device
+    return resolve_device(None if args.device == "cuda" else args.device)
+
+
+def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable, label: str,
+              expert_id: Optional[int] = None):
+    """Build the teacher and the student of `pick_arch(dense U-Net)` (an arch
+    vector, or None for the dense student), train, write the model card;
+    returns the finished `FineTuneLoop`. Shared by the baseline entry point."""
+    from diffusion_pruning_tpu_torch.models.unet.pruned import expert_macs_ratio, make_expert_plan
+    from diffusion_pruning_tpu_torch.training import (
+        FineTunerModules,
+        MasterWeights,
+        make_finetune_optimizer,
+        make_finetune_step,
+        make_finetune_validation_step,
+    )
+    from diffusion_pruning_tpu_torch.training.factory import (
+        build_schedule,
+        build_student,
+        build_text_encoder,
+        build_unet,
+        build_vae,
+        unet_config_from_yaml,
+    )
+    from diffusion_pruning_tpu_torch.training.loop import FineTuneLoop, LoopConfig
+    from diffusion_pruning_tpu_torch.utils.checkpoint import save_torch_artifact
+    from diffusion_pruning_tpu_torch.utils.logging_utils import Tracker
+    from diffusion_pruning_tpu_torch.utils.model_card import write_model_card
+
+    sd_root = args.pretrained_model_name_or_path
+    tiny = not os.path.exists(os.path.join(sd_root or "", "unet"))
+    # frozen-model precision: training.mixed_precision, else the compute dtype
+    mp = cfg.training.get("mixed_precision") or args.compute_dtype
+    frozen_dtype = torch.bfloat16 if mp in ("bf16", "bfloat16") else torch.float32
+    compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+
+    ucfg = unet_config_from_yaml(cfg, tiny=tiny)
+    dense = build_unet(ucfg, sd_root, device, torch.float32)  # f32: the student's masters
+    arch = pick_arch(dense)
+    plan = None if arch is None else make_expert_plan(dense.spec, arch)
+    student = build_student(dense, plan)
+    # the masters take the student's f32 values; the cast then makes its
+    # parameters the compute copy that forward and backward run on
+    masters = MasterWeights(student, separate=compute_dtype != torch.float32)
+    student.to(compute_dtype)
+    teacher = dense.to(frozen_dtype)
+    macs = 1.0 if plan is None else expert_macs_ratio(dense.spec, plan)
+    print(f"{label}: MACs ratio {macs:.3f} of dense", file=sys.stderr)
+    if arch is not None:
+        save_torch_artifact(np.asarray(arch), os.path.join(run_dir, "arch_vector.pt"))
+    vae = build_vae(sd_root, tiny=tiny, device=device, dtype=frozen_dtype)
+    text = build_text_encoder(sd_root, tiny=tiny, device=device, dtype=frozen_dtype)
+    mods = FineTunerModules(student=student, teacher=teacher, vae=vae, text_encoder=text,
+                            schedule=build_schedule(cfg))
+
+    ft_cfg = finetune_config(cfg)
+    global_batch = cfg.data.dataloader.get("train_batch_size", 8)  # one device
+    optimizer = make_finetune_optimizer(ft_cfg, masters, global_batch)
+    step = make_finetune_step(mods, ft_cfg, optimizer,
+                              accum_steps=int(cfg.training.get("gradient_accumulation_steps", 1)))
+    logging_cfg = cfg.training.get("logging") or {}
+    loop_cfg = LoopConfig(
+        max_train_steps=cfg.training.get("max_train_steps", 30000),
+        validation_steps=cfg.training.get("validation_steps", 1000),
+        checkpoints_total_limit=logging_cfg.get("checkpoints_total_limit", 1),
+        resume_from=logging_cfg.get("resume_from_checkpoint"),
+    )
+    use_ema = args.use_ema or bool(cfg.model.unet.get("use_ema", False))
+    loop = FineTuneLoop(step, make_finetune_validation_step(mods, ft_cfg), optimizer, loop_cfg,
+                        run_dir, arch_vector=arch,
+                        tracker=Tracker(run_dir, use_wandb=logging_cfg.get("report_to") == "wandb"),
+                        seed=args.seed, ema_decay=EMA_DECAY if use_ema else None)
+
+    print(f"[smoke] dataset dir {cfg.data.get('data_dir')!r} missing — synthetic data",
+          file=sys.stderr)
+    resolution = ucfg.sample_size * 8
+    rng = np.random.RandomState(args.seed)
+
+    def synth(n):
+        def gen(_epoch=0):
+            for _ in range(n):
+                yield {"pixel_values": rng.randn(global_batch, resolution, resolution, 3
+                                                 ).astype(np.float32) * 0.5,
+                       "input_ids": rng.randint(0, 128, (global_batch, 77)).astype(np.int32)}
+        return gen
+
+    loop.train(synth(max(loop_cfg.max_train_steps, 1)), lambda: synth(2)(0))
+    write_model_card(run_dir, sd_root or "stable-diffusion-2-1",
+                     cfg.data.get("dataset_name", "?"), expert_id=expert_id, macs_ratio=macs,
+                     extra={"max_train_steps": loop_cfg.max_train_steps,
+                            "unet_lr": ft_cfg.unet_lr})
+    return loop
+
+
+def main(argv=None):
+    """Fine-tune codebook row `--expert_id`; returns the finished `FineTuneLoop`."""
+    from diffusion_pruning_tpu_torch.utils.arg_utils import parse_args
+    from diffusion_pruning_tpu_torch.utils.checkpoint import (
+        latest_checkpoint_dir,
+        load_torch_artifact,
+    )
+    from diffusion_pruning_tpu_torch.utils.config import load_config
+    from diffusion_pruning_tpu_torch.utils.logging_utils import init_logging, make_run_dir
+
+    args = parse_args(argv)
+    if not args.pruning_ckpt_dir or args.expert_id is None:
+        raise ValueError("--pruning_ckpt_dir and --expert_id are required")
+    cfg = load_config(args.base_config_path)
+    cfg.update_flat(vars(args))
+    check_supported(args, cfg)
+    device = resolve(args)
+    logging_cfg = cfg.training.get("logging") or {}
+    run_dir = make_run_dir(logging_cfg.get("logging_dir", "runs"), args.base_config_path,
+                           (args.wandb_run_name or "") + f"-expert{args.expert_id}")
+    init_logging(run_dir)
+    cfg.dump(os.path.join(run_dir, "config.yaml"))
+
+    latest = latest_checkpoint_dir(args.pruning_ckpt_dir)
+    embeddings = load_torch_artifact(os.path.join(latest or args.pruning_ckpt_dir,
+                                                  "quantizer_embeddings.pt"))
+    arch_vector = embeddings[args.expert_id].float().numpy()
+    loop = fine_tune(args, cfg, run_dir, device, lambda dense: arch_vector,
+                     f"expert {args.expert_id}", expert_id=args.expert_id)
+    print(f"done: {run_dir}")
+    return loop
+
+
+if __name__ == "__main__":
+    main()

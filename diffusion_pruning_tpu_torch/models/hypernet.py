@@ -58,3 +58,19 @@ class HyperStructure(nn.Module):
         weight = torch.cat([fc.effective_weight() for fc in self.mh_fc], dim=0)  # (vq, in)
         bias = torch.cat([fc.bias for fc in self.mh_fc]) if self.linear_bias else None
         return nn.functional.linear(x.to(weight.dtype), weight, bias)
+
+
+def random_arch_vector(spec: StructureSpec, target_ratio: float,
+                       generator: torch.Generator) -> torch.Tensor:
+    """The random-pruning baseline's (1, vq_dim) arch vector: each width group
+    keeps ⌊ratio·width⌋ units at 0.9, drawn by a permutation from
+    `generator`; every depth gate is 0.9. (The JAX package draws the
+    permutations from a PRNG key, whose bits torch cannot reproduce; the
+    invariants are the same.)"""
+    cols = []
+    for w in spec.width_list:
+        col = torch.zeros(w)
+        col[torch.randperm(w, generator=generator)[:int(target_ratio * w)]] = 0.9
+        cols.append(col)
+    cols.append(torch.full((spec.num_depth,), 0.9))
+    return torch.cat(cols)[None, :]

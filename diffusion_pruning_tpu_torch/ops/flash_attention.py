@@ -97,13 +97,15 @@ def gated_attention_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return gated_attention_reference(q, k, v, gate), lse
 
 
-def gated_flash_backward_reference(q, k, v, gate, o, lse, do):
+def gated_flash_backward_reference(q, k, v, gate, o, lse, do, bf16_products: bool = False):
     """The backward kernels' plain version, their formulas in f32:
     P = exp(q·kᵀ·d^-½·g² − lse), δ = rowsum(dO∘O), dP = g·dO·vᵀ,
     dS = P∘(dP − δ), dq' = d^-½·g·dS·k, dk' = d^-½·g·dSᵀ·q, dv' = Pᵀ·dO;
     returns (dq, dk, dv) = g·(dq', dk', dv') in q's dtype and
     dgate = Σ dq'∘q + dk'∘k + dv'∘v, (B, H) f32 (None without a gate).
-    o, do: (B, S_q, H, D); lse: (B·H, S_q) as the forward gives it."""
+    o, do: (B, S_q, H, D); lse: (B·H, S_q) as the forward gives it.
+    With `bf16_products` P and dS are rounded to bf16 before the products
+    that take them (Pᵀ·dO, dS·k, dSᵀ·q), as the kernels round them."""
     b, s_q, h, d = q.shape
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     g = (gate.float() if gate is not None else q.new_ones(b, h, dtype=torch.float32))
@@ -112,6 +114,8 @@ def gated_flash_backward_reference(q, k, v, gate, o, lse, do):
     delta = torch.einsum("bqhd,bqhd->bhq", dof, of)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf) * g4
     ds = p * (dp - delta)
+    if bf16_products:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
     c = d ** -0.5 * g[:, None, :, None]                         # (B, 1, H, 1)
     dq_ = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * c
     dk_ = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * c

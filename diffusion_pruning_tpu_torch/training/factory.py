@@ -1,5 +1,5 @@
-"""Build stage 1's modules from a YAML config (the schema of
-`configs/pruning/*.yaml`).
+"""Build the training modules from a YAML config (the schema of
+`configs/pruning/*.yaml` and `configs/finetuning/*.yaml`).
 
 Nothing is downloaded: checkpoints are local diffusers / Hugging Face
 folders, read by state-dict name (the port's modules carry those names).
@@ -12,7 +12,8 @@ configured shape (`utils/init_utils.random_init_`) and a warning says so:
 
 Frozen modules (U-Net, VAE, CLIP text) take `dtype`, the caller's
 `training.mixed_precision`; the MPNet encoder and the trainables (hypernet,
-codebook) stay f32. Each module is built on `device`.
+codebook) stay f32. Each module is built on `device`. Stage 2's student
+(`build_student`) is cut from the dense U-Net and owns a copy of every tensor.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from diffusion_pruning_tpu_torch.models.text_encoders import (
     MPNetEncoder,
 )
 from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+from diffusion_pruning_tpu_torch.models.unet.pruned import ExpertPlan, slice_expert_params
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from diffusion_pruning_tpu_torch.schedulers import DiffusionSchedule
@@ -124,6 +126,22 @@ def build_unet(ucfg: UNetConfig, sd_root: Optional[str], device="cuda",
                dtype: torch.dtype = torch.float32) -> GatedUNet:
     return _frozen(_build(GatedUNet, ucfg, device, dtype),
                    os.path.join(sd_root or "", "unet"), "U-Net", device)
+
+
+def build_student(dense: GatedUNet, plan: Optional[ExpertPlan] = None) -> GatedUNet:
+    """Stage 2's student: the expert of `plan` cut from `dense` (the dense
+    U-Net itself when None), in f32 (the optimizer's masters take these
+    values), trainable, in train mode. It owns a copy of every tensor:
+    `slice_expert_params` returns the dense tensors themselves for the leaves
+    it does not cut, and a student that trained on those would rewrite the
+    teacher."""
+    sd = dense.state_dict() if plan is None else slice_expert_params(dense.state_dict(), plan)
+    with torch.device("meta"):
+        model = GatedUNet(dense.cfg, plan=plan)
+    with torch.no_grad():
+        model.load_state_dict({k: v.to(dtype=torch.float32, copy=True) for k, v in sd.items()},
+                              strict=True, assign=True)
+    return model.train().requires_grad_(True)
 
 
 def build_vae(sd_root: Optional[str], tiny: bool = False, device="cuda",

@@ -1,4 +1,5 @@
-"""Stage 1's training loop around the step (`training/pruner.py`).
+"""The training loops around the steps: stage 1's `PrunerLoop`
+(`training/pruner.py`) and stage 2's `FineTuneLoop` (`training/finetuner.py`).
 
 The lifecycle of the JAX package's `training/loop.PrunerLoop`: epochs over
 the batches, the switch from the hypernet's own gates to the codebook at
@@ -16,6 +17,11 @@ It is not saved, and on resume the batches restart from the first one, as
 in the JAX loop (whose PRNG key restarts from its seed). A checkpoint that
 would repeat the one just written at the same step (the epoch's end is the
 run's end) is not written twice.
+
+`FineTuneLoop` is the JAX package's stage-2 loop: the steps, an optional EMA
+of the student's f32 weights, scalar logging, validation when given batches,
+checkpoints (the student's f32 masters, the optimizer, the EMA) with
+`arch_vector.pt` beside each, rotation and resume.
 """
 from __future__ import annotations
 
@@ -49,7 +55,33 @@ class LoopConfig:
     resume_from: Optional[str] = None        # 'latest' or a step number
 
 
-class PrunerLoop:
+class _Loop:
+    """What both loops share: the batches' placement on the loop's device and
+    validation. Subclasses set `batch_keys`, `device`, `generator`,
+    `val_fn`, `tracker` and `global_step`."""
+    batch_keys = BATCH_KEYS
+
+    def _place(self, batch):
+        out = {}
+        for k, v in batch.items():
+            if k in self.batch_keys:
+                t = torch.as_tensor(v)
+                out[k] = (t.long() if k == "input_ids" else t.float()).to(self.device)
+        return out
+
+    def validate(self, val_batches):
+        agg: Dict[str, list] = {}
+        for batch in val_batches():
+            for k, v in self.val_fn(self._place(batch), generator=self.generator).items():
+                agg.setdefault(k, []).append(float(v))
+        means = {f"val_{k}": float(np.mean(v)) for k, v in agg.items()}
+        self.tracker.log(means, self.global_step)
+        logger.info("validation @%d: %s", self.global_step,
+                    {k: round(v, 4) for k, v in means.items()})
+        return means
+
+
+class PrunerLoop(_Loop):
     """mods: `PrunerModules` on one device; make_step(mods, cfg, optimizer,
     pretrain=...) and make_val(mods, cfg) build the step and the validation
     step (`make_pruner_step`, `make_validation_step`, or partials of them)."""
@@ -138,14 +170,6 @@ class PrunerLoop:
         self._saved_step = self.global_step
         logger.info("resumed from step %d", self.global_step)
 
-    def _place(self, batch):
-        out = {}
-        for k, v in batch.items():
-            if k in BATCH_KEYS:
-                t = torch.as_tensor(v)
-                out[k] = (t.long() if k == "input_ids" else t.float()).to(self.device)
-        return out
-
     @torch.no_grad()
     def _update_ema(self):
         d = self.ema_decay
@@ -202,13 +226,118 @@ class PrunerLoop:
         if self._saved_step != self.global_step:
             self.save_checkpoint()
 
-    def validate(self, val_batches):
-        agg: Dict[str, list] = {}
-        for batch in val_batches():
-            for k, v in self.val_fn(self._place(batch), generator=self.generator).items():
-                agg.setdefault(k, []).append(float(v))
-        means = {f"val_{k}": float(np.mean(v)) for k, v in agg.items()}
-        self.tracker.log(means, self.global_step)
-        logger.info("validation @%d: %s", self.global_step,
-                    {k: round(v, 4) for k, v in means.items()})
-        return means
+
+class FineTuneLoop(_Loop):
+    """Stage 2's loop (an expert's or a baseline's fine-tuning) on one device.
+
+    step_fn(batch, generator=...) is `make_finetune_step`'s step and val_fn
+    (or None) `make_finetune_validation_step`'s; `optimizer` the step's
+    `AdamW`, whose masters are the student's weights. The student must own
+    its storage (`FineTunerModules` checks it), which stands for the JAX
+    loop's copy of the student's parameters. A checkpoint's state holds the
+    masters by state-dict name (`student`, f32), the optimizer, the step
+    count, the skipped steps and the EMA; `arch_vector.pt` is written beside
+    it when the loop has one. A resumed run with `ema_decay` whose checkpoint
+    has no EMA starts the EMA from the restored weights."""
+    batch_keys = ("pixel_values", "input_ids", "latent_mean", "latent_logvar")
+
+    def __init__(self, step_fn: Callable, val_fn: Optional[Callable], optimizer,
+                 loop_cfg: LoopConfig, run_dir: str, arch_vector=None,
+                 tracker: Optional[Tracker] = None, seed: int = 43,
+                 ema_decay: Optional[float] = None):
+        self.step_fn, self.val_fn = step_fn, val_fn
+        self.optimizer = optimizer
+        self.masters = optimizer.masters
+        self.loop_cfg = loop_cfg
+        self.ckpt = CheckpointManager(run_dir, loop_cfg.checkpoints_total_limit)
+        self.tracker = tracker or Tracker(run_dir)
+        self.run_dir = run_dir
+        self.arch_vector = arch_vector
+        self.device = self.masters.masters[0].device
+        self.global_step = 0
+        self.skipped_steps = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._saved_step: Optional[int] = None
+        self.ema_decay = ema_decay
+        self.ema = self._fresh_ema() if ema_decay else None
+
+    def _fresh_ema(self) -> Dict[str, torch.Tensor]:
+        return {n: m.detach().clone() for n, m in self.masters.state_dict().items()}
+
+    def state_dict(self) -> Dict:
+        state = {"student": self.masters.state_dict(), "optimizer": self.optimizer.state_dict(),
+                 "step": self.global_step, "skipped_steps": self.skipped_steps}
+        if self.ema is not None:
+            state["ema"] = self.ema
+        return state
+
+    def save_checkpoint(self):
+        artifacts = {}
+        if self.arch_vector is not None:  # beside every checkpoint, as the original code
+            artifacts["arch_vector.pt"] = np.asarray(self.arch_vector)
+        path = self.ckpt.save(self.global_step, self.state_dict(), artifacts)
+        self._saved_step = self.global_step
+        logger.info("saved checkpoint %s", path)
+
+    def maybe_resume(self):
+        if self.loop_cfg.resume_from is None:
+            return
+        step = None if self.loop_cfg.resume_from == "latest" else int(self.loop_cfg.resume_from)
+        state = self.ckpt.restore(step)
+        self.masters.load_state_dict(state["student"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.ema is not None:
+            if "ema" in state:
+                for name, t in state["ema"].items():
+                    self.ema[name].copy_(t)
+            else:
+                logger.info("the checkpoint has no EMA: it starts from the restored weights")
+                self.ema = self._fresh_ema()
+        self.global_step = int(state["step"])
+        self.skipped_steps = int(state["skipped_steps"])
+        self._saved_step = self.global_step
+        logger.info("resumed from step %d", self.global_step)
+
+    @torch.no_grad()
+    def _update_ema(self):
+        d = self.ema_decay
+        ema = list(self.ema.values())
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [m.detach() for m in self.masters.masters], 1.0 - d))
+
+    def train(self, train_batches: Callable[[int], Iterable[Dict[str, np.ndarray]]],
+              val_batches: Optional[Callable[[], Iterable]] = None):
+        """train_batches(epoch) yields host batches (numpy arrays or tensors)."""
+        lc = self.loop_cfg
+        self.maybe_resume()
+        epoch = 0
+        t_last = time.perf_counter()
+        while self.global_step < lc.max_train_steps:
+            for batch in train_batches(epoch):
+                if self.global_step >= lc.max_train_steps:
+                    break
+                metrics = self.step_fn(self._place(batch), generator=self.generator)
+                self.skipped_steps += int(metrics["skipped"])
+                if self.ema is not None:
+                    self._update_ema()
+                self.global_step += 1
+                if self.global_step % lc.log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["skipped_steps"] = self.skipped_steps
+                    now = time.perf_counter()
+                    m["steps_per_sec"] = lc.log_every / (now - t_last)
+                    t_last = now
+                    self.tracker.log(m, self.global_step)
+                    logger.info("step %d loss %.4f (%.2f it/s)", self.global_step, m["loss"],
+                                m["steps_per_sec"])
+                if (val_batches is not None and self.val_fn is not None
+                        and self.global_step % lc.validation_steps == 0):
+                    self.validate(val_batches)
+                if lc.checkpoint_steps and self.global_step % lc.checkpoint_steps == 0:
+                    self.save_checkpoint()
+            epoch += 1
+            if not lc.checkpoint_steps:
+                self.save_checkpoint()
+        if self._saved_step != self.global_step:
+            self.save_checkpoint()

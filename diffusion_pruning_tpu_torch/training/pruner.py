@@ -45,7 +45,7 @@ the device's clock without synchronising.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -155,21 +155,37 @@ def _applied_updates(optimizer: torch.optim.Optimizer, group: dict) -> int:
     return int(state["step"]) if state else 0
 
 
-def complete_draws(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torch.Tensor],
-                   draws: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """`draws` with every entry the step needs; missing ones come from
-    `generator` (required then), on its device."""
-    b = batch["input_ids"].shape[0]
+def latent_shape(vae: AutoencoderKL, batch: Dict[str, torch.Tensor]) -> tuple:
+    """(B, h, w, 4): the latents of a batch of pixels or of cached moments."""
     if "latent_mean" in batch:
-        lat = tuple(batch["latent_mean"].shape)
-    else:
-        px, vcfg = batch["pixel_values"], mods.vae.cfg
-        lat = (b, px.shape[1] // vcfg.spatial_scale, px.shape[2] // vcfg.spatial_scale,
-               vcfg.latent_channels)
-    vq = mods.quantizer.spec.vq_dim
-    rows = 1 if mods.hypernet.single_arch_param else b  # the router's logits
-    max_t = cfg.max_scheduler_steps or mods.schedule.num_train_timesteps
+        return tuple(batch["latent_mean"].shape)
+    px, vcfg = batch["pixel_values"], vae.cfg
+    return (px.shape[0], px.shape[1] // vcfg.spatial_scale, px.shape[2] // vcfg.spatial_scale,
+            vcfg.latent_channels)
+
+
+def encode_latents(vae: AutoencoderKL, batch: Dict[str, torch.Tensor],
+                   vae_eps: torch.Tensor) -> torch.Tensor:
+    """f32 latents of a batch: the VAE's sample with `vae_eps`, or the cached
+    moments' (mean + σ·eps) × the VAE's scaling factor."""
+    if "latent_mean" in batch:
+        std = torch.exp(0.5 * batch["latent_logvar"].float())
+        return (batch["latent_mean"].float() + std * vae_eps) * vae.cfg.scaling_factor
+    return vae.encode(batch["pixel_values"], vae_eps).float()
+
+
+def fill_draws(vae: AutoencoderKL, cfg, batch: Dict[str, torch.Tensor], max_t: int,
+               draws: Optional[Dict[str, torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None,
+               extra: Optional[Dict[str, Callable[[], torch.Tensor]]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """`draws` completed with the entries both stages' steps take: vae_eps,
+    noise, timesteps in [0, max_t), then a stage's own (`extra`, name →
+    maker), then noise_offset and perturbation when `cfg` turns them on.
+    Missing ones come from `generator` (required then), on its device, in
+    that order."""
+    b = batch["input_ids"].shape[0]
+    lat = latent_shape(vae, batch)
 
     def normal(shape):
         return torch.randn(shape, generator=generator, device=generator.device)
@@ -179,9 +195,7 @@ def complete_draws(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
         "noise": lambda: normal(lat),
         "timesteps": lambda: torch.randint(0, max_t, (b,), generator=generator,
                                            device=generator.device),
-        "gumbel": lambda: sample_gumbel((rows, vq), generator),
-        "codebook_gumbel": lambda: sample_gumbel((mods.quantizer.n_e, vq), generator),
-        "gates_gumbel": lambda: sample_gumbel((rows, vq), generator),
+        **(extra or {}),
     }
     if cfg.noise_offset:
         makers["noise_offset"] = lambda: normal((b, 1, 1, lat[-1]))
@@ -196,6 +210,38 @@ def complete_draws(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
     return out
 
 
+def noisy_latents(sched: DiffusionSchedule, cfg, latents: torch.Tensor,
+                  draws: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(noise, noisy latents): the diffusion noise with its offset, and
+    `latents` noised at the draws' timesteps by that noise plus the input
+    perturbation (which the target does not see)."""
+    noise = draws["noise"].float()
+    if cfg.noise_offset:
+        noise = noise + cfg.noise_offset * draws["noise_offset"]
+    noise_in = noise
+    if cfg.input_perturbation:
+        noise_in = noise + cfg.input_perturbation * draws["perturbation"]
+    return noise, sched.add_noise(latents, noise_in, draws["timesteps"])
+
+
+def complete_draws(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torch.Tensor],
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """`draws` with every entry the step needs (`fill_draws` with the
+    router's gumbel draws); missing ones come from `generator`."""
+    b = batch["input_ids"].shape[0]
+    vq = mods.quantizer.spec.vq_dim
+    rows = 1 if mods.hypernet.single_arch_param else b  # the router's logits
+    router = {
+        "gumbel": lambda: sample_gumbel((rows, vq), generator),
+        "codebook_gumbel": lambda: sample_gumbel((mods.quantizer.n_e, vq), generator),
+        "gates_gumbel": lambda: sample_gumbel((rows, vq), generator),
+    }
+    return fill_draws(mods.vae, cfg, batch,
+                      cfg.max_scheduler_steps or mods.schedule.num_train_timesteps, draws,
+                      generator, router)
+
+
 def _no_mark(name: str) -> None:
     pass
 
@@ -207,20 +253,10 @@ def compute_losses(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
     codebook. `draws` must be complete (`complete_draws`)."""
     vae, sched, q = mods.vae, mods.schedule, mods.quantizer
     with torch.no_grad():
-        if "latent_mean" in batch:
-            std = torch.exp(0.5 * batch["latent_logvar"].float())
-            latents = (batch["latent_mean"].float() + std * draws["vae_eps"]) * vae.cfg.scaling_factor
-        else:
-            latents = vae.encode(batch["pixel_values"], draws["vae_eps"]).float()
+        latents = encode_latents(vae, batch, draws["vae_eps"])
         ehs = mods.text_encoder(batch["input_ids"])
-        noise = draws["noise"].float()
-        if cfg.noise_offset:
-            noise = noise + cfg.noise_offset * draws["noise_offset"]
+        noise, noisy = noisy_latents(sched, cfg, latents, draws)
         timesteps = draws["timesteps"]
-        noise_for_q = noise
-        if cfg.input_perturbation:
-            noise_for_q = noise + cfg.input_perturbation * draws["perturbation"]
-        noisy = sched.add_noise(latents, noise_for_q, timesteps)
     mark("encode")
 
     # router

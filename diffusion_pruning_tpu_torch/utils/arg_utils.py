@@ -30,7 +30,8 @@ def parse_args(argv=None):
     p.add_argument("--expert_id", type=int, default=None,
                    help="Codebook row to materialise/fine-tune.")
     p.add_argument("--pruning_type", type=str, default=None,
-                   choices=[None, "no-pruning", "magnitude", "random", "structural"],
+                   choices=[None, "no-pruning", "magnitude", "random", "structural",
+                            "single-arch"],
                    help="Baseline fine-tuning variant.")
     p.add_argument("--revision", type=str, default=None)
     p.add_argument("--non_ema_revision", type=str, default=None)

@@ -43,8 +43,15 @@ pytestmark = [pytest.mark.cuda,
 REL_L2 = 1e-2
 # lse: f32 on both sides from the same bf16 inputs (reads ~1e-6)
 LSE_ATOL = 1e-3
-# dgate per (batch, head) relative to the head's RMS dgate over the batch
-DGATE_REL = 5e-2
+# dgate per (batch, head) relative to the head's RMS f32 dgate over the
+# batch, against the plain backward that rounds P and dS to bf16 before their
+# products as the kernels do. Against the f32 plain backward a sound bf16
+# backward itself crosses 5e-2 for about one output gradient in a hundred
+# at some shapes, so that comparison cannot hold a fixed limit; against the
+# rounded one the kernels read medians of 1e-6-1.8e-4 and at most 4.6e-3
+# over 300 output gradients at each of this test's shapes on an H100
+# (scripts/torch_port/dgate_spread_probe.py)
+DGATE_BF16_REL = 1e-2
 
 
 def _inputs(b, s_q, s_kv, h, seed):
@@ -153,7 +160,8 @@ def _backward_launches():
 def test_cuda_training_kernels_match_plain_versions(s_q, s_kv, h):
     """The training forward's o and lse, and dq, dk, dv and dgate of the
     backward kernels (on the forward's own o and lse), against the plain
-    versions in f32 on the same bf16 inputs; a closed head gets exactly 0
+    versions in f32 on the same bf16 inputs (dgate against the one with the
+    kernels' bf16 roundings, DGATE_BF16_REL); a closed head gets exactly 0
     dq, dk, dv and a nonzero dgate; the kernels of the plan's route ran."""
     b = 4
     q, k, v, gate = _inputs(b, s_q, s_kv, h, seed=s_q * h + s_kv)
@@ -174,8 +182,10 @@ def test_cuda_training_kernels_match_plain_versions(s_q, s_kv, h):
     assert lse.shape == (b * h, s_q) and (lse - lse_r).abs().max().item() <= LSE_ATOL
     for got, ref in ((o, o_r), (dq, dq_r), (dk, dk_r), (dv, dv_r)):
         assert per_head_rel_l2(got, ref).max().item() <= REL_L2
+    dg_b = _f32_reference(functools.partial(gated_flash_backward_reference, bf16_products=True),
+                          q, k, v, gate, o, lse, do)[3]
     rms = dg_r.square().mean(dim=0).sqrt()
-    assert ((dgate - dg_r).abs() / rms).max().item() <= DGATE_REL
+    assert ((dgate - dg_b).abs() / rms).max().item() <= DGATE_BF16_REL
     for t in (dq, dk, dv):
         assert torch.all(t[0, :, 0] == 0)
     assert dgate[0, 0].abs().item() > 0
@@ -666,3 +676,154 @@ def test_cuda_safetensors_round_trip(tmp_path):
     for k, v in tensors.items():
         assert back[k].device.type == "cpu" and back[k].dtype == torch.float32
         assert torch.equal(back[k], v.float().cpu()), k
+
+
+# ---------------------------------------------------------------- stage 2
+
+def _finetune_modules(fused_norm_conv=False, seed=0):
+    """A fine-tuning world on the card: the tiny U-Net widened to 64-wide
+    heads (channels (64, 128), 1 and 2 heads) with seeded random weights, its
+    expert (the first half of the width units closed, each site's first unit
+    open) as a student that owns its tensors, the teacher, VAE and text
+    encoder in bf16."""
+    from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.models.unet.pruned import make_expert_plan
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from diffusion_pruning_tpu_torch.schedulers import DiffusionSchedule
+    from diffusion_pruning_tpu_torch.training.factory import build_student
+    from diffusion_pruning_tpu_torch.training.finetuner import FineTunerModules
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+
+    cfg = UNetConfig.tiny(block_out_channels=(64, 128), attention_head_dim=(1, 2),
+                          use_flash_attention=True, fused_norm_conv=fused_norm_conv)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        dense, vae, text = GatedUNet(cfg), AutoencoderKL(VAEConfig.tiny()), CLIPTextEncoder(
+            CLIPTextConfig.tiny())
+    for module in (dense, vae, text):
+        random_init_(module, gen)
+    spec = dense.spec
+    arch = torch.ones(spec.vq_dim)
+    arch[: spec.num_width // 2] = 0.0
+    for sb in spec.subblocks:
+        for site in sb.sites:
+            arch[site.start] = 1.0
+    student = build_student(dense, make_expert_plan(spec, arch))
+    return FineTunerModules(student=student, teacher=dense.to(torch.bfloat16).eval(),
+                            vae=vae.to(torch.bfloat16).eval(),
+                            text_encoder=text.to(torch.bfloat16).eval(),
+                            schedule=DiffusionSchedule())
+
+
+def _bf16_copy_optimizer(cfg, student, global_batch=2):
+    """f32 masters taken from the student, then the student cast to its bf16
+    compute copy, as the finetune entry point does."""
+    from diffusion_pruning_tpu_torch.training import finetuner as ft
+    masters = ft.MasterWeights(student, separate=True)
+    student.to(torch.bfloat16)
+    return ft.make_finetune_optimizer(cfg, masters, global_batch)
+
+
+def _finetune_batch(b=2, seed=1):
+    """64px pixels: 32×32 latents through the tiny VAE, so the student's
+    attention runs at 1024 and 256 tokens (both backward routes)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"pixel_values": torch.rand(b, 64, 64, 3, device="cuda", generator=g) * 2 - 1,
+            "input_ids": torch.randint(0, 128, (b, 77), device="cuda", generator=g)}
+
+
+def _student_grads(mods, cfg, batch, draws):
+    from diffusion_pruning_tpu_torch.training.finetuner import compute_losses
+    for p in mods.student.parameters():
+        p.grad = None
+    compute_losses(mods, cfg, batch, draws)[0].backward()
+    grads = {n: p.grad.float().clone() for n, p in mods.student.named_parameters()}
+    for p in mods.student.parameters():
+        p.grad = None
+    return grads
+
+
+def test_cuda_finetune_step_through_the_kernels(monkeypatch):
+    """One fine-tune step of the narrow expert on the card, bf16 compute copy
+    of f32 masters: the student's gradients through the training kernels (the
+    lse forward and `backward_plan`'s kernels, no gate) against plain
+    attention under autograd, cosine per leaf > 0.999 (as chip_smoke's
+    GRAD_COS); then a step: the teacher's weights unchanged bit for bit, the
+    copy the masters rounded to bf16."""
+    from diffusion_pruning_tpu_torch.models.unet import attention
+    from diffusion_pruning_tpu_torch.training import finetuner as ft
+
+    mods = _finetune_modules()
+    cfg = ft.FineTuneConfig(lr_warmup_steps=0)
+    opt = _bf16_copy_optimizer(cfg, mods.student)
+    batch = _finetune_batch()
+    draws = ft.complete_draws(mods, cfg, batch, None,
+                              torch.Generator(device="cuda").manual_seed(2))
+    wrappers = (gated_flash_forward_lse, gated_flash_bwd_fused, gated_flash_bwd_reduce,
+                gated_flash_bwd_dq, gated_flash_bwd_dkv)
+    for w in wrappers:
+        w.launches = 0
+    kernel = _student_grads(mods, cfg, batch, draws)
+    got = {w.__name__: w.launches for w in wrappers}
+    assert got["gated_flash_forward_lse"] > 0 and got["gated_flash_bwd_dq"] > 0
+    assert got["gated_flash_bwd_fused"] > 0
+    monkeypatch.setattr(attention, "gated_flash_attention", gated_attention_reference)
+    plain = _student_grads(mods, cfg, batch, draws)
+    monkeypatch.undo()
+    for name, w in plain.items():
+        if w.norm() > 0:
+            cos = float(torch.dot(kernel[name].flatten(), w.flatten())
+                        / (kernel[name].norm() * w.norm()))
+            assert cos > 0.999, (name, cos)
+    teacher = {k: v.clone() for k, v in mods.teacher.state_dict().items()}
+    metrics = ft.make_finetune_step(mods, cfg, opt)(batch, draws)
+    assert not metrics["skipped"] and torch.isfinite(metrics["loss"])
+    for k, v in mods.teacher.state_dict().items():
+        assert torch.equal(v, teacher[k]), k
+    masters = opt.masters
+    assert all(m.dtype == torch.float32 and c.dtype == torch.bfloat16
+               and torch.equal(c.detach(), m.bfloat16())
+               for m, c in zip(masters.masters, masters.copies))
+
+
+def test_cuda_fused_norm_conv_student_follows_its_updates():
+    """Two steps of the narrow expert under `fused_norm_conv` and unfused,
+    from the same weights with the same draws: the fused student's output
+    then equals, bit for bit, that of a fresh fused student built from its
+    current weights (its packed conv weights followed both refreshes of the
+    bf16 copy), and lies within 2e-2 relative L2 of the unfused student's (as
+    chip_smoke's FUSED_UNET_REL_L2)."""
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    from diffusion_pruning_tpu_torch.ops import norm_conv as nc
+    from diffusion_pruning_tpu_torch.training import finetuner as ft
+
+    cfg = ft.FineTuneConfig(lr_warmup_steps=0, unet_lr=1e-3)
+    batch = _finetune_batch()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 32, 32, 4, device="cuda", generator=g)
+    ehs = torch.randn(2, 77, 32, device="cuda", generator=g)
+    t = torch.tensor([10, 700], device="cuda")
+    outs = {}
+    for fused in (False, True):
+        mods = _finetune_modules(fused_norm_conv=fused)
+        opt = _bf16_copy_optimizer(cfg, mods.student)
+        step = ft.make_finetune_step(mods, cfg, opt)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        nc.norm_conv3x3.launches = 0
+        for _ in range(2):
+            assert not step(batch, generator=gen)["skipped"]
+            with torch.no_grad():
+                out = mods.student(x, t, ehs).float()
+        assert (nc.norm_conv3x3.launches > 0) == fused
+        outs[fused] = out
+        if fused:
+            with torch.device("meta"):
+                fresh = GatedUNet(mods.student.cfg, plan=mods.student.plan)
+            fresh.load_state_dict({k: v.clone() for k, v in mods.student.state_dict().items()},
+                                  assign=True)
+            with torch.no_grad():
+                assert torch.equal(out, fresh(x, t, ehs).float())
+    rel = float((outs[True] - outs[False]).norm() / outs[False].norm())
+    assert rel <= 2e-2, rel

@@ -261,6 +261,23 @@ def test_backward_q_split_fills_half_of_the_last_round(b, s_q, s_kv, h):
     assert all(plan.slice_tiles(ch)[0] < plan.slice_tiles(ch)[1] for ch in range(plan.chunks))
 
 
+# (B, S_q, S_kv, heads) of an expert's attention sites in stage 2: kept head
+# counts 2-18 at each token count of the 256px U-Net, B = 64 and 128
+EXPERT_HEADS = (2, 3, 5, 7, 11, 13, 18)
+EXPERT_CASES = [(b, s, s_kv, h) for b in (64, 128) for s in (1024, 256, 64, 16)
+                for s_kv in (s, 77) for h in EXPERT_HEADS]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", EXPERT_CASES)
+def test_backward_plan_at_expert_head_counts_writes_every_row_once(b, s_q, s_kv, h):
+    """At an expert's kept head counts the plan splits differently (B·H items
+    against the 132 SMs); every dq and dk/dv row of every (batch, head) is
+    still written by exactly one block, each slice's partial once."""
+    test_backward_plan_writes_every_row_once(b, s_q, s_kv, h)
+    test_backward_plan_takes_one_pass_only_where_the_kv_side_is_one_tile(b, s_q, s_kv, h)
+    test_backward_q_split_fills_half_of_the_last_round(b, s_q, s_kv, h)
+
+
 def test_backward_plan_at_the_train_steps_sites():
     """B = 64: the 22 sites with S_kv <= 80 run one pass, only 1024/77 split
     (320 items fill 42 % of the last round, two slices 85 %); 1024² and 256²
@@ -396,6 +413,16 @@ def test_forward_plan_grid_never_exceeds_the_items(b, s_q, s_kv, h):
     else:
         assert plan.grid == min(plan.items, fa.SM_COUNT)
         assert plan.launch_args == (plan.grid,)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,h", EXPERT_CASES)
+def test_forward_plan_at_expert_head_counts_writes_every_query_row_once(b, s_q, s_kv, h):
+    """The forward's plan at an expert's kept head counts: every (batch,
+    head, query row) stored by one warpgroup's item, the kernel and kv tile
+    by S_q and S_kv, the grid within the items."""
+    test_forward_plan_writes_every_query_row_once(b, s_q, s_kv, h)
+    test_forward_plan_takes_one_kv_tile_exactly_where_s_kv_fits_80(b, s_q, s_kv, h)
+    test_forward_plan_grid_never_exceeds_the_items(b, s_q, s_kv, h)
 
 
 def test_forward_plan_at_the_unet_sites():

@@ -106,12 +106,17 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "diffusion_pruning_tpu_torch.schedulers.pndm",
                    "diffusion_pruning_tpu_torch.schedulers.dpm",
                    "diffusion_pruning_tpu_torch.cli.prune",
+                   "diffusion_pruning_tpu_torch.cli.finetune",
+                   "diffusion_pruning_tpu_torch.cli.finetune_baseline",
                    "diffusion_pruning_tpu_torch.training.loop",
                    "diffusion_pruning_tpu_torch.training.factory",
+                   "diffusion_pruning_tpu_torch.training.finetuner",
+                   "diffusion_pruning_tpu_torch.models.unet.magnitude",
                    "diffusion_pruning_tpu_torch.models.clip_vision",
                    "diffusion_pruning_tpu_torch.models.safety",
                    *("diffusion_pruning_tpu_torch.utils." + m for m in (
-                       "config", "arg_utils", "logging_utils", "checkpoint", "export"))}
+                       "config", "arg_utils", "logging_utils", "checkpoint", "export",
+                       "model_card"))}
         print(len(names), bad, sorted(serving_modules - set(names)))
         sys.exit(1 if bad or len(names) < 20 or not serving_modules <= set(names) else 0)
     """)
