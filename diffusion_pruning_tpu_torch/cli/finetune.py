@@ -14,21 +14,27 @@ the run directory as `arch_vector.pt`) → the dense U-Net from local weights
 randomly initialised) → the expert cut from it as a student that owns its
 tensors, f32 masters in the optimizer and a compute copy in `--compute_dtype`
 → the dense U-Net as the frozen teacher in `training.mixed_precision` (else
-the compute dtype) → the MACs ratio printed → AdamW → the loop (synthetic
-batches, since the dataset is missing; `gradient_accumulation_steps`
-micro-batches a step; `resume_from_checkpoint`) → the model card.
+the compute dtype) → the MACs ratio printed → AdamW → the loop
+(`gradient_accumulation_steps` micro-batches a step;
+`resume_from_checkpoint`) → the model card. With a dataset folder
+(`data.data_dir` that exists) the batches come from its train split with
+CLIP ids (`<sd_root>/tokenizer`, else the hash tokenizer), and only the
+captions the router gave `--expert_id` are kept when
+`{dataset_name}_train_mapped_indices.pt` (`cli/filter_dataset.py`) is in
+`--pruning_ckpt_dir`; without one, synthetic batches.
 `--device cpu` runs on the CPU (the plain versions of the kernels); without
 it there must be a card.
 
 Beyond the JAX entry point: the config's `noise_offset`,
 `input_perturbation`, `max_grad_norm` and `adam_mu_bf16` reach the step;
 `--use_ema` (or `model.unet.use_ema`) keeps an EMA of the weights at decay
-`EMA_DECAY`; two synthetic batches are validated every `validation_steps`.
+`EMA_DECAY`; every `validation_steps` the validation split's first
+`max_validation_samples` images (two synthetic batches without a dataset)
+are validated.
 
-Not yet here, each raising before anything is built: a real dataset
-(`data_dir` that exists) and the Hub upload (ROADMAP A6); more than one
-device (`--mesh_shape`), `optim.zero1` and `optim.tensor_parallel` (the
-data-parallel slice, ROADMAP A4).
+Not yet here, each raising before anything is built: the Hub upload
+(ROADMAP A5); more than one device (`--mesh_shape`), `optim.zero1` and
+`optim.tensor_parallel` (the data-parallel slice, ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -52,12 +58,8 @@ def check_supported(args, cfg) -> None:
         raise NotImplementedError(f"optim.tensor_parallel > 1: {DATA_PARALLEL}")
     if optim.get("zero1", False):
         raise NotImplementedError(f"optim.zero1: {DATA_PARALLEL}")
-    data_dir = cfg.data.get("data_dir") or ""
-    if os.path.exists(data_dir):
-        raise NotImplementedError(f"data_dir {data_dir!r} exists: real datasets and their "
-                                  "tokenizers are ROADMAP A6, not ported yet")
     if cfg.get_path("training.hf_hub.push_to_hub", False):
-        raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A6, "
+        raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A5, "
                                   "not ported yet")
 
 
@@ -88,8 +90,11 @@ def resolve(args) -> torch.device:
 def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable, label: str,
               expert_id: Optional[int] = None):
     """Build the teacher and the student of `pick_arch(dense U-Net)` (an arch
-    vector, or None for the dense student), train, write the model card;
-    returns the finished `FineTuneLoop`. Shared by the baseline entry point."""
+    vector, or None for the dense student), train on the dataset folder's
+    train split (only `expert_id`'s captions, where the router's assignment
+    is in `--pruning_ckpt_dir`) or on synthetic batches, write the model
+    card; returns the finished `FineTuneLoop`. Shared by the baseline entry
+    point, which passes no `expert_id` and so trains on every caption."""
     from diffusion_pruning_tpu_torch.models.unet.pruned import expert_macs_ratio, make_expert_plan
     from diffusion_pruning_tpu_torch.training import (
         FineTunerModules,
@@ -155,25 +160,80 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
                         tracker=Tracker(run_dir, use_wandb=logging_cfg.get("report_to") == "wandb"),
                         seed=args.seed, ema_decay=EMA_DECAY if use_ema else None)
 
-    print(f"[smoke] dataset dir {cfg.data.get('data_dir')!r} missing — synthetic data",
-          file=sys.stderr)
     resolution = ucfg.sample_size * 8
-    rng = np.random.RandomState(args.seed)
-
-    def synth(n):
-        def gen(_epoch=0):
-            for _ in range(n):
-                yield {"pixel_values": rng.randn(global_batch, resolution, resolution, 3
-                                                 ).astype(np.float32) * 0.5,
-                       "input_ids": rng.randint(0, 128, (global_batch, 77)).astype(np.int32)}
-        return gen
-
-    loop.train(synth(max(loop_cfg.max_train_steps, 1)), lambda: synth(2)(0))
+    data_dir = cfg.data.get("data_dir") or ""
+    if os.path.exists(data_dir):
+        train_batches, val_batches = dataset_batches(args, cfg, text, resolution, global_batch,
+                                                     expert_id)
+    else:
+        print(f"[smoke] dataset dir {data_dir!r} missing — synthetic data", file=sys.stderr)
+        train_batches, val_batches = synthetic_batches(args.seed, global_batch, resolution,
+                                                       max(loop_cfg.max_train_steps, 1))
+    loop.train(train_batches, val_batches)
     write_model_card(run_dir, sd_root or "stable-diffusion-2-1",
                      cfg.data.get("dataset_name", "?"), expert_id=expert_id, macs_ratio=macs,
                      extra={"max_train_steps": loop_cfg.max_train_steps,
                             "unet_lr": ft_cfg.unet_lr})
     return loop
+
+
+def synthetic_batches(seed: int, batch: int, resolution: int, steps: int):
+    """(train_batches, val_batches) of normal pixels and random CLIP ids from
+    `RandomState(seed)`, as the JAX entry point draws them."""
+    rng = np.random.RandomState(seed)
+
+    def synth(n):
+        def gen(_epoch=0):
+            for _ in range(n):
+                yield {"pixel_values": rng.randn(batch, resolution, resolution, 3
+                                                 ).astype(np.float32) * 0.5,
+                       "input_ids": rng.randint(0, 128, (batch, 77)).astype(np.int32)}
+        return gen
+
+    return synth(steps), lambda: synth(2)(0)
+
+
+def expert_rows(cols, pruning_dir: str, dataset_name: str, expert_id: int):
+    """The train columns routed to `expert_id` when the router's assignment
+    `{dataset_name}_train_mapped_indices.pt` is in `pruning_dir`, else all."""
+    from diffusion_pruning_tpu_torch.utils.checkpoint import load_torch_artifact
+    path = os.path.join(pruning_dir or "", f"{dataset_name}_train_mapped_indices.pt")
+    if not os.path.exists(path):
+        return cols
+    keep = np.nonzero(np.asarray(load_torch_artifact(path)) == expert_id)[0]
+    print(f"expert {expert_id}: {len(keep)} assigned prompts", file=sys.stderr)
+    return {k: [v[i] for i in keep] for k, v in cols.items()}
+
+
+def dataset_batches(args, cfg, text_encoder, resolution: int, batch: int,
+                    expert_id: Optional[int] = None):
+    """(train_batches, val_batches) of the dataset folder with CLIP ids: the
+    train split (only `expert_id`'s captions where the router's assignment is
+    there) and the validation split's first `max_validation_samples`."""
+    from diffusion_pruning_tpu_torch.data import get_dataset
+    from diffusion_pruning_tpu_torch.data.loader import DataPipeline
+    from diffusion_pruning_tpu_torch.data.tokenizers import build_clip_tokenizer
+
+    clip_tok = build_clip_tokenizer(args.pretrained_model_name_or_path,
+                                    vocab_size=text_encoder.cfg.vocab_size)
+
+    def tok_clip(caps):
+        return np.asarray(clip_tok(caps, max_length=77, padding="max_length", truncation=True,
+                                   return_tensors="np").input_ids)
+
+    splits = get_dataset(cfg.data)
+    train = splits["train"]
+    if expert_id is not None:
+        train = expert_rows(train, args.pruning_ckpt_dir, cfg.data.dataset_name, expert_id)
+    train_pipe = DataPipeline(train, batch, resolution, tok_clip, None, train=True,
+                              seed=args.seed)
+    if not len(train_pipe):  # the loop would turn over empty epochs for ever
+        raise ValueError(f"{len(train['caption'])} train captions fill no batch of {batch}")
+    val_pipe = DataPipeline(splits["validation"],
+                            cfg.data.dataloader.get("validation_batch_size", 16), resolution,
+                            tok_clip, None, train=False, seed=args.seed,
+                            max_samples=cfg.data.get("max_validation_samples"))
+    return train_pipe.epoch, lambda: val_pipe.epoch(0)
 
 
 def main(argv=None):

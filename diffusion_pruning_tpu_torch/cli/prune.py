@@ -10,17 +10,21 @@ The steps of the JAX package's `scripts/aptp/prune.py`: config and flags →
 run directory (with a copy of the config) → the models from local
 checkpoints (`training/factory.py`; without `<sd_root>/unet` every model is
 the tiny one, randomly initialised) → the step's config from the YAML's
-losses and optimiser → AdamW → the loop → synthetic batches, since the
-dataset is missing → `gradient_accumulation_steps` micro-batches a step →
-the U-Net exported beside each checkpoint unless
-`training.logging.export_unet: false` → train. `--device cpu` runs on the
-CPU (the plain versions of the kernels); without it there must be a card.
+losses and optimiser → AdamW → the loop → the batches: with a dataset folder
+(`data.data_dir` that exists) the train and validation `DataPipeline`s of
+its COCO or CC3M layout, with CLIP ids and MPNet's mean-pooled embedding
+computed on the device (`data/tokenizers.py` reads `<sd_root>/tokenizer` and
+the MPNet folder's `vocab.txt`, else the hash tokenizer), and every
+`image_logging_steps` the routed samples of `data.prompts` and one sample
+of every codebook row (`samples/`); without one, synthetic batches →
+`gradient_accumulation_steps` micro-batches a step → the U-Net exported
+beside each checkpoint unless `training.logging.export_unet: false` → train.
+`--device cpu` runs on the CPU (the plain versions of the kernels); without
+it there must be a card.
 
-Not yet here: a real dataset (`data_dir` that exists) with its tokenizers
-and periodic sample images, and the Hub upload, which wait for the data and
-tokenizer slice (A6 of ROADMAP.md); more than one device (`--mesh_shape`),
-which waits for the data-parallel step (A4). Each raises before anything is
-built.
+Not yet here: the Hub upload (ROADMAP A5); more than one device
+(`--mesh_shape`), which waits for the data-parallel step (A3). Each raises
+before anything is built.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import sys
 
 import numpy as np
 import torch
+
+from diffusion_pruning_tpu_torch.models.text_encoders import MPNET_MAX_LEN, sentence_embedding
 
 
 def _device(name: str) -> torch.device:
@@ -68,16 +74,11 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mesh_shape is not None and int(args.mesh_shape) > 1:
         raise NotImplementedError("--mesh_shape > 1 needs the data-parallel stage-1 step "
-                                  "(ROADMAP A4), not ported yet")
+                                  "(ROADMAP A3), not ported yet")
     cfg = load_config(args.base_config_path)
     cfg.update_flat(vars(args))
-    data_dir = cfg.data.get("data_dir") or ""
-    if os.path.exists(data_dir):
-        raise NotImplementedError(f"data_dir {data_dir!r} exists: real datasets, their "
-                                  "tokenizers and the sample-image logger are ROADMAP A6, "
-                                  "not ported yet")
     if cfg.get_path("training.hf_hub.push_to_hub", False):
-        raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A6, "
+        raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A5, "
                                   "not ported yet")
     device = _device(args.device)
 
@@ -140,26 +141,15 @@ def main(argv=None):
         resume_from=logging_cfg.get("resume_from_checkpoint"),
     )
 
-    # synthetic data: the dataset is missing
-    print(f"[smoke] dataset dir {data_dir!r} missing — synthetic data", file=sys.stderr)
     resolution = ucfg.sample_size * 8
-    rng = np.random.RandomState(args.seed)
-
-    def synth(n):
-        def gen(_epoch=0):
-            for _ in range(n):
-                yield {
-                    "pixel_values": rng.randn(global_batch, resolution, resolution, 3
-                                              ).astype(np.float32) * 0.5,
-                    "input_ids": rng.randint(0, 128, (global_batch, 77)).astype(np.int32),
-                    "mpnet_embeddings": rng.randn(global_batch, mp_dim).astype(np.float32),
-                }
-        return gen
-
-    train_batches = synth(max(loop_cfg.max_train_steps, 1))
-
-    def val_batches():
-        return synth(2)(0)
+    data_dir = cfg.data.get("data_dir") or ""
+    if os.path.exists(data_dir):
+        data = DatasetBatches(cfg, args, text, mpnet, resolution, global_batch)
+        train_batches, val_batches = data.train_batches, data.val_batches
+    else:
+        print(f"[smoke] dataset dir {data_dir!r} missing — synthetic data", file=sys.stderr)
+        train_batches, val_batches = synthetic_batches(
+            args.seed, global_batch, resolution, mp_dim, max(loop_cfg.max_train_steps, 1))
 
     accum = int(cfg.training.get("gradient_accumulation_steps", 1))
     make_step = (functools.partial(make_pruner_step, accum_steps=accum)
@@ -172,9 +162,128 @@ def main(argv=None):
     # leaves the U-Net frozen, so this is the pretrained weights again
     if logging_cfg.get("export_unet", True):
         loop.export_unet_ref = unet
+    if cfg.data.get("prompts") and os.path.exists(data_dir):
+        loop.image_logger = functools.partial(log_sample_images, data=data, run_dir=run_dir,
+                                              steps=cfg.training.get("num_inference_steps", 50))
     loop.train(train_batches, val_batches)
     print(f"done: {run_dir}")
     return loop
+
+
+def synthetic_batches(seed: int, batch: int, resolution: int, mp_dim: int, steps: int):
+    """(train_batches, val_batches) of normal pixels, random CLIP ids and MPNet
+    embeddings from `RandomState(seed)`, as the JAX entry point draws them."""
+    rng = np.random.RandomState(seed)
+
+    def synth(n):
+        def gen(_epoch=0):
+            for _ in range(n):
+                yield {
+                    "pixel_values": rng.randn(batch, resolution, resolution, 3
+                                              ).astype(np.float32) * 0.5,
+                    "input_ids": rng.randint(0, 128, (batch, 77)).astype(np.int32),
+                    "mpnet_embeddings": rng.randn(batch, mp_dim).astype(np.float32),
+                }
+        return gen
+
+    return synth(steps), lambda: synth(2)(0)
+
+
+class DatasetBatches:
+    """The dataset folder's batches for stage 1: both tokenizers, the train
+    and validation `DataPipeline`s, and each batch's MPNet embedding (mean
+    pooled, computed on the MPNet's device) in place of its MPNet ids and
+    mask."""
+
+    def __init__(self, cfg, args, text_encoder, mpnet, resolution: int, batch: int):
+        from diffusion_pruning_tpu_torch.data import get_dataset
+        from diffusion_pruning_tpu_torch.data.loader import DataPipeline
+        from diffusion_pruning_tpu_torch.data.tokenizers import (
+            build_clip_tokenizer,
+            build_mpnet_tokenizer,
+        )
+        self.cfg, self.mpnet = cfg, mpnet
+        self.clip_tok = build_clip_tokenizer(args.pretrained_model_name_or_path,
+                                             vocab_size=text_encoder.cfg.vocab_size)
+        self.mp_tok = build_mpnet_tokenizer(args.prompt_encoder_model_name_or_path,
+                                            vocab_size=mpnet.cfg.vocab_size)
+        # capped at the model's position table (the tiny MPNet has 64)
+        self.mp_len = min(MPNET_MAX_LEN, mpnet.cfg.max_positions)
+        loader_cfg = cfg.data.dataloader
+        splits = get_dataset(cfg.data)
+        self.train_pipe = DataPipeline(
+            splits["train"], batch, resolution, self.tokenize_clip, self.tokenize_mpnet,
+            train=True, center_crop=loader_cfg.get("center_crop", False),
+            random_flip=loader_cfg.get("random_flip", True), seed=args.seed,
+            max_samples=cfg.data.get("max_train_samples"))
+        if not len(self.train_pipe):  # the loop would turn over empty epochs for ever
+            raise ValueError(f"the train split fills no batch of {batch}")
+        self.val_pipe = DataPipeline(
+            splits["validation"], loader_cfg.get("validation_batch_size", 16), resolution,
+            self.tokenize_clip, self.tokenize_mpnet, train=False, seed=args.seed,
+            max_samples=cfg.data.get("max_validation_samples"))
+
+    def tokenize_clip(self, caps):
+        return np.asarray(self.clip_tok(caps, max_length=77, padding="max_length",
+                                        truncation=True, return_tensors="np").input_ids)
+
+    def tokenize_mpnet(self, caps):
+        enc = self.mp_tok(caps, padding="max_length", max_length=self.mp_len, truncation=True,
+                          return_tensors="np")
+        return {"mpnet_input_ids": enc.input_ids, "mpnet_attention_mask": enc.attention_mask}
+
+    @torch.no_grad()  # not inference mode: the step differentiates the hypernet on them
+    def embed(self, ids, mask) -> torch.Tensor:
+        """Mean-pooled MPNet embeddings (B, D), f32, on the MPNet's device."""
+        return sentence_embedding(self.mpnet, ids, mask)
+
+    def _embedded(self, batches):
+        for b in batches:
+            b["mpnet_embeddings"] = self.embed(b.pop("mpnet_input_ids"),
+                                               b.pop("mpnet_attention_mask"))
+            yield b
+
+    def train_batches(self, epoch):
+        return self._embedded(self.train_pipe.epoch(epoch))
+
+    def val_batches(self):
+        return self._embedded(self.val_pipe.epoch(0))
+
+
+def log_sample_images(loop, data: DatasetBatches, run_dir: str, steps: int) -> None:
+    """The loop's image logger: routed samples of `data.prompts` (CFG) and one
+    unconditional sample of every codebook row (empty prompt, no CFG) from
+    the `embedding_gs` snapshot, written as samples/samples_{step}.png and
+    samples/quantizer_samples_{step}.png and logged through the tracker."""
+    from PIL import Image
+
+    from diffusion_pruning_tpu_torch.pipelines import PruningPipeline
+    from diffusion_pruning_tpu_torch.utils.logging_utils import image_grid
+
+    mods = loop.mods
+    prompts = list(data.cfg.data.prompts)
+    pipe = PruningPipeline(mods.unet, mods.vae, mods.text_encoder, mods.hypernet, mods.quantizer,
+                           mods.schedule, device=loop.device)
+    step = loop.global_step
+    ids = torch.as_tensor(data.tokenize_clip(prompts))
+    neg = torch.as_tensor(data.tokenize_clip([""] * len(prompts)))
+    emb = data.embed(*data.tokenize_mpnet(prompts).values())
+    images, _, _ = pipe(ids, neg, torch.Generator(device=loop.device).manual_seed(step),
+                        hyper_net_input=emb, num_inference_steps=steps)
+    n_e = mods.quantizer.n_e
+    empty = torch.as_tensor(data.tokenize_clip([""] * n_e))
+    q_images = pipe.quantizer_samples(empty, empty,
+                                      torch.Generator(device=loop.device).manual_seed(step),
+                                      expert_ids=list(range(n_e)), guidance_scale=1.0,
+                                      num_inference_steps=steps)
+    out = os.path.join(run_dir, "samples")
+    os.makedirs(out, exist_ok=True)
+    grid = image_grid(images.cpu().numpy())
+    q_grid = image_grid(q_images.cpu().numpy())
+    Image.fromarray(grid).save(os.path.join(out, f"samples_{step}.png"))
+    Image.fromarray(q_grid).save(os.path.join(out, f"quantizer_samples_{step}.png"))
+    loop.tracker.log_images({"validation_samples": grid, "quantizer_embedding_samples": q_grid},
+                            step)
 
 
 if __name__ == "__main__":

@@ -245,3 +245,16 @@ def mean_pool(token_embeddings: torch.Tensor, attention_mask: torch.Tensor) -> t
     """Masked mean pooling."""
     m = attention_mask[..., None].to(token_embeddings.dtype)
     return (token_embeddings * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1e-9)
+
+
+MPNET_MAX_LEN = 128  # MPNet's token length for routing (capped at the position table)
+
+
+def sentence_embedding(mpnet: MPNetEncoder, input_ids, attention_mask) -> torch.Tensor:
+    """Mean-pooled MPNet token states (B, D), f32, on the MPNet's device, of
+    host or device ids and mask: the routing feature that stage 1's batches
+    and the router's assignment share."""
+    device = mpnet.embeddings.word_embeddings.weight.device
+    ids = torch.as_tensor(input_ids, dtype=torch.long, device=device)
+    mask = torch.as_tensor(attention_mask, dtype=torch.long, device=device)
+    return mean_pool(mpnet(ids, mask), mask).float()

@@ -42,7 +42,7 @@ ends: "encode", "teacher", "student", "losses", "backward" (once per
 micro-batch), then "optimizer".
 
 The data-parallel step (the JAX package's mesh, ZeRO-1 and GSPMD branches)
-is the next slice of the port (ROADMAP A4); asking for it raises.
+is the next slice of the port (ROADMAP A3); asking for it raises.
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ from diffusion_pruning_tpu_torch.training.pruner import (
 
 LOSS_TERMS = ("loss", "diffusion_loss", "distillation_loss", "block_loss")
 DATA_PARALLEL = ("the data-parallel fine-tune step (mesh, ZeRO-1, tensor parallelism) is "
-                 "ROADMAP A4's data-parallel slice, not ported yet")
+                 "ROADMAP A3's data-parallel slice, not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)

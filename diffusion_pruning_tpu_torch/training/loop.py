@@ -6,7 +6,8 @@ the batches, the switch from the hypernet's own gates to the codebook at
 `hypernet_pretraining_steps`, the count of skipped (non-finite) steps,
 scalar logging every `log_every` steps (with steps/s and the expert-usage
 histogram), validation every `validation_steps`, codebook and resource
-heatmaps every `image_logging_steps`, checkpoints every `checkpoint_steps`
+heatmaps every `image_logging_steps` (then `image_logger(loop)` when set:
+the entry point's sample images), checkpoints every `checkpoint_steps`
 (or at each epoch's end) and at the end, rotation, resume ("latest" or a
 step number), an optional EMA of the trainables, and the diffusers-style
 export beside each checkpoint (`hypernet/`, `quantizer/`, and `unet/` when
@@ -100,6 +101,7 @@ class PrunerLoop(_Loop):
         self.tracker = tracker or Tracker(run_dir)
         self.run_dir = run_dir
         self.export_unet_ref = None  # the U-Net, to also export unet/
+        self.image_logger: Optional[Callable] = None  # image_logger(loop), after the heatmaps
         self.global_step = 0
         self.skipped_steps = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -218,6 +220,8 @@ class PrunerLoop(_Loop):
                     self.validate(val_batches)
                 if lc.image_logging_steps and self.global_step % lc.image_logging_steps == 0:
                     self.log_heatmaps(aux)
+                    if self.image_logger is not None:
+                        self.image_logger(self)
                 if lc.checkpoint_steps and self.global_step % lc.checkpoint_steps == 0:
                     self.save_checkpoint()
             epoch += 1

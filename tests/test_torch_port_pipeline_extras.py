@@ -23,6 +23,7 @@ import torch
 from safetensors.torch import save_file
 
 from diffusion_pruning_tpu.core.estimators import FIXED_KEY
+from diffusion_pruning_tpu.core.sinkhorn import sinkhorn_assign as jax_sinkhorn_assign
 from diffusion_pruning_tpu.core.structure import build_structure as jax_build_structure
 from diffusion_pruning_tpu.models.clip_vision import CLIPVisionConfig as JaxCLIPVisionConfig
 from diffusion_pruning_tpu.models.clip_vision import CLIPVisionEncoder as JaxCLIPVision
@@ -210,18 +211,33 @@ def test_quantizer_options_match_jax(options):
 
 def test_no_optimal_transport_takes_the_cosine_argmax():
     """Without Sinkhorn every prompt goes to its nearest code, even when all
-    prompts share one (Sinkhorn would spread them)."""
+    prompts share one; Sinkhorn spreads them, as the JAX package's
+    `sinkhorn_assign` does on the same scores. Eight distinct prompts near
+    code 2 of a codebook whose gates are not saturated (base 0, rows of
+    about ±1 logit): at base 3 every gate saturates, all scores tie and the
+    argmax of a tie is code 0 in both packages."""
     spec = GatedUNet(UNetConfig.tiny()).spec
+    rows = torch.empty(4, spec.vq_dim)
+    torch.nn.init.orthogonal_(rows, generator=torch.Generator().manual_seed(1))
+    rows *= spec.vq_dim ** 0.5  # entries of about ±1
+    offsets = torch.randn(8, spec.vq_dim, generator=torch.Generator().manual_seed(2))
+    z = rows[2] + 0.3 * offsets  # eight distinct prompts, each nearest code 2
+    noise_c = torch.zeros(4, spec.vq_dim)
+    noise_g = torch.zeros(8, spec.vq_dim)
     results = {}
     for ot in (True, False):
-        q = StructureQuantizer(spec, n_e=4, base=3.0, optimal_transport=ot)
-        q.init_params(torch.Generator().manual_seed(1))
-        z = q.embedding.weight.detach()[[2] * 8]  # eight prompts at code 2
-        noise_c = torch.zeros(4, spec.vq_dim)
-        noise_g = torch.zeros(8, spec.vq_dim)
+        q = StructureQuantizer(spec, n_e=4, base=0.0, optimal_transport=ot)
+        with torch.no_grad():
+            q.embedding.weight.copy_(rows)
         results[ot] = q.forward_train(z, noise_c, noise_g)[1]
+        scores = q._scores(q.gumbel_sigmoid_trick(z, noise_g),
+                           q.gumbel_sigmoid_trick(q.embedding.weight, noise_c)).detach()
+    assert len({tuple(r) for r in z.tolist()}) == 8
     assert results[False].tolist() == [2] * 8
+    assert torch.equal(scores.argmax(dim=-1), results[False])
     assert len(set(results[True].tolist())) > 1
+    np.testing.assert_array_equal(results[True].numpy(),
+                                  np.asarray(jax_sinkhorn_assign(jnp.asarray(scores.numpy()))))
 
 
 # ---------------------------------------------------------------- progressive sampling

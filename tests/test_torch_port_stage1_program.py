@@ -69,6 +69,7 @@ from diffusion_pruning_tpu_torch.utils.checkpoint import (
 )
 
 import test_torch_port_training as tt
+from test_torch_port_data import write_coco
 from test_torch_port_training import unet_params, world  # noqa: F401 (fixtures)
 from torch_port_common import numpy_params
 
@@ -657,19 +658,24 @@ def test_prune_cli_runs_tiny_smoke_on_the_cpu_and_resumes(tmp_path, monkeypatch)
 
 
 def test_prune_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """No card without `--device cpu`, the Hub upload (A5) and `--mesh_shape`
+    > 1 (A3) raise before the run directory is made; a `data_dir` that
+    exists is trained on."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--pretrained_model_name_or_path", "", "--wandb_run_name", "r"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prune.main(["--base_config_path", _yaml(tmp_path)] + base)
     assert not (tmp_path / "runs").exists()
-    with pytest.raises(NotImplementedError, match="A6"):
-        prune.main(["--base_config_path", _yaml(tmp_path, "d.yaml",
-                                                **{"data.data_dir": str(tmp_path)}),
-                    "--device", "cpu"] + base)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A5"):
         prune.main(["--base_config_path", _yaml(tmp_path, "h.yaml", **{
             "training.hf_hub": {"push_to_hub": True}}), "--device", "cpu"] + base)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="A3"):
         prune.main(["--base_config_path", _yaml(tmp_path), "--device", "cpu",
                     "--mesh_shape", "2"] + base)
     assert not (tmp_path / "runs").exists()
+    data_dir = write_coco(tmp_path / "coco", n_train=6, n_val=4)
+    loop = prune.main(["--base_config_path", _yaml(tmp_path, "d.yaml", **{
+        "data.data_dir": data_dir, "data.dataset_name": "coco",
+        "training.max_train_steps": 2, "training.validation_steps": 2}),
+        "--device", "cpu"] + base)
+    assert loop.global_step == 2 and loop.ckpt.list_steps() == [2]

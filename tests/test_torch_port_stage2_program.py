@@ -22,6 +22,8 @@ from diffusion_pruning_tpu_torch.training import loop as loop_module
 from diffusion_pruning_tpu_torch.training.loop import LoopConfig
 from diffusion_pruning_tpu_torch.utils.checkpoint import load_torch_artifact, save_torch_artifact
 
+from test_torch_port_data import write_coco
+
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRUNE_YAML = os.path.join(REPO, "configs", "pruning", "tiny_smoke.yaml")
@@ -154,10 +156,10 @@ def test_finetune_baseline_cli_runs_every_pruning_type(stage1, tmp_path, pruning
 
 
 def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monkeypatch):
-    """No card without `--device cpu`; an existing data_dir and the Hub
-    upload (A6); `--mesh_shape` > 1, `optim.zero1` and
-    `optim.tensor_parallel` > 1 (the data-parallel slice); a missing
-    `--expert_id`. Each raises before the run directory is made."""
+    """No card without `--device cpu`; the Hub upload (A5); `--mesh_shape` >
+    1, `optim.zero1` and `optim.tensor_parallel` > 1 (the data-parallel
+    slice, A3); a missing `--expert_id`. Each raises before the run directory
+    is made. An existing data_dir is trained on by both entry points."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ft = ["--pruning_ckpt_dir", stage1, "--expert_id", "0"]
     base = _yaml(FINETUNE_YAML, tmp_path, "f.yaml")
@@ -166,9 +168,7 @@ def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monke
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
         cases = (
-            ("A6", _yaml(FINETUNE_YAML, tmp_path, "d.yaml", **{"data.data_dir": str(tmp_path)}),
-             []),
-            ("A6", _yaml(FINETUNE_YAML, tmp_path, "h.yaml",
+            ("A5", _yaml(FINETUNE_YAML, tmp_path, "h.yaml",
                          **{"training.hf_hub.push_to_hub": True}), []),
             ("data-parallel", base, ["--mesh_shape", "2"]),
             ("data-parallel", _yaml(FINETUNE_YAML, tmp_path, "z.yaml",
@@ -183,3 +183,10 @@ def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monke
     with pytest.raises(ValueError, match="--expert_id"):
         finetune.main(_argv(base, "--pruning_ckpt_dir", stage1))
     assert not (tmp_path / "runs").exists()
+    data = _yaml(FINETUNE_YAML, tmp_path, "d.yaml", **{
+        "data.data_dir": write_coco(tmp_path / "coco", n_train=6, n_val=4),
+        "data.dataset_name": "coco", "training.max_train_steps": 2})
+    for main, extra in ((finetune.main, ft), (finetune_baseline.main, [])):
+        loop = main(["--base_config_path", data, "--device", "cpu",
+                     "--pretrained_model_name_or_path", "", *extra])
+        assert loop.global_step == 2 and loop.ckpt.list_steps() == [2]

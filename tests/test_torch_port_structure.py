@@ -97,8 +97,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers", "yaml",
-                                            "PIL", "safetensors", "wandb")
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers", "regex",
+                                            "yaml", "PIL", "safetensors", "wandb", "dpt_native")
                      or m == "diffusion_pruning_tpu"
                      or m.startswith("diffusion_pruning_tpu."))
         serving_modules = {"diffusion_pruning_tpu_torch.models.unet.pruned",
@@ -108,6 +108,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "diffusion_pruning_tpu_torch.cli.prune",
                    "diffusion_pruning_tpu_torch.cli.finetune",
                    "diffusion_pruning_tpu_torch.cli.finetune_baseline",
+                   "diffusion_pruning_tpu_torch.cli.filter_dataset",
+                   "diffusion_pruning_tpu_torch.cli.cache_latents",
+                   *("diffusion_pruning_tpu_torch.data." + m for m in (
+                       "datasets", "dummy_tokenizer", "latent_cache", "loader", "tokenizers")),
                    "diffusion_pruning_tpu_torch.training.loop",
                    "diffusion_pruning_tpu_torch.training.factory",
                    "diffusion_pruning_tpu_torch.training.finetuner",
@@ -123,6 +127,32 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_no_transformers_regex_or_jax_anywhere():
+    """No import statement of the port's sources (top level or inside a
+    function) names transformers, regex, JAX or the JAX package: the
+    tokenizers read their files with the port's own code."""
+    import ast
+    banned = {"transformers", "regex", "jax", "jaxlib", "flax", "diffusion_pruning_tpu"}
+    found = []
+    root = os.path.join(REPO, "diffusion_pruning_tpu_torch")
+    for folder, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(folder, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                found += [f"{path}: {m}" for m in mods if m.split(".")[0] in banned]
+    assert found == []
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
