@@ -219,11 +219,39 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   steps at the largest B of 64, 32, 16 its captions fill
                   twice, its batches holding only its captions; which decoder
                   served each batch, seconds by part, the loop's steps/s
-                  against the step's and peak memory on a summary line;
-                  phase 13's, 14's and 15's written files are removed;
+                                    against the step's and peak memory on a summary line;
+ 16. data parallel — (a) a one-rank NCCL group in this process
+                  (`utils/launch.init_distributed` from torchrun's variables):
+                  the stage-1 mesh step at B = 64 with phase 8's models and one
+                  set of explicit draws equal, bit for bit, to the mesh=None
+                  step, and the stage-2 ZeRO-1 step on phase 14's expert (B =
+                  32) equal to the replicated one, each with a repeat of the
+                  one-process step as the control that the step repeats its
+                  bits (deterministic algorithms on); (b) two ranks spawned
+                  with torchrun's variables (`chip_smoke.py --dp-rank`),
+                  sharing the card under gloo, each building phase 8's models
+                  from the seed and taking rows [32r, 32r + 32) of two global
+                  batches and draw sets: a pretrain and a codebook step,
+                  against the one-process B = 64 steps on the same rows and
+                  draws (hypernet and codebook grads by cosine per leaf >
+                  GRAD_COS with the relative L2 beside it; the expert indices
+                  equal, a differing one listed with its Sinkhorn margin and
+                  allowed only under DP_TIE_MARGIN; the replicas equal bit for
+                  bit), and a planted fault (the contrastive gather without
+                  the splice) below the limit; (c) on the same two ranks,
+                  `cli.prune` on phase 13's config and weights (3 steps at 32
+                  a rank, a checkpoint, a resume to step 4 bit for bit) and
+                  `cli.finetune` with ZeRO-1 on phase 14's expert (2 steps at
+                  32 a rank), each step's launches those of `backward_plan` at
+                  B = 32, rank 1 writing nothing under the runs' folder, the
+                  replicas equal, each rank's moments half of world 1's; each
+                  rank's peak memory, moment bytes, step seconds (two
+                  processes on one card under gloo: not a scaling number) and
+                  the phase's seconds on a summary line;
+                  phase 13's, 14's, 15's and 16's written files are removed;
 then a `kernels` JSON line (every kernel of the paths, each with its
-launches in the runs of phases 5, 8, 11, 12, 13, 14 and 15) and, last, the
-device JSON line.
+launches in the runs of phases 5, 8, 11, 12, 13, 14, 15 and 16) and, last,
+the device JSON line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
 are captured into a CUDA graph whose replay is timed (`device_ms`); they run
@@ -3101,7 +3129,8 @@ def serve_experts(pipe, mpnet, unet, device):
 
 
 def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
-                  expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts):
+                  expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts,
+                  dp_counts):
     """One forward kernel's line: its share of the phase-3 sites (by
     `forward_kernel`) and of the phase-7 training sites, its launches in the
     serving, train-step, expert-serving, prune-CLI (run 2), finetune-CLI
@@ -3119,7 +3148,8 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
     key = f"kernel:{name}"
     by_path = {"serving": serve_counts[key], "train_step": train_launches[key],
                "serving_experts": expert_counts[key], "stage1_cli": cli_counts[key],
-               "finetune": ft_counts[key], "data_path": data_counts[key]}
+               "finetune": ft_counts[key], "data_path": data_counts[key],
+               "dp": dp_counts[key]}
     small = name == "gated_flash_fwd_small"
     return {
         "name": name, "route": "cuda",
@@ -3185,7 +3215,7 @@ def fused_kernel_entry(check, name, source, replaces, also, library_call, launch
 
 
 def backward_entries(train_rows, train_check, train_launches, cli_counts, ft_counts, ft_totals,
-                     data_counts):
+                     data_counts, dp_counts):
     """The backward kernels' lines: each kernel's times summed over the
     sites of one student pass where `backward_plan` runs it, its launches in
     the train-step run, the prune CLI's run 2, the finetune CLI's run 2 and
@@ -3212,11 +3242,12 @@ def backward_entries(train_rows, train_check, train_launches, cli_counts, ft_cou
         entry = {"name": name, "route": "cuda", "source": src, "replaces": f"{fa_py}:{line}",
                  "also_replaces": [f"{fa_py}:{n}" for n in also], "role": role,
                  "launches": (train_launches[name] + cli_counts[name] + ft_counts[name]
-                              + data_counts[name]),
+                              + data_counts[name] + dp_counts[name]),
                  "launches_by_path": {"train_step": train_launches[name],
                                       "stage1_cli": cli_counts[name],
                                       "finetune": ft_counts[name],
-                                      "data_path": data_counts[name]},
+                                      "data_path": data_counts[name],
+                                      "dp": dp_counts[name]},
                  "finetune_path": {**{f"b{b}": finetune_reading(t, kind)
                                       for b, t in sorted(ft_totals.items())},
                                    "shapes": "no gate, at the kept heads of the fine-tuned "
@@ -4865,6 +4896,701 @@ def data_path(weights, device):
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 16
+
+DP_WORLD = 2               # ranks sharing the card under gloo
+DP_B = TRAIN_B // DP_WORLD  # the rows a rank takes of the global B = 64
+DP_DIR = os.path.join(STAGE1_DIR, "dp")  # under phase 13's folder; removed with it
+DP_CLI_STEPS = (3, 4)      # prune at world 2: run 1 ends at step 3, run 2 resumes it to step 4
+DP_FT_STEPS = 2
+DP_TIE_MARGIN = 1e-3       # a Sinkhorn top-1 lead under which two routes may differ by rounding
+DP_TIMEOUT = 900           # seconds the two ranks may take
+
+
+@contextlib.contextmanager
+def torchrun_env(world, rank, port):
+    """torchrun's variables for one rank of `world` on this host."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms (cuDNN's, and PyTorch's where an op has one;
+    a warning where it has none), so that a repeated step repeats its bits
+    (the bit-for-bit comparisons of phase 16, each with a repeat as its
+    control)."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def trainable_state(mods):
+    return {"hypernet": to_host(mods.hypernet.state_dict()),
+            "quantizer": to_host(mods.quantizer.state_dict())}
+
+
+def load_trainables(mods, state):
+    mods.hypernet.load_state_dict(state["hypernet"])
+    mods.quantizer.load_state_dict(state["quantizer"])
+
+
+def fingerprint(mods):
+    """Σ of each module's floating-point tensors (float64): equal models read
+    equal sums."""
+    return {name: float(sum(t.detach().double().sum() for t in m.state_dict().values()
+                            if t.is_floating_point()))
+            for name, m in (("unet", mods.unet), ("vae", mods.vae), ("text", mods.text_encoder),
+                            ("hypernet", mods.hypernet), ("quantizer", mods.quantizer))}
+
+
+def bit_sums(tensors):
+    """Σ of each tensor's raw 32- or 16-bit words (int64): a bit-for-bit
+    comparison of replicas that cannot be sent whole."""
+    import torch
+    out = []
+    for t in tensors:
+        t = t.detach().contiguous()
+        words = t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+        out.append(int(words.long().sum()))
+    return out
+
+
+def dp_batch_and_draws(mods, cfg, device, seed):
+    """A global B = 64 batch at 256px and a complete set of its draws."""
+    import torch
+    from diffusion_pruning_tpu_torch.training.pruner import complete_draws
+    gen = torch.Generator(device=device).manual_seed(seed)
+    res = mods.unet.cfg.sample_size * mods.vae.cfg.spatial_scale
+    batch = {"pixel_values": torch.rand(TRAIN_B, res, res, 3, device=device, generator=gen) * 2
+             - 1,
+             "input_ids": torch.randint(0, mods.text_encoder.cfg.vocab_size, (TRAIN_B, 77),
+                                        device=device, generator=gen),
+             "mpnet_embeddings": torch.randn(TRAIN_B, 768, device=device, generator=gen)}
+    return batch, complete_draws(mods, cfg, batch, None, gen)
+
+
+def rank_rows(tree, rank):
+    """Rank `rank`'s rows [32r, 32r + 32) of a global batch or draw set; the
+    codebook's gumbel noise is shared whole."""
+    return {k: v if k == "codebook_gumbel" else v[rank * DP_B:(rank + 1) * DP_B]
+            for k, v in tree.items()}
+
+
+def pruner_step_record(mods, step, batch, draws):
+    """One step: its loss terms, per-sample outputs, grads (f32, host) and the
+    trainables after it (host)."""
+    metrics, aux = step(batch, draws)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "expert_indices": aux["expert_indices"].cpu(),
+            "grads": {n: (p.grad.detach().float().cpu() if p.grad is not None
+                          else torch_zeros_like_host(p)) for n, p in trainables(mods)},
+            "trainables": {n: p.detach().cpu().clone() for n, p in trainables(mods)}}
+
+
+def torch_zeros_like_host(p):
+    import torch
+    return torch.zeros(p.shape, dtype=torch.float32)
+
+
+def world1_stage1(mods, cfg, initial, mesh, device):
+    """The stage-1 mesh step at world 1 against the mesh=None step (and the
+    mesh=None step again, the control that the step repeats its bits), one
+    codebook step at B = 64 on one set of explicit draws."""
+    import torch
+    from diffusion_pruning_tpu_torch.training import make_optimizer, make_pruner_step
+    batch, draws = dp_batch_and_draws(mods, cfg, device, SEED + 40)
+    runs = {}
+    for name, on in (("none", None), ("none_again", None), ("mesh", mesh)):
+        load_trainables(mods, initial)
+        opt = make_optimizer(cfg, mods, TRAIN_B)
+        step = make_pruner_step(mods, cfg, opt, pretrain=False, mesh=on)
+        runs[name] = pruner_step_record(mods, step, batch, draws)
+    torch.cuda.synchronize()
+
+    def differ(a, b):
+        out = [k for k in a["metrics"] if a["metrics"][k] != b["metrics"][k]]
+        out += [f"grad {n}" for n in a["grads"] if not torch.equal(a["grads"][n], b["grads"][n])]
+        out += [f"param {n}" for n in a["trainables"]
+                if not torch.equal(a["trainables"][n], b["trainables"][n])]
+        if not torch.equal(a["expert_indices"], b["expert_indices"]):
+            out.append("expert_indices")
+        return out
+
+    return {"control_differs_at": differ(runs["none"], runs["none_again"]),
+            "mesh_differs_at": differ(runs["none"], runs["mesh"])}
+
+
+def stage2_modules(weights, plan, device):
+    """Stage 2's modules as the finetune entry point builds them from phase
+    13's weights: the expert of `plan` cut from the f32 dense U-Net as a
+    student with f32 masters and a bf16 copy, the bf16 teacher, VAE and
+    CLIP."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.schedulers import DiffusionSchedule
+    from diffusion_pruning_tpu_torch.training import FineTunerModules, MasterWeights
+    from diffusion_pruning_tpu_torch.training.factory import (build_student, build_text_encoder,
+                                                              build_unet, build_vae)
+    dense = build_unet(UNetConfig.sd21(256), weights, device, torch.float32)
+    student = build_student(dense, plan)
+    masters = MasterWeights(student, separate=True)
+    student.to(torch.bfloat16)
+    mods = FineTunerModules(student=student, teacher=dense.to(torch.bfloat16),
+                            vae=build_vae(weights, device=device, dtype=torch.bfloat16),
+                            text_encoder=build_text_encoder(weights, device=device,
+                                                            dtype=torch.bfloat16),
+                            schedule=DiffusionSchedule(prediction_type="v_prediction"))
+    return mods, masters
+
+
+def world1_stage2(weights, plan, mesh, device):
+    """Phase 14's expert at B = 32: the ZeRO-1 step at world 1 against the
+    replicated mesh step (and the replicated step again, the control), from
+    the same masters on the same draws; the moments' bytes."""
+    import torch
+    from diffusion_pruning_tpu_torch.training import finetuner as ft
+    mods, masters = stage2_modules(weights, plan, device)
+    cfg = ft.FineTuneConfig(lr_warmup_steps=0)
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    res = mods.student.cfg.sample_size * mods.vae.cfg.spatial_scale
+    batch = {"pixel_values": torch.rand(DP_B, res, res, 3, device=device, generator=gen) * 2 - 1,
+             "input_ids": torch.randint(0, mods.text_encoder.cfg.vocab_size, (DP_B, 77),
+                                        device=device, generator=gen)}
+    draws = ft.complete_draws(mods, cfg, batch, None, gen)
+    start = {k: v.clone() for k, v in masters.state_dict().items()}
+    runs, moment_bytes = {}, {}
+    for name, zero1 in (("replicated", False), ("replicated_again", False), ("zero1", True)):
+        masters.load_state_dict(start)
+        opt = ft.make_finetune_optimizer(cfg, masters, DP_B, zero1_mesh=mesh if zero1 else None)
+        step = ft.make_finetune_step(mods, cfg, opt, zero1=zero1, mesh=mesh)
+        metrics = step(batch, draws)
+        runs[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                      "bits": bit_sums(masters.masters)}
+        moment_bytes[name] = sum(t.numel() * t.element_size() for s in opt.state.values()
+                                 for k, t in s.items() if k in ("mu", "nu"))
+        del opt, step
+    total = sum(m.numel() for m in masters.masters)
+    del mods, masters, start
+    torch.cuda.empty_cache()
+
+    def differ(a, b):
+        out = [k for k in a["metrics"] if a["metrics"][k] != b["metrics"][k]]
+        return out + [f"master {i}" for i, (x, y) in enumerate(zip(a["bits"], b["bits"]))
+                      if x != y]
+
+    return {"control_differs_at": differ(runs["replicated"], runs["replicated_again"]),
+            "zero1_differs_at": differ(runs["replicated"], runs["zero1"]),
+            "parameters": total, "moment_bytes_world1": moment_bytes,
+            "loss": runs["zero1"]["metrics"]["loss"]}
+
+
+def check_world1_nccl(mods, cfg, initial, weights, plan, device):
+    """Phase 16 part 1: a one-rank NCCL group in this process; the stage-1
+    mesh step and stage 2's ZeRO-1 step at world 1 bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from diffusion_pruning_tpu_torch.parallel.mesh import data_mesh
+    from diffusion_pruning_tpu_torch.utils.launch import init_distributed
+    with torchrun_env(1, 0, free_port()), deterministic():
+        dev = init_distributed()
+        try:
+            mesh = data_mesh(dev)
+            if mesh.backend != "nccl" or mesh.world_size != 1:
+                fail(f"the one-rank group is {mesh}, not NCCL at world 1")
+            s1 = world1_stage1(mods, cfg, initial, mesh, device)
+            s2 = world1_stage2(weights, plan, mesh, device)
+        finally:
+            dist.destroy_process_group()
+    row = {"phase": "dp_world1_nccl", "backend": "nccl", "stage1_b": TRAIN_B, "stage2_b": DP_B,
+           "stage1": s1, "stage2": s2}
+    emit(row)
+    for part, key in ((s1, "mesh_differs_at"), (s2, "zero1_differs_at")):
+        if part["control_differs_at"]:
+            fail(f"a step repeated on the same inputs does not repeat its bits: {row}")
+        if part[key]:
+            fail(f"at world 1 the data-parallel step differs from the one-process step: {row}")
+    return row
+
+
+def watch_writes(root, log):
+    """Record every file this process opens for writing, and every directory
+    it makes or file it moves or removes, under `root`."""
+    root = os.path.realpath(root)
+
+    def hook(event, args):
+        if event == "open" and args and isinstance(args[0], (str, bytes, os.PathLike)):
+            mode = args[1] if len(args) > 1 and isinstance(args[1], str) else "r"
+            flags = args[2] if len(args) > 2 and isinstance(args[2], int) else 0
+            if not (any(c in mode for c in "wax+") or flags & (os.O_WRONLY | os.O_RDWR)):
+                return
+        elif event not in ("os.mkdir", "os.rename", "os.replace", "os.remove", "os.rmdir",
+                           "shutil.rmtree") or not args:
+            return
+        try:
+            path = os.path.realpath(os.fsdecode(args[0]))
+        except (TypeError, ValueError):
+            return
+        if path.startswith(root):
+            log.append((event, path))
+    sys.addaudithook(hook)
+
+
+def dp_rank_steps(mesh, job, device):
+    """A rank's two stage-1 steps (pretrain, then codebook) on its rows of the
+    global batches and draws, with phase 8's models built from the seed; and,
+    first, the planted fault's step-1 grads (the contrastive gather without
+    the splice: the other ranks' rows gathered with no gradient and this
+    rank's rows not spliced back in, so no contrastive gradient), with the
+    trainables restored after it."""
+    import torch
+    import diffusion_pruning_tpu_torch.training.pruner as pruner
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.parallel.mesh import all_gather
+    from diffusion_pruning_tpu_torch.training import make_optimizer, make_pruner_step
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    unet = build_unet(UNetConfig.sd21(256), device, gen)
+    pipe, mpnet = build_pipeline(unet, device, gen)
+    mods, cfg, _ = build_trainer(pipe, device, gen)
+    del mpnet
+    out = {"fingerprint": fingerprint(mods)}
+    r = mesh.rank
+    batches = [{k: v.to(device) for k, v in rank_rows(b, r).items()} for b in job["batches"]]
+    draws = [{k: v.to(device) for k, v in rank_rows(d, r).items()} for d in job["draws"]]
+    initial = trainable_state(mods)
+    real = pruner.gather_spliced
+    pruner.gather_spliced = lambda m, local: all_gather(m, local)
+    try:
+        step = make_pruner_step(mods, cfg, make_optimizer(cfg, mods, TRAIN_B), pretrain=True,
+                                mesh=mesh)
+        out["fault_grads"] = pruner_step_record(mods, step, batches[0], draws[0])["grads"]
+    finally:
+        pruner.gather_spliced = real
+    load_trainables(mods, initial)
+    opt = make_optimizer(cfg, mods, TRAIN_B)
+    steps = {p: make_pruner_step(mods, cfg, opt, pretrain=p, mesh=mesh) for p in (True, False)}
+    per_step = {**attention_per_step_at(DP_B)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rows = []
+    for i, (batch, d) in enumerate(zip(batches, draws)):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        row = pruner_step_record(mods, steps[i == 0], batch, d)
+        torch.cuda.synchronize()
+        row["seconds"] = time.perf_counter() - t0
+        launches = {k: v - before[k] for k, v in launch_counts().items()}
+        checked = wrapper_counts(launches)
+        if checked != {k: per_step.get(k, 0) for k in checked}:
+            fail(f"rank {r}: expected {per_step} launches per step at B = {DP_B}, got {launches}")
+        row["launches"] = launches
+        rows.append(row)
+    out.update(steps=rows, counts=launch_counts(),
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del mods, pipe, unet, steps, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_per_step_at(b):
+    """`cli_step_launches` of one micro-batch of `b` as a plain dict."""
+    return dict(cli_step_launches(b))
+
+
+def dp_rank_cli(mesh, job, device):
+    """A rank's runs of the entry points at world 2: `cli.prune` on phase
+    13's config and weights (3 steps at 32 per rank with a checkpoint, then a
+    resume to step 4) and `cli.finetune` with ZeRO-1 (the default at world
+    2) on phase 14's expert for 2 steps at 32 per rank; each step's launches
+    held against `backward_plan` at B = 32. Rank 1 records what it writes
+    under the runs' folder."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    writes = []
+    if mesh.rank != 0:
+        watch_writes(os.path.join(DP_DIR, "runs"), writes)
+    out = {}
+    t0 = time.perf_counter()
+    _, parts1, steps1, _, counts1, peak1 = run_cli_in_process(
+        cli_argv(job["prune"], job["weights"]), device, per_step=cli_step_launches(DP_B))
+    out["prune"] = {"parts": parts1, "step_seconds": [s["seconds"] for s in steps1],
+                    "peak_memory_gib": peak1, "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    loop, _, steps2, resumed, counts2, peak2 = run_cli_in_process(
+        cli_argv(job["prune_resume"], job["weights"]), device, per_step=cli_step_launches(DP_B))
+    out["prune_resume"] = {"resumed_step": resumed["step"], "resumed_state": resumed["state"],
+                           "global_step": loop.global_step, "run_dir": loop.run_dir,
+                           "trainables": bit_sums(p for _, p in trainables(loop.mods)),
+                           "step_seconds": [s["seconds"] for s in steps2],
+                           "peak_memory_gib": peak2, "seconds": time.perf_counter() - t0}
+    del loop
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_step = finetune_step_launches(UNetConfig.sd21(256), job["plan"], DP_B, 1)
+    loop, parts3, steps3, _, held, counts3, peak3 = run_finetune_in_process(
+        finetune_argv(job["finetune"], job["weights"], job["pruning_dir"], job["expert"]),
+        per_step)
+    opt = loop.optimizer
+    out["finetune"] = {"optimizer": type(opt).__name__, "global_step": loop.global_step,
+                       "run_dir": loop.run_dir, "masters": bit_sums(loop.masters.masters),
+                       "parameters": sum(m.numel() for m in loop.masters.masters),
+                       "moment_bytes": sum(t.numel() * t.element_size()
+                                           for s in opt.state.values() for k, t in s.items()
+                                           if k in ("mu", "nu")),
+                       "parts": parts3, "step_seconds": [s["seconds"] for s in steps3],
+                       "losses": [s["loss"] for s in steps3],
+                       "peak_memory_gib": peak3, "seconds": time.perf_counter() - t0}
+    del loop, held, opt
+    torch.cuda.empty_cache()
+    out["counts"] = {k: counts1[k] + counts2[k] + counts3[k] for k in counts1}
+    out["writes"] = writes
+    return out
+
+
+def dp_worker(job_path, out_path):
+    """One rank of phase 16's two, run as `python3 chip_smoke.py --dp-rank
+    JOB OUT` with torchrun's variables: the group (gloo: the ranks share the
+    card), the stage-1 steps, then the entry points. Never on the CPU."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from diffusion_pruning_tpu_torch.ops import build
+    from diffusion_pruning_tpu_torch.parallel.mesh import barrier, data_mesh
+    from diffusion_pruning_tpu_torch.utils.launch import init_distributed
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_distributed()
+    mesh = data_mesh(device)
+    if device.type != "cuda" or mesh.backend != "gloo" or mesh.world_size != DP_WORLD:
+        fail(f"rank on {device} in {mesh}: two ranks on one card run under gloo")
+    build.build_kernels()  # this checkout's kernels, built by the script before it
+    job = torch.load(job_path, weights_only=False)
+    t0 = time.perf_counter()
+    out = {"rank": mesh.rank, "steps": dp_rank_steps(mesh, job, device),
+           "steps_seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    out["cli"] = dp_rank_cli(mesh, job, device)
+    out["cli_seconds"] = time.perf_counter() - t0
+    torch.save(out, out_path)
+    barrier(mesh)
+    torch.distributed.destroy_process_group()
+
+
+def set_trainables(mods, values):
+    """The trainables set to `values` (name → host tensor, `trainables`' names)."""
+    import torch
+    with torch.no_grad():
+        for name, p in trainables(mods):
+            p.copy_(values[name])
+
+
+def ddp_objective_grads(mods, cfg, batch, draws, pretrain):
+    """The two ranks' mean gradient, evaluated in this one process: each
+    rank's loss on its rows, with the global batch's Sinkhorn assignment
+    and contrastive matrix in which the other rank's rows carry no gradient
+    (torch DDP's semantics, the JAX package's gather-and-splice), summed over
+    the ranks and divided by their count. The one-process B = 64 step is not
+    this function: its contrastive gradient is twice the ranks' mean, and
+    its resource, std and max terms see the whole batch."""
+    import torch
+    import diffusion_pruning_tpu_torch.training.pruner as pruner
+    from diffusion_pruning_tpu_torch.core.sinkhorn import sinkhorn
+    from diffusion_pruning_tpu_torch.parallel.mesh import DataMesh
+    q = mods.quantizer
+    p_actual = mods.resource_model.actual_pruning_target(cfg.pruning_target)
+    text = batch["mpnet_embeddings"].float()
+    with torch.no_grad():
+        logits = mods.hypernet(text)
+        codes = q.gumbel_sigmoid_trick(q.embedding.weight, draws["codebook_gumbel"])
+        sink = sinkhorn(q._scores(q.gumbel_sigmoid_trick(logits, draws["gates_gumbel"]), codes))
+        indices = sink.argmax(-1)
+        gates_norm = q.width_depth_normalize(q.gumbel_sigmoid_trick(logits, draws["gumbel"]))
+    for _, p in trainables(mods):
+        p.grad = None
+    real_gather = pruner.all_gather
+    try:
+        for r in range(DP_WORLD):
+            rows = slice(r * DP_B, (r + 1) * DP_B)
+            gathered = iter([text, gates_norm])  # compute_losses gathers text, then gates
+
+            def forward_train(z, cb, gg, mesh=None, rows=rows):
+                e = q.gumbel_sigmoid_trick(q.embedding.weight, cb)
+                return e[indices[rows]], indices[rows], e.detach()
+
+            q.forward_train = forward_train
+            pruner.all_gather = lambda mesh, x, gathered=gathered: next(gathered)
+            loss, _ = pruner.compute_losses(
+                mods, cfg, rank_rows(batch, r), rank_rows(draws, r), pretrain, p_actual,
+                mesh=DataMesh(r, DP_WORLD, text.device))
+            loss.backward()
+    finally:
+        pruner.all_gather = real_gather
+        del q.forward_train
+    grads = {n: (p.grad.detach().float().cpu() / DP_WORLD if p.grad is not None
+                 else torch_zeros_like_host(p)) for n, p in trainables(mods)}
+    for _, p in trainables(mods):
+        p.grad = None
+    return grads, indices.cpu(), sink
+
+
+def dp_reference(mods, cfg, initial, job, ranks_steps, device):
+    """Per step of the two ranks, at the trainables they held before it: the
+    two ranks' objective's gradient in one process (`ddp_objective_grads`),
+    the global Sinkhorn assignment with each prompt's top-1 lead, and, for
+    comparison, the one-process B = 64 step's gradient."""
+    rows = []
+    for i, (batch, draws) in enumerate(zip(job["batches"], job["draws"])):
+        if i == 0:
+            load_trainables(mods, initial)
+        else:
+            set_trainables(mods, ranks_steps[i - 1]["trainables"])
+        batch = {k: v.to(device) for k, v in batch.items()}
+        draws = {k: v.to(device) for k, v in draws.items()}
+        grads, indices, sink = ddp_objective_grads(mods, cfg, batch, draws, i == 0)
+        top = sink.topk(2, dim=-1).values
+        rows.append({"grads": grads, "expert_indices": indices,
+                     "margins": (top[:, 0] - top[:, 1]).cpu(),
+                     "one_process_grads": {n: g.cpu() for n, g in step_grads(
+                         mods, cfg, batch, draws, i == 0).items()}})
+    return rows
+
+
+def leaf_rel_l2(got, want):
+    return {n: float((got[n] - w).norm() / w.norm()) for n, w in want.items() if w.norm() > 0}
+
+
+def check_two_ranks(mods, cfg, initial, weights, pruning_dir, expert, plan, device):
+    """Phase 16 parts 2 and 3: two ranks sharing the card under gloo, spawned
+    with torchrun's variables; their stage-1 steps against the one-process
+    B = 64 steps, and the entry points at world 2."""
+    import torch
+    os.makedirs(DP_DIR, exist_ok=True)
+    job = {"weights": weights, "pruning_dir": pruning_dir, "expert": expert, "plan": plan,
+           "batches": [], "draws": []}
+    for i in range(2):
+        batch, draws = dp_batch_and_draws(mods, cfg, device, SEED + 42 + i)
+        job["batches"].append({k: v.cpu() for k, v in batch.items()})
+        job["draws"].append({k: v.cpu() for k, v in draws.items()})
+    job["prune"] = stage1_yaml(os.path.join(DP_DIR, "run1", "sd21_dp.yaml"), **{
+        "model.quantizer.quantizer_base": STAGE1_QUANTIZER_BASE,
+        "data.dataloader.train_batch_size": DP_B,
+        "training.logging.logging_dir": os.path.join(DP_DIR, "runs"),
+        "training.logging.checkpoints_total_limit": 2,
+        "training.max_train_steps": DP_CLI_STEPS[0], "training.hypernet_pretraining_steps": 1,
+        "training.validation_steps": DP_CLI_STEPS[0],
+        "training.image_logging_steps": DP_CLI_STEPS[0], "training.logging.export_unet": False})
+    job["prune_resume"] = stage1_yaml(os.path.join(DP_DIR, "run2", "sd21_dp.yaml"), **{
+        "model.quantizer.quantizer_base": STAGE1_QUANTIZER_BASE,
+        "data.dataloader.train_batch_size": DP_B,
+        "training.logging.logging_dir": os.path.join(DP_DIR, "runs"),
+        "training.logging.checkpoints_total_limit": 2,
+        "training.max_train_steps": DP_CLI_STEPS[1], "training.hypernet_pretraining_steps": 1,
+        "training.validation_steps": DP_CLI_STEPS[0],
+        "training.image_logging_steps": DP_CLI_STEPS[0], "training.logging.export_unet": False,
+        "training.logging.resume_from_checkpoint": "latest"})
+    job["finetune"] = finetune_yaml(os.path.join(DP_DIR, "ft", "sd21_dp_ft.yaml"), **{
+        "data.dataloader.train_batch_size": DP_B,
+        "training.logging.logging_dir": os.path.join(DP_DIR, "runs"),
+        "training.max_train_steps": DP_FT_STEPS, "training.validation_steps": DP_FT_STEPS})
+    job_path = os.path.join(DP_DIR, "job.pt")
+    torch.save(job, job_path)
+    load_trainables(mods, initial)
+    ref_fingerprint = fingerprint(mods)
+    torch.cuda.empty_cache()
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(DP_WORLD):
+        logs.append(os.path.join(HERE, "build", f"dp_rank{rank}.log"))  # ignored by git
+        with torchrun_env(DP_WORLD, rank, port), open(logs[-1], "w") as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank", job_path,
+                 os.path.join(DP_DIR, f"rank{rank}.pt")], cwd=HERE, env=dict(os.environ),
+                stdout=log_file, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.perf_counter() + DP_TIMEOUT
+        codes = [p.wait(timeout=max(1.0, deadline - time.perf_counter())) for p in procs]
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    ranks_seconds = time.perf_counter() - t0
+    for rank, (log_path, code) in enumerate(zip(logs, codes)):
+        if code != 0:
+            with open(log_path) as f:
+                fail(f"rank {rank} exited {code}: {f.read()[-3000:]}")
+    got = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt"), weights_only=False)
+           for r in range(DP_WORLD)]
+    reference = dp_reference(mods, cfg, initial, job, got[0]["steps"]["steps"], device)
+    torch.cuda.empty_cache()
+    return reference, ref_fingerprint, got, ranks_seconds
+
+
+def summarise_two_ranks(reference, ref_fingerprint, got, world1, ranks_seconds):
+    """The readings of parts 2 and 3, checked."""
+    import torch
+    from diffusion_pruning_tpu_torch.utils.checkpoint import CheckpointManager
+    s0, s1 = got[0]["steps"], got[1]["steps"]
+    model_diff = {k: (s0["fingerprint"][k], s1["fingerprint"][k], v)
+                  for k, v in ref_fingerprint.items()
+                  if not s0["fingerprint"][k] == s1["fingerprint"][k] == v}
+    if model_diff:
+        fail(f"the ranks built other models than phase 8's: {model_diff}")
+    steps = []
+    for i, (ref, a, b) in enumerate(zip(reference, s0["steps"], s1["steps"])):
+        cos = leaf_cosines(a["grads"], ref["grads"])
+        replica_diff = [n for n in a["trainables"]
+                        if not torch.equal(a["trainables"][n], b["trainables"][n])]
+        replica_diff += [f"grad {n}" for n in a["grads"]
+                         if not torch.equal(a["grads"][n], b["grads"][n])]
+        differ = torch.nonzero(a["expert_indices"] != ref["expert_indices"]).flatten().tolist()
+        listed = [{"prompt": j, "ranks": int(a["expert_indices"][j]),
+                   "one_process": int(ref["expert_indices"][j]),
+                   "sinkhorn_margin": float(ref["margins"][j])} for j in differ]
+        one = leaf_cosines(a["grads"], ref["one_process_grads"])
+        steps.append({"step": i + 1, "pretrain": i == 0, "min_cos": min(cos.values()),
+                      "min_cos_leaf": min(cos, key=cos.get),
+                      "rel_l2_max": max(leaf_rel_l2(a["grads"], ref["grads"]).values()),
+                      "loss": a["metrics"]["loss"],
+                      "against_the_one_process_b64_step": {
+                          "min_cos": min(one.values()), "min_cos_leaf": min(one, key=one.get),
+                          "rel_l2_max": max(leaf_rel_l2(a["grads"],
+                                                        ref["one_process_grads"]).values())},
+                      "expert_indices_differing": listed,
+                      "expert_indices_equal": not differ,
+                      "replicas_differ_at": replica_diff,
+                      "seconds_rank0": a["seconds"], "seconds_rank1": b["seconds"]})
+    fault = leaf_cosines(s0["fault_grads"], reference[0]["grads"])  # at step 1's trainables
+    c0, c1 = got[0]["cli"], got[1]["cli"]
+    saved = CheckpointManager(c0["prune_resume"]["run_dir"], create=False).restore(
+        DP_CLI_STEPS[0])
+    resume_diff = [state_equal(c["prune_resume"]["resumed_state"], saved) for c in (c0, c1)]
+    params = c0["finetune"]["parameters"]
+    row = {"phase": "dp_two_ranks", "backend": "gloo", "ranks": DP_WORLD,
+           "rows_per_rank": DP_B, "global_batch": TRAIN_B, "limit": GRAD_COS,
+           "steps": steps,
+           "planted_fault_no_splice_min_cos": min(fault.values()),
+           "planted_fault_leaf": min(fault, key=fault.get),
+           "prune": {"resumed_step": [c["prune_resume"]["resumed_step"] for c in (c0, c1)],
+                     "resumed_state_differs_at": resume_diff,
+                     "global_step": [c["prune_resume"]["global_step"] for c in (c0, c1)],
+                     "replicas_equal": c0["prune_resume"]["trainables"]
+                     == c1["prune_resume"]["trainables"],
+                     "checkpoints": CheckpointManager(c0["prune_resume"]["run_dir"],
+                                                      create=False).list_steps()},
+           "finetune": {"optimizer": [c["finetune"]["optimizer"] for c in (c0, c1)],
+                        "global_step": [c["finetune"]["global_step"] for c in (c0, c1)],
+                        "replicas_equal": c0["finetune"]["masters"] == c1["finetune"]["masters"],
+                        "losses": c0["finetune"]["losses"],
+                        "checkpoints": CheckpointManager(c0["finetune"]["run_dir"],
+                                                         create=False).list_steps()},
+           "rank1_writes": c1["writes"][:8]}
+    emit(row)
+    moment_world1 = world1["stage2"]["moment_bytes_world1"]["zero1"]
+    summary = {"phase": "dp_summary", "card_shared_by": DP_WORLD,
+               "peak_memory_gib_by_rank": {
+                   "stage1_steps": [g["steps"]["peak_memory_gib"] for g in got],
+                   "prune_cli": [g["cli"]["prune"]["peak_memory_gib"] for g in got],
+                   "finetune_cli_zero1": [g["cli"]["finetune"]["peak_memory_gib"] for g in got]},
+               "finetune_parameters": params,
+               "moment_bytes_by_rank_world2": [g["cli"]["finetune"]["moment_bytes"] for g in got],
+               "moment_bytes_world1": 8 * params,
+               "moment_bytes_world1_measured_expert_of_part1": moment_world1,
+               "step_seconds_not_a_scaling_number": {
+                   "note": "two processes share one card and gloo stages every all_reduce "
+                           "through host memory (stage 2: 4 bytes a parameter each way)",
+                   "stage1_b32_per_rank": [[s["seconds"] for s in g["steps"]["steps"]]
+                                           for g in got],
+                   "prune_cli": [g["cli"]["prune"]["step_seconds"]
+                                 + g["cli"]["prune_resume"]["step_seconds"] for g in got],
+                   "finetune_cli": [g["cli"]["finetune"]["step_seconds"] for g in got]},
+               "seconds": {"ranks_wall": ranks_seconds,
+                           "rank_steps": [g["steps_seconds"] for g in got],
+                           "rank_cli": [g["cli_seconds"] for g in got]}}
+    emit(summary)
+    bad = [s for s in steps if not s["min_cos"] > GRAD_COS or s["replicas_differ_at"]
+           or any(d["sinkhorn_margin"] >= DP_TIE_MARGIN for d in s["expert_indices_differing"])]
+    if bad:
+        fail(f"the two ranks' steps disagree with the one-process step: {bad}")
+    if not row["planted_fault_no_splice_min_cos"] <= GRAD_COS:
+        fail(f"the planted fault reads within the limit {GRAD_COS}: {row}")
+    pr, fr = row["prune"], row["finetune"]
+    if (pr["resumed_step"] != [DP_CLI_STEPS[0]] * 2 or any(resume_diff)
+            or pr["global_step"] != [DP_CLI_STEPS[1]] * 2 or not pr["replicas_equal"]
+            or pr["checkpoints"] != list(DP_CLI_STEPS)):
+        fail(f"prune at world 2: {pr}")
+    if (fr["optimizer"] != ["Zero1AdamW"] * 2 or fr["global_step"] != [DP_FT_STEPS] * 2
+            or not fr["replicas_equal"] or fr["checkpoints"] != [DP_FT_STEPS]
+            or not all(math.isfinite(v) for v in fr["losses"])):
+        fail(f"finetune at world 2: {fr}")
+    if c1["writes"]:
+        fail(f"rank 1 wrote under the runs' folder: {c1['writes'][:8]}")
+    per_rank = -(-params // DP_WORLD) * 8
+    if summary["moment_bytes_by_rank_world2"] != [per_rank] * DP_WORLD:
+        fail(f"ZeRO-1's moments are not {per_rank} bytes a rank: {summary}")
+    return row, summary
+
+
+def dp_launch_counts(world1_counts, got):
+    """Phase 16's launches by kernel: this process's world-1 steps and both
+    ranks' steps and entry-point runs."""
+    out = collections.Counter(world1_counts)
+    for g in got:
+        out.update(g["steps"]["counts"])
+        out.update(g["cli"]["counts"])
+    return out
+
+
+def data_parallel(mods, cfg, initial, stage1, device):
+    """Phase 16: data parallel on the card (module docstring)."""
+    import torch
+    expert, _, _, plan, _ = pick_expert(stage1["run_dir"])
+    for m in (mods.vae, mods.text_encoder):  # phase 8's precision (later phases turned them)
+        m.to(torch.bfloat16)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    world1 = check_world1_nccl(mods, cfg, initial, stage1["weights"], plan, device)
+    world1_counts = launch_counts()
+    world1_seconds = time.perf_counter() - t0
+    reference, ref_fp, got, ranks_seconds = check_two_ranks(
+        mods, cfg, initial, stage1["weights"], stage1["run_dir"], expert, plan, device)
+    row, summary = summarise_two_ranks(reference, ref_fp, got, world1, ranks_seconds)
+    counts = dp_launch_counts(world1_counts, got)
+    emit({"phase": "dp_seconds", "world1_nccl": world1_seconds, "two_ranks": ranks_seconds})
+    return {"world1": world1, "two_ranks": row, "summary": summary}, counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4946,6 +5672,7 @@ def main() -> None:
     # 8. the stage-1 train step at full width
     t0 = time.perf_counter()
     mods, cfg, opt = build_trainer(pipe, device, gen)
+    initial = trainable_state(mods)  # phase 16 starts from these trainables
     batch, train_summary = train(mods, cfg, opt, device)
     check_train_grads(mods, cfg, batch, device)
     profile_train_step(mods, cfg, opt, batch, device)
@@ -5004,6 +5731,13 @@ def main() -> None:
         t0 = time.perf_counter()
         data, data_counts = data_path(stage1["weights"], device)
         log(f"phase 15 took {time.perf_counter() - t0:.1f}s")
+
+        # 16. data parallel: world 1 under NCCL, two ranks sharing the card
+        # under gloo, the entry points at world 2, on phase 8's models and
+        # phase 13's and 14's weights, run and expert
+        t0 = time.perf_counter()
+        dp, dp_counts = data_parallel(mods, cfg, initial, stage1, device)
+        log(f"phase 16 took {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(STAGE1_DIR, ignore_errors=True)
 
@@ -5015,16 +5749,17 @@ def main() -> None:
     ft_totals = {b: r["totals_over_sites"] for b, r in stage2["kernels_at_expert_shapes"].items()}
     forward_entries = [
         forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
-                      expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts)
+                      expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts,
+                      dp_counts)
         for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd_small")]
     kernels = [*forward_entries,
                *backward_entries(train_rows, train_check, train_launches, cli_counts, ft_counts,
-                                 ft_totals, data_counts),
+                                 ft_totals, data_counts, dp_counts),
                fused_kernel_entry(
         fused_checks["group_norm_silu"], "group_norm_silu",
         "diffusion_pruning_tpu_torch/csrc/group_norm.cu",
         "diffusion_pruning_tpu/ops/group_norm.py:26", [], "F.group_norm, then F.silu",
-        {"serving_fused_norms": counts_gn["group_norm_silu"]},
+        {"serving_fused_norms": counts_gn["group_norm_silu"], "dp": dp_counts["group_norm_silu"]},
         expert_check["fused_kernel_device_ms_mean"]["fused_norms"]),
         fused_kernel_entry(
         fused_checks["norm_conv3x3"], "norm_conv3x3",
@@ -5033,25 +5768,29 @@ def main() -> None:
         ["diffusion_pruning_tpu/ops/norm_conv.py:140"],
         "gate multiply, F.group_norm, F.silu, F.conv2d (channels_last, bf16)",
         {"serving_fused_norm_conv": counts_nc["norm_conv3x3"],
-         "train_fused_norm_conv": fused_train["launches"]["norm_conv3x3"]},
+         "train_fused_norm_conv": fused_train["launches"]["norm_conv3x3"],
+         "dp": dp_counts["norm_conv3x3"]},
         expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"]),
         fused_kernel_entry(
         fused_checks["norm_linear"], "norm_linear",
         "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
         "diffusion_pruning_tpu/ops/norm_conv.py:279", [], "F.group_norm, then F.linear",
         {"serving_fused_norm_conv": counts_nc["norm_linear"],
-         "train_fused_norm_conv": fused_train["launches"]["norm_linear"]},
+         "train_fused_norm_conv": fused_train["launches"]["norm_linear"],
+         "dp": dp_counts["norm_linear"]},
         expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"]),
         {"name": "conv_split_reduce", "route": "cuda",
          "source": "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
          "replaces": "diffusion_pruning_tpu/ops/norm_conv.py:98",
          "role": "the fixed-order sum of the K slices of norm_conv3x3 and norm_linear where "
                  "their plans split K (a split linear site's ms includes it)",
-         "launches": counts_nc["conv_split_reduce"]
-                     + fused_train["launches"]["conv_split_reduce"],
+         "launches": (counts_nc["conv_split_reduce"]
+                      + fused_train["launches"]["conv_split_reduce"]
+                      + dp_counts["conv_split_reduce"]),
          "launches_by_path": {"serving_fused_norm_conv": counts_nc["conv_split_reduce"],
                               "train_fused_norm_conv":
-                                  fused_train["launches"]["conv_split_reduce"]},
+                                  fused_train["launches"]["conv_split_reduce"],
+                              "dp": dp_counts["conv_split_reduce"]},
          **split_reduce_entry(fused_checks["norm_conv3x3"]),
          "expert_path": expert_path_entry(
              expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"], "conv_split_reduce"),
@@ -5078,11 +5817,18 @@ def main() -> None:
         f"(decoder {data['decoder']}) the loader "
         f"{ {k: round(v['batches_per_sec'], 3) for k, v in data['loader'].items()} } batches/s "
         f"at B = {TRAIN_B}, stage-1 CLI steps/s {data['stage1_cli_steps_per_sec']} against "
-        f"the step's {data['stage1_step_steps_per_sec']}")
+        f"the step's {data['stage1_step_steps_per_sec']}; data parallel (two ranks sharing "
+        f"the card, gloo) stage-1 grads min cosine "
+        f"{min(st['min_cos'] for st in dp['two_ranks']['steps']):.6f}, ZeRO-1 moments a rank "
+        f"{dp['summary']['moment_bytes_by_rank_world2']} bytes against "
+        f"{dp['summary']['moment_bytes_world1']} at world 1")
     # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_worker(*sys.argv[2:4])
+    else:
+        main()

@@ -32,9 +32,15 @@ Beyond the JAX entry point: the config's `noise_offset`,
 `max_validation_samples` images (two synthetic batches without a dataset)
 are validated.
 
+Data parallel under torchrun, with the launch, batch and writing rules of
+`cli/prune.py` (`train_batch_size` per rank, the learning rate scaled by
+√global batch, each rank its rows of the global batch and its own draws,
+rank 0 alone writing): `optim.zero1` (ZeRO-1, the AdamW moments sharded over
+the ranks) defaults to on when the world size exceeds 1, as in the JAX entry
+point; asked for at world size 1 it runs on a mesh of one process.
+
 Not yet here, each raising before anything is built: the Hub upload
-(ROADMAP A5); more than one device (`--mesh_shape`), `optim.zero1` and
-`optim.tensor_parallel` (the data-parallel slice, ROADMAP A3).
+(ROADMAP A5) and `optim.tensor_parallel` > 1 (tensor parallelism, A4).
 """
 from __future__ import annotations
 
@@ -45,19 +51,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from diffusion_pruning_tpu_torch.utils.launch import world_size
+
 EMA_DECAY = 0.9999  # diffusers' EMAModel default
 
 
 def check_supported(args, cfg) -> None:
-    """Raise for what the single-device port does not run yet."""
-    from diffusion_pruning_tpu_torch.training.finetuner import DATA_PARALLEL
+    """Raise for what the port does not run yet."""
+    from diffusion_pruning_tpu_torch.training.finetuner import TENSOR_PARALLEL
     optim = cfg.training.get("optim") or {}
-    if args.mesh_shape is not None and int(args.mesh_shape) > 1:
-        raise NotImplementedError(f"--mesh_shape > 1: {DATA_PARALLEL}")
     if int(optim.get("tensor_parallel", 1) or 1) > 1:
-        raise NotImplementedError(f"optim.tensor_parallel > 1: {DATA_PARALLEL}")
-    if optim.get("zero1", False):
-        raise NotImplementedError(f"optim.zero1: {DATA_PARALLEL}")
+        raise NotImplementedError(f"optim.tensor_parallel > 1: {TENSOR_PARALLEL}")
     if cfg.get_path("training.hf_hub.push_to_hub", False):
         raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A5, "
                                   "not ported yet")
@@ -81,20 +85,16 @@ def finetune_config(cfg):
     )
 
 
-def resolve(args) -> torch.device:
-    """The card, unless `--device` names another device; raises without one."""
-    from diffusion_pruning_tpu_torch.utils.device import resolve_device
-    return resolve_device(None if args.device == "cuda" else args.device)
-
-
 def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable, label: str,
-              expert_id: Optional[int] = None):
+              expert_id: Optional[int] = None, mesh=None, zero1: bool = False):
     """Build the teacher and the student of `pick_arch(dense U-Net)` (an arch
     vector, or None for the dense student), train on the dataset folder's
     train split (only `expert_id`'s captions, where the router's assignment
     is in `--pruning_ckpt_dir`) or on synthetic batches, write the model
     card; returns the finished `FineTuneLoop`. Shared by the baseline entry
-    point, which passes no `expert_id` and so trains on every caption."""
+    point, which passes no `expert_id` and so trains on every caption. With
+    a data `mesh` each rank trains on its rows of the global batch, ZeRO-1
+    when `zero1`, and rank 0 alone writes."""
     from diffusion_pruning_tpu_torch.models.unet.pruned import expert_macs_ratio, make_expert_plan
     from diffusion_pruning_tpu_torch.training import (
         FineTunerModules,
@@ -111,9 +111,10 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
         build_vae,
         unet_config_from_yaml,
     )
+    from diffusion_pruning_tpu_torch.cli.prune import rank_rows
     from diffusion_pruning_tpu_torch.training.loop import FineTuneLoop, LoopConfig
     from diffusion_pruning_tpu_torch.utils.checkpoint import save_torch_artifact
-    from diffusion_pruning_tpu_torch.utils.logging_utils import Tracker
+    from diffusion_pruning_tpu_torch.utils.logging_utils import NullTracker, Tracker
     from diffusion_pruning_tpu_torch.utils.model_card import write_model_card
 
     sd_root = args.pretrained_model_name_or_path
@@ -127,7 +128,7 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
     dense = build_unet(ucfg, sd_root, device, torch.float32)  # f32: the student's masters
     arch = pick_arch(dense)
     plan = None if arch is None else make_expert_plan(dense.spec, arch)
-    student = build_student(dense, plan)
+    student = build_student(dense, plan, mesh=mesh)
     # the masters take the student's f32 values; the cast then makes its
     # parameters the compute copy that forward and backward run on
     masters = MasterWeights(student, separate=compute_dtype != torch.float32)
@@ -135,7 +136,8 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
     teacher = dense.to(frozen_dtype)
     macs = 1.0 if plan is None else expert_macs_ratio(dense.spec, plan)
     print(f"{label}: MACs ratio {macs:.3f} of dense", file=sys.stderr)
-    if arch is not None:
+    main_rank = mesh is None or mesh.is_main
+    if arch is not None and main_rank:
         save_torch_artifact(np.asarray(arch), os.path.join(run_dir, "arch_vector.pt"))
     vae = build_vae(sd_root, tiny=tiny, device=device, dtype=frozen_dtype)
     text = build_text_encoder(sd_root, tiny=tiny, device=device, dtype=frozen_dtype)
@@ -143,10 +145,13 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
                             schedule=build_schedule(cfg))
 
     ft_cfg = finetune_config(cfg)
-    global_batch = cfg.data.dataloader.get("train_batch_size", 8)  # one device
-    optimizer = make_finetune_optimizer(ft_cfg, masters, global_batch)
+    world = world_size()
+    global_batch = cfg.data.dataloader.get("train_batch_size", 8) * world  # per rank × world
+    optimizer = make_finetune_optimizer(ft_cfg, masters, global_batch,
+                                        zero1_mesh=mesh if zero1 else None)
     step = make_finetune_step(mods, ft_cfg, optimizer,
-                              accum_steps=int(cfg.training.get("gradient_accumulation_steps", 1)))
+                              accum_steps=int(cfg.training.get("gradient_accumulation_steps", 1)),
+                              zero1=zero1, mesh=mesh)
     logging_cfg = cfg.training.get("logging") or {}
     loop_cfg = LoopConfig(
         max_train_steps=cfg.training.get("max_train_steps", 30000),
@@ -155,25 +160,27 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
         resume_from=logging_cfg.get("resume_from_checkpoint"),
     )
     use_ema = args.use_ema or bool(cfg.model.unet.get("use_ema", False))
-    loop = FineTuneLoop(step, make_finetune_validation_step(mods, ft_cfg), optimizer, loop_cfg,
-                        run_dir, arch_vector=arch,
-                        tracker=Tracker(run_dir, use_wandb=logging_cfg.get("report_to") == "wandb"),
-                        seed=args.seed, ema_decay=EMA_DECAY if use_ema else None)
+    tracker = (Tracker(run_dir, use_wandb=logging_cfg.get("report_to") == "wandb")
+               if main_rank else NullTracker())
+    loop = FineTuneLoop(step, make_finetune_validation_step(mods, ft_cfg, mesh=mesh), optimizer,
+                        loop_cfg, run_dir, arch_vector=arch, tracker=tracker, seed=args.seed,
+                        ema_decay=EMA_DECAY if use_ema else None, mesh=mesh)
 
     resolution = ucfg.sample_size * 8
     data_dir = cfg.data.get("data_dir") or ""
     if os.path.exists(data_dir):
         train_batches, val_batches = dataset_batches(args, cfg, text, resolution, global_batch,
-                                                     expert_id)
+                                                     expert_id, mesh)
     else:
         print(f"[smoke] dataset dir {data_dir!r} missing — synthetic data", file=sys.stderr)
-        train_batches, val_batches = synthetic_batches(args.seed, global_batch, resolution,
-                                                       max(loop_cfg.max_train_steps, 1))
+        train_batches, val_batches = rank_rows(mesh, *synthetic_batches(
+            args.seed, global_batch, resolution, max(loop_cfg.max_train_steps, 1)))
     loop.train(train_batches, val_batches)
-    write_model_card(run_dir, sd_root or "stable-diffusion-2-1",
-                     cfg.data.get("dataset_name", "?"), expert_id=expert_id, macs_ratio=macs,
-                     extra={"max_train_steps": loop_cfg.max_train_steps,
-                            "unet_lr": ft_cfg.unet_lr})
+    if main_rank:
+        write_model_card(run_dir, sd_root or "stable-diffusion-2-1",
+                         cfg.data.get("dataset_name", "?"), expert_id=expert_id,
+                         macs_ratio=macs, extra={"max_train_steps": loop_cfg.max_train_steps,
+                                                 "unet_lr": ft_cfg.unet_lr})
     return loop
 
 
@@ -206,13 +213,16 @@ def expert_rows(cols, pruning_dir: str, dataset_name: str, expert_id: int):
 
 
 def dataset_batches(args, cfg, text_encoder, resolution: int, batch: int,
-                    expert_id: Optional[int] = None):
+                    expert_id: Optional[int] = None, mesh=None):
     """(train_batches, val_batches) of the dataset folder with CLIP ids: the
     train split (only `expert_id`'s captions where the router's assignment is
-    there) and the validation split's first `max_validation_samples`."""
+    there) and the validation split's first `max_validation_samples`. `batch`
+    is the global batch; with a `mesh` the pipelines make this rank's rows
+    (validation: validation_batch_size × world rows a global batch)."""
     from diffusion_pruning_tpu_torch.data import get_dataset
     from diffusion_pruning_tpu_torch.data.loader import DataPipeline
     from diffusion_pruning_tpu_torch.data.tokenizers import build_clip_tokenizer
+    from diffusion_pruning_tpu_torch.parallel.mesh import rank_slice
 
     clip_tok = build_clip_tokenizer(args.pretrained_model_name_or_path,
                                     vocab_size=text_encoder.cfg.vocab_size)
@@ -225,46 +235,65 @@ def dataset_batches(args, cfg, text_encoder, resolution: int, batch: int,
     train = splits["train"]
     if expert_id is not None:
         train = expert_rows(train, args.pruning_ckpt_dir, cfg.data.dataset_name, expert_id)
+    world = world_size()
+
+    def rows(n):  # this rank's rows of a global batch of n
+        return None if mesh is None else rank_slice(mesh, n)
+
     train_pipe = DataPipeline(train, batch, resolution, tok_clip, None, train=True,
-                              seed=args.seed)
+                              seed=args.seed, rows=rows(batch))
     if not len(train_pipe):  # the loop would turn over empty epochs for ever
         raise ValueError(f"{len(train['caption'])} train captions fill no batch of {batch}")
-    val_pipe = DataPipeline(splits["validation"],
-                            cfg.data.dataloader.get("validation_batch_size", 16), resolution,
+    val_batch = cfg.data.dataloader.get("validation_batch_size", 16) * world
+    val_pipe = DataPipeline(splits["validation"], val_batch, resolution,
                             tok_clip, None, train=False, seed=args.seed,
-                            max_samples=cfg.data.get("max_validation_samples"))
+                            max_samples=cfg.data.get("max_validation_samples"),
+                            rows=rows(val_batch))
     return train_pipe.epoch, lambda: val_pipe.epoch(0)
+
+
+def data_parallel(args, cfg, zero1_default: bool = True):
+    """(device, mesh, zero1) of a finetune entry point: the launch
+    (`cli.prune.launch`), the unported options refused, and `optim.zero1`
+    (default: on when the world size exceeds 1 and `zero1_default`), which
+    at world size 1 runs on a mesh of one process."""
+    from diffusion_pruning_tpu_torch.cli.prune import launch
+    from diffusion_pruning_tpu_torch.parallel.mesh import data_mesh
+
+    device, mesh = launch(args)
+    check_supported(args, cfg)
+    world = world_size()
+    zero1 = bool((cfg.training.get("optim") or {}).get("zero1", zero1_default and world > 1))
+    if zero1 and mesh is None:
+        mesh = data_mesh(device)
+    return device, mesh, zero1
 
 
 def main(argv=None):
     """Fine-tune codebook row `--expert_id`; returns the finished `FineTuneLoop`."""
+    from diffusion_pruning_tpu_torch.cli.prune import start_run
     from diffusion_pruning_tpu_torch.utils.arg_utils import parse_args
     from diffusion_pruning_tpu_torch.utils.checkpoint import (
         latest_checkpoint_dir,
         load_torch_artifact,
     )
     from diffusion_pruning_tpu_torch.utils.config import load_config
-    from diffusion_pruning_tpu_torch.utils.logging_utils import init_logging, make_run_dir
 
     args = parse_args(argv)
     if not args.pruning_ckpt_dir or args.expert_id is None:
         raise ValueError("--pruning_ckpt_dir and --expert_id are required")
     cfg = load_config(args.base_config_path)
     cfg.update_flat(vars(args))
-    check_supported(args, cfg)
-    device = resolve(args)
-    logging_cfg = cfg.training.get("logging") or {}
-    run_dir = make_run_dir(logging_cfg.get("logging_dir", "runs"), args.base_config_path,
-                           (args.wandb_run_name or "") + f"-expert{args.expert_id}")
-    init_logging(run_dir)
-    cfg.dump(os.path.join(run_dir, "config.yaml"))
+    device, mesh, zero1 = data_parallel(args, cfg)
+    run_dir = start_run(mesh, cfg, args.base_config_path,
+                        (args.wandb_run_name or "") + f"-expert{args.expert_id}")
 
     latest = latest_checkpoint_dir(args.pruning_ckpt_dir)
     embeddings = load_torch_artifact(os.path.join(latest or args.pruning_ckpt_dir,
                                                   "quantizer_embeddings.pt"))
     arch_vector = embeddings[args.expert_id].float().numpy()
     loop = fine_tune(args, cfg, run_dir, device, lambda dense: arch_vector,
-                     f"expert {args.expert_id}", expert_id=args.expert_id)
+                     f"expert {args.expert_id}", expert_id=args.expert_id, mesh=mesh, zero1=zero1)
     print(f"done: {run_dir}")
     return loop
 

@@ -19,7 +19,9 @@ The counterpart of the JAX package's `scripts/baselines/finetune_baseline.py`:
 
 Each runs through the same student, teacher and loop as `cli/finetune.py`
 (run directory `<logging_dir>/<config>/baseline-<type>`), whose rules for
-devices and unported options hold here too.
+devices, launch and unported options hold here too. Under torchrun it runs
+data parallel without ZeRO-1, as the JAX entry point does (`optim.zero1`
+raises).
 """
 from __future__ import annotations
 
@@ -58,24 +60,22 @@ def pick_arch(args, cfg, pruning_type: str):
 
 def main(argv=None):
     """Fine-tune the `--pruning_type` baseline; returns the finished `FineTuneLoop`."""
-    from diffusion_pruning_tpu_torch.cli.finetune import check_supported, fine_tune, resolve
+    from diffusion_pruning_tpu_torch.cli.finetune import data_parallel, fine_tune
+    from diffusion_pruning_tpu_torch.cli.prune import start_run
     from diffusion_pruning_tpu_torch.utils.arg_utils import parse_args
     from diffusion_pruning_tpu_torch.utils.config import load_config
-    from diffusion_pruning_tpu_torch.utils.logging_utils import init_logging, make_run_dir
 
     args = parse_args(argv)
     pruning_type = args.pruning_type or "no-pruning"
     cfg = load_config(args.base_config_path)
     cfg.update_flat(vars(args))
-    check_supported(args, cfg)
-    device = resolve(args)
-    logging_cfg = cfg.training.get("logging") or {}
-    run_dir = make_run_dir(logging_cfg.get("logging_dir", "runs"), args.base_config_path,
-                           f"baseline-{pruning_type}")
-    init_logging(run_dir)
-    cfg.dump(os.path.join(run_dir, "config.yaml"))
+    device, mesh, zero1 = data_parallel(args, cfg, zero1_default=False)
+    if zero1:
+        raise ValueError("optim.zero1: the baseline entry point runs data parallel without "
+                         "ZeRO-1, as the JAX one does")
+    run_dir = start_run(mesh, cfg, args.base_config_path, f"baseline-{pruning_type}")
     loop = fine_tune(args, cfg, run_dir, device, pick_arch(args, cfg, pruning_type),
-                     pruning_type)
+                     pruning_type, mesh=mesh)
     print(f"done: {run_dir}")
     return loop
 

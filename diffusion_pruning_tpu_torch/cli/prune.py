@@ -22,9 +22,22 @@ beside each checkpoint unless `training.logging.export_unet: false` → train.
 `--device cpu` runs on the CPU (the plain versions of the kernels); without
 it there must be a card.
 
-Not yet here: the Hub upload (ROADMAP A5); more than one device
-(`--mesh_shape`), which waits for the data-parallel step (A3). Each raises
-before anything is built.
+Data parallel under torchrun (`utils/launch.py`, the JAX entry point's
+`init_distributed`):
+
+  torchrun --nproc_per_node N -m diffusion_pruning_tpu_torch.cli.prune ...
+
+`train_batch_size` is per rank: the global batch is train_batch_size ×
+world (validation_batch_size × world for validation), and the learning rate
+scales with √global batch. Every rank makes the global batch from the same
+seed and keeps its rows (`parallel.mesh.shard_batch`): the synthetic batches
+are drawn whole, a dataset folder's loader decodes only the rank's rows
+where it can (`data/loader.py`), and each rank embeds its own rows with
+MPNet on its device. Rank 0 makes the run directory and writes every file;
+`--mesh_shape`, when given, must equal the world size.
+
+Not yet here: the Hub upload (ROADMAP A5), which raises before anything is
+built.
 """
 from __future__ import annotations
 
@@ -36,11 +49,43 @@ import numpy as np
 import torch
 
 from diffusion_pruning_tpu_torch.models.text_encoders import MPNET_MAX_LEN, sentence_embedding
+from diffusion_pruning_tpu_torch.utils.launch import world_size
 
 
-def _device(name: str) -> torch.device:
-    from diffusion_pruning_tpu_torch.utils.device import resolve_device
-    return resolve_device(None if name == "cuda" else name)
+def launch(args):
+    """(device, mesh or None) of an entry point: the process group the
+    launcher's environment asks for (`init_distributed`, first of all), with
+    `--mesh_shape` held against its world size."""
+    import torch.distributed as dist
+
+    from diffusion_pruning_tpu_torch.parallel.mesh import data_mesh
+    from diffusion_pruning_tpu_torch.utils.launch import init_distributed
+
+    device = init_distributed(None if args.device == "cuda" else args.device)
+    mesh = data_mesh(device) if dist.is_initialized() else None
+    world = world_size()
+    if args.mesh_shape is not None and int(args.mesh_shape) != world:
+        raise ValueError(f"--mesh_shape {args.mesh_shape} differs from the world size {world} "
+                         "the launch formed (torchrun --nproc_per_node sets it)")
+    return device, mesh
+
+
+def start_run(mesh, cfg, config_path: str, run_name) -> str:
+    """The run directory `<logging_dir>/<config>/<run_name>` with the config's
+    copy and the run's log file, made by rank 0 alone; every rank gets its
+    path."""
+    from diffusion_pruning_tpu_torch.parallel.mesh import broadcast_object
+    from diffusion_pruning_tpu_torch.utils.logging_utils import init_logging, make_run_dir
+
+    main_rank = mesh is None or mesh.is_main
+    logging_dir = (cfg.training.get("logging") or {}).get("logging_dir", "runs")
+    run_dir = make_run_dir(logging_dir, config_path, run_name) if main_rank else None
+    if mesh is not None:
+        run_dir = broadcast_object(mesh, run_dir)
+    init_logging(run_dir if main_rank else None)
+    if main_rank:
+        cfg.dump(os.path.join(run_dir, "config.yaml"))
+    return run_dir
 
 
 def main(argv=None):
@@ -65,28 +110,19 @@ def main(argv=None):
     from diffusion_pruning_tpu_torch.training.loop import LoopConfig, PrunerLoop
     from diffusion_pruning_tpu_torch.utils.arg_utils import parse_args
     from diffusion_pruning_tpu_torch.utils.config import load_config
-    from diffusion_pruning_tpu_torch.utils.logging_utils import (
-        Tracker,
-        init_logging,
-        make_run_dir,
-    )
+    from diffusion_pruning_tpu_torch.utils.logging_utils import NullTracker, Tracker
 
     args = parse_args(argv)
-    if args.mesh_shape is not None and int(args.mesh_shape) > 1:
-        raise NotImplementedError("--mesh_shape > 1 needs the data-parallel stage-1 step "
-                                  "(ROADMAP A3), not ported yet")
+    device, mesh = launch(args)
+    world = world_size()
     cfg = load_config(args.base_config_path)
     cfg.update_flat(vars(args))
     if cfg.get_path("training.hf_hub.push_to_hub", False):
         raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A5, "
                                   "not ported yet")
-    device = _device(args.device)
 
     logging_cfg = cfg.training.get("logging") or {}
-    run_dir = make_run_dir(logging_cfg.get("logging_dir", "runs"), args.base_config_path,
-                           args.wandb_run_name)
-    init_logging(run_dir)
-    cfg.dump(os.path.join(run_dir, "config.yaml"))
+    run_dir = start_run(mesh, cfg, args.base_config_path, args.wandb_run_name)
 
     sd_root = args.pretrained_model_name_or_path
     tiny = not os.path.exists(os.path.join(sd_root or "", "unet"))
@@ -100,8 +136,8 @@ def main(argv=None):
     text = build_text_encoder(sd_root, tiny=tiny, device=device, dtype=frozen_dtype)
     mpnet = build_mpnet(args.prompt_encoder_model_name_or_path, tiny=tiny, device=device)
     mp_dim = 768 if not tiny else mpnet.cfg.hidden_size
-    hypernet = build_hypernet(unet.spec, cfg, input_dim=mp_dim, device=device)
-    quantizer = build_quantizer(unet.spec, cfg, device=device)
+    hypernet = build_hypernet(unet.spec, cfg, input_dim=mp_dim, device=device, mesh=mesh)
+    quantizer = build_quantizer(unet.spec, cfg, device=device, mesh=mesh)
     mods = PrunerModules(unet=unet, vae=vae, text_encoder=text, hypernet=hypernet,
                          quantizer=quantizer, schedule=build_schedule(cfg))
 
@@ -129,7 +165,7 @@ def main(argv=None):
         input_perturbation=cfg.model.unet.get("input_perturbation", 0.0) or 0.0,
         max_scheduler_steps=cfg.model.unet.get("max_scheduler_steps"),
     )
-    global_batch = cfg.data.dataloader.get("train_batch_size", 8)  # one device
+    global_batch = cfg.data.dataloader.get("train_batch_size", 8) * world  # per rank × world
     optimizer = make_optimizer(pruner_cfg, mods, global_batch)
 
     loop_cfg = LoopConfig(
@@ -144,20 +180,20 @@ def main(argv=None):
     resolution = ucfg.sample_size * 8
     data_dir = cfg.data.get("data_dir") or ""
     if os.path.exists(data_dir):
-        data = DatasetBatches(cfg, args, text, mpnet, resolution, global_batch)
+        data = DatasetBatches(cfg, args, text, mpnet, resolution, global_batch, mesh)
         train_batches, val_batches = data.train_batches, data.val_batches
     else:
         print(f"[smoke] dataset dir {data_dir!r} missing — synthetic data", file=sys.stderr)
-        train_batches, val_batches = synthetic_batches(
-            args.seed, global_batch, resolution, mp_dim, max(loop_cfg.max_train_steps, 1))
+        train_batches, val_batches = rank_rows(mesh, *synthetic_batches(
+            args.seed, global_batch, resolution, mp_dim, max(loop_cfg.max_train_steps, 1)))
 
     accum = int(cfg.training.get("gradient_accumulation_steps", 1))
     make_step = (functools.partial(make_pruner_step, accum_steps=accum)
                  if accum > 1 else make_pruner_step)
+    tracker = (Tracker(run_dir, use_wandb=logging_cfg.get("report_to") == "wandb")
+               if mesh is None or mesh.is_main else NullTracker())
     loop = PrunerLoop(mods, pruner_cfg, loop_cfg, optimizer, make_step, make_validation_step,
-                      run_dir, tracker=Tracker(run_dir,
-                                               use_wandb=logging_cfg.get("report_to") == "wandb"),
-                      seed=args.seed)
+                      run_dir, tracker=tracker, seed=args.seed, mesh=mesh)
     # the original code writes unet/ into every pruning checkpoint; stage 1
     # leaves the U-Net frozen, so this is the pretrained weights again
     if logging_cfg.get("export_unet", True):
@@ -189,19 +225,35 @@ def synthetic_batches(seed: int, batch: int, resolution: int, mp_dim: int, steps
     return synth(steps), lambda: synth(2)(0)
 
 
+def rank_rows(mesh, train_batches, val_batches):
+    """The batch makers with each global batch cut to this rank's rows
+    (unchanged without a mesh)."""
+    if mesh is None:
+        return train_batches, val_batches
+    from diffusion_pruning_tpu_torch.parallel.mesh import shard_batch
+
+    def train(epoch):
+        return (shard_batch(mesh, b) for b in train_batches(epoch))
+
+    return train, lambda: (shard_batch(mesh, b) for b in val_batches())
+
+
 class DatasetBatches:
     """The dataset folder's batches for stage 1: both tokenizers, the train
     and validation `DataPipeline`s, and each batch's MPNet embedding (mean
     pooled, computed on the MPNet's device) in place of its MPNet ids and
-    mask."""
+    mask. `batch` is the global batch; with a `mesh` the pipelines make this
+    rank's rows of each global batch, and only they are embedded."""
 
-    def __init__(self, cfg, args, text_encoder, mpnet, resolution: int, batch: int):
+    def __init__(self, cfg, args, text_encoder, mpnet, resolution: int, batch: int,
+                 mesh=None):
         from diffusion_pruning_tpu_torch.data import get_dataset
         from diffusion_pruning_tpu_torch.data.loader import DataPipeline
         from diffusion_pruning_tpu_torch.data.tokenizers import (
             build_clip_tokenizer,
             build_mpnet_tokenizer,
         )
+        from diffusion_pruning_tpu_torch.parallel.mesh import rank_slice
         self.cfg, self.mpnet = cfg, mpnet
         self.clip_tok = build_clip_tokenizer(args.pretrained_model_name_or_path,
                                              vocab_size=text_encoder.cfg.vocab_size)
@@ -211,17 +263,23 @@ class DatasetBatches:
         self.mp_len = min(MPNET_MAX_LEN, mpnet.cfg.max_positions)
         loader_cfg = cfg.data.dataloader
         splits = get_dataset(cfg.data)
+        world = world_size()
+
+        def rows(n):  # this rank's rows of a global batch of n
+            return None if mesh is None else rank_slice(mesh, n)
+
         self.train_pipe = DataPipeline(
             splits["train"], batch, resolution, self.tokenize_clip, self.tokenize_mpnet,
             train=True, center_crop=loader_cfg.get("center_crop", False),
             random_flip=loader_cfg.get("random_flip", True), seed=args.seed,
-            max_samples=cfg.data.get("max_train_samples"))
+            max_samples=cfg.data.get("max_train_samples"), rows=rows(batch))
         if not len(self.train_pipe):  # the loop would turn over empty epochs for ever
             raise ValueError(f"the train split fills no batch of {batch}")
+        val_batch = loader_cfg.get("validation_batch_size", 16) * world
         self.val_pipe = DataPipeline(
-            splits["validation"], loader_cfg.get("validation_batch_size", 16), resolution,
+            splits["validation"], val_batch, resolution,
             self.tokenize_clip, self.tokenize_mpnet, train=False, seed=args.seed,
-            max_samples=cfg.data.get("max_validation_samples"))
+            max_samples=cfg.data.get("max_validation_samples"), rows=rows(val_batch))
 
     def tokenize_clip(self, caps):
         return np.asarray(self.clip_tok(caps, max_length=77, padding="max_length",

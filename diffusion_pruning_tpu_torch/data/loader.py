@@ -17,6 +17,20 @@ and settings give the same numpy batches in the same order.
 Batches stay numpy dicts; the training loops move the keys their steps read
 to the device (`training/loop.BATCH_KEYS`).
 
+A data-parallel rank (`rows=`, its slice of each global batch) gets its rows
+of the batches the one-process pipeline makes from the same seed. Where the
+loader allows it, it decodes only those: with Pillow alone, the other rows'
+crop and flip draws are made from their files' headers (the crop's bounds
+need the image's size; no pixels are decoded), and a file that does not open
+is replaced from the pool as when decoded. A file whose header reads but
+whose pixels do not (a truncated JPEG) in another rank's rows is taken as
+readable there, so from that row on this rank's rows can differ from the
+one-process batch (they are still rows of the split, drawn as the loader
+draws). With `dpt_native` the whole global batch is decoded and the rank
+keeps its rows: the native decoder's fallback to Pillow depends on which
+files it reads, which only decoding tells. Captions are tokenized for the
+rank's rows alone.
+
 `filter_dataset` assigns captions to experts batch by batch: captions →
 MPNet embeddings → hypernet → cosine codebook index.
 """
@@ -60,6 +74,21 @@ def read_image_bytes(path: str) -> bytes:
         return tf.extractfile(member).read()
 
 
+def _resized(size, resolution: int):
+    """The (w, h) the shorter side is resized to `resolution` at."""
+    w, h = size
+    scale = resolution / min(w, h)
+    return max(resolution, round(w * scale)), max(resolution, round(h * scale))
+
+
+def _crop_origin(size, resolution: int, train: bool, center_crop: bool,
+                 rng: np.random.RandomState):
+    w, h = size
+    if train and not center_crop:
+        return rng.randint(0, w - resolution + 1), rng.randint(0, h - resolution + 1)
+    return (w - resolution) // 2, (h - resolution) // 2
+
+
 def load_and_transform_image(path: str, resolution: int, train: bool,
                              center_crop: bool, random_flip: bool,
                              rng: np.random.RandomState) -> Optional[np.ndarray]:
@@ -69,21 +98,28 @@ def load_and_transform_image(path: str, resolution: int, train: bool,
         img = Image.open(io.BytesIO(read_image_bytes(path))).convert("RGB")
     except Exception:  # any undecodable or missing file is resampled
         return None
-    w, h = img.size
-    scale = resolution / min(w, h)
-    img = img.resize((max(resolution, round(w * scale)),
-                      max(resolution, round(h * scale))), Image.BILINEAR)
-    w, h = img.size
-    if train and not center_crop:
-        x0 = rng.randint(0, w - resolution + 1)
-        y0 = rng.randint(0, h - resolution + 1)
-    else:
-        x0, y0 = (w - resolution) // 2, (h - resolution) // 2
+    img = img.resize(_resized(img.size, resolution), Image.BILINEAR)
+    x0, y0 = _crop_origin(img.size, resolution, train, center_crop, rng)
     img = img.crop((x0, y0, x0 + resolution, y0 + resolution))
     arr = np.asarray(img, dtype=np.float32) / 127.5 - 1.0  # [-1, 1] NHWC
     if train and random_flip and rng.rand() < 0.5:
         arr = arr[:, ::-1, :]
     return arr
+
+
+def skip_image(path: str, resolution: int, train: bool, center_crop: bool, random_flip: bool,
+               rng: np.random.RandomState) -> bool:
+    """`load_and_transform_image`'s draws for a row another rank decodes,
+    from the file's header alone (no pixels); False when it does not open."""
+    from PIL import Image
+    try:
+        size = Image.open(io.BytesIO(read_image_bytes(path))).size
+    except Exception:
+        return False
+    _crop_origin(_resized(size, resolution), resolution, train, center_crop, rng)
+    if train and random_flip:
+        rng.rand()
+    return True
 
 
 class DataPipeline:
@@ -108,6 +144,7 @@ class DataPipeline:
         prefetch: int = 2,
         use_native: Optional[bool] = None,   # None = when dpt_native imports
         native_threads: int = 0,             # 0 = hardware concurrency
+        rows: Optional[slice] = None,        # a data-parallel rank's rows of each batch
     ):
         self.images = columns["image"][:max_samples] if max_samples else columns["image"]
         self.captions = columns["caption"][:max_samples] if max_samples else columns["caption"]
@@ -126,6 +163,7 @@ class DataPipeline:
             raise ImportError("use_native=True, but dpt_native does not import "
                               "(python native/setup.py build_ext --inplace)")
         self.native_threads = native_threads
+        self.rows = range(batch_size)[rows] if rows is not None else None
         self.decoded: collections.Counter = collections.Counter()
         self._count_lock = threading.Lock()
 
@@ -162,6 +200,10 @@ class DataPipeline:
         return load_and_transform_image(self.images[i], self.resolution, self.train,
                                         self.center_crop, self.random_flip, rng)
 
+    def _skip(self, i: int, rng: np.random.RandomState) -> bool:
+        return skip_image(self.images[i], self.resolution, self.train, self.center_crop,
+                          self.random_flip, rng)
+
     def _make_batch(self, idxs: Sequence[int], rng: np.random.RandomState,
                     pool: Sequence[int]) -> Dict[str, np.ndarray]:
         idxs = list(idxs)
@@ -174,7 +216,13 @@ class DataPipeline:
         else:
             pixels = [None] * len(idxs)
         caps = [None] * len(idxs)
+        mine = range(len(idxs)) if self.rows is None or self.use_native else self.rows
         for j, i in enumerate(idxs):
+            if j not in mine:  # another rank's row: its draws and replacements only
+                ok = self._skip(i, rng)
+                while not ok and backup:
+                    ok = self._skip(backup.pop(), rng)
+                continue
             arr = pixels[j]
             if arr is None:
                 arr = self._load(i, rng)
@@ -191,6 +239,9 @@ class DataPipeline:
                 counts["zeros"] += 1
             pixels[j] = arr
             caps[j] = self.captions[i]
+        if self.rows is not None:
+            pixels = [pixels[j] for j in self.rows]
+            caps = [caps[j] for j in self.rows]
         self._count(counts)
         batch: Dict[str, np.ndarray] = {
             "pixel_values": np.stack(pixels),

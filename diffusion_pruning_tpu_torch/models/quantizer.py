@@ -37,6 +37,7 @@ from diffusion_pruning_tpu_torch.core.estimators import (
 from diffusion_pruning_tpu_torch.core.resource import ResourceModel
 from diffusion_pruning_tpu_torch.core.sinkhorn import sinkhorn_assign
 from diffusion_pruning_tpu_torch.core.structure import StructureSpec
+from diffusion_pruning_tpu_torch.parallel.mesh import DataMesh
 
 
 class StructureQuantizer(nn.Module):
@@ -160,7 +161,7 @@ class StructureQuantizer(nn.Module):
         return hard_concrete(g) if hard else g
 
     def forward_train(self, z: torch.Tensor, codebook_noise: torch.Tensor,
-                      gates_noise: torch.Tensor):
+                      gates_noise: torch.Tensor, mesh: Optional[DataMesh] = None):
         """Training forward: (z_q (B, vq_dim), indices (B,), new snapshot).
 
         codebook_noise (K, vq_dim) and gates_noise (B, vq_dim) are the gumbel
@@ -168,13 +169,16 @@ class StructureQuantizer(nn.Module):
         gumbel-sigmoid'd codebook rows the prompts are assigned to,
         differentiable in `embedding.weight`; the assignment (Sinkhorn over
         the batch, or the cosine argmax without `optimal_transport`) and the
-        new `embedding_gs` snapshot carry no gradient."""
+        new `embedding_gs` snapshot carry no gradient. With a data `mesh`
+        the batch is this rank's rows, Sinkhorn balances the global batch,
+        and the codebook noise must be the same on every rank (then so is
+        the snapshot)."""
         embedding_gs = self.gumbel_sigmoid_trick(self.embedding.weight, codebook_noise)
         with torch.no_grad():
             scores = self._scores(self.gumbel_sigmoid_trick(z, gates_noise),
                                   embedding_gs.detach())
             if self.optimal_transport:
-                indices = sinkhorn_assign(scores)
+                indices = sinkhorn_assign(scores, mesh=mesh)
             else:
                 indices = torch.argmax(scores, dim=-1)
         return embedding_gs[indices], indices, embedding_gs.detach()

@@ -1,0 +1,11 @@
+"""Data parallelism: the data mesh and its collectives (`mesh.py`) and
+ZeRO-1's sharded optimizer state (`zero1.py`)."""
+from diffusion_pruning_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    DataMesh,
+    data_mesh,
+    replicate,
+    shard_batch,
+)
+
+__all__ = ["DATA_AXIS", "DataMesh", "data_mesh", "replicate", "shard_batch"]

@@ -14,6 +14,10 @@ Frozen modules (U-Net, VAE, CLIP text) take `dtype`, the caller's
 `training.mixed_precision`; the MPNet encoder and the trainables (hypernet,
 codebook) stay f32. Each module is built on `device`. Stage 2's student
 (`build_student`) is cut from the dense U-Net and owns a copy of every tensor.
+Under a data mesh (`mesh=`) the trainables (hypernet, codebook, student)
+are replicated from rank 0 after they are built, the JAX package's
+`replicate`; the frozen modules come from the same files or seed on every
+rank.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
 from diffusion_pruning_tpu_torch.models.unet.pruned import ExpertPlan, slice_expert_params
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from diffusion_pruning_tpu_torch.parallel.mesh import DataMesh, replicate
 from diffusion_pruning_tpu_torch.schedulers import DiffusionSchedule
 from diffusion_pruning_tpu_torch.utils.export import load_torch_state_dict
 from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
@@ -128,7 +133,8 @@ def build_unet(ucfg: UNetConfig, sd_root: Optional[str], device="cuda",
                    os.path.join(sd_root or "", "unet"), "U-Net", device)
 
 
-def build_student(dense: GatedUNet, plan: Optional[ExpertPlan] = None) -> GatedUNet:
+def build_student(dense: GatedUNet, plan: Optional[ExpertPlan] = None,
+                  mesh: Optional[DataMesh] = None) -> GatedUNet:
     """Stage 2's student: the expert of `plan` cut from `dense` (the dense
     U-Net itself when None), in f32 (the optimizer's masters take these
     values), trainable, in train mode. It owns a copy of every tensor:
@@ -141,6 +147,8 @@ def build_student(dense: GatedUNet, plan: Optional[ExpertPlan] = None) -> GatedU
     with torch.no_grad():
         model.load_state_dict({k: v.to(dtype=torch.float32, copy=True) for k, v in sd.items()},
                               strict=True, assign=True)
+    if mesh is not None:
+        replicate(mesh, model)
     return model.train().requires_grad_(True)
 
 
@@ -166,7 +174,8 @@ def build_mpnet(root: Optional[str], tiny: bool = False, device="cuda") -> MPNet
 
 
 @torch.no_grad()
-def build_hypernet(spec, cfg, input_dim: int = 768, device="cuda") -> HyperStructure:
+def build_hypernet(spec, cfg, input_dim: int = 768, device="cuda",
+                   mesh: Optional[DataMesh] = None) -> HyperStructure:
     """Orthogonal heads, zero biases, unit weight-norm gains (or a standard
     normal `arch`), from the hypernet's seed; f32."""
     h = cfg.model.hypernet
@@ -183,10 +192,11 @@ def build_hypernet(spec, cfg, input_dim: int = 768, device="cuda") -> HyperStruc
             nn.init.orthogonal_(fc.weight, generator=gen)
             if fc.bias is not None:
                 fc.bias.zero_()
-    return model
+    return model if mesh is None else replicate(mesh, model)
 
 
-def build_quantizer(spec, cfg, device="cuda") -> StructureQuantizer:
+def build_quantizer(spec, cfg, device="cuda",
+                    mesh: Optional[DataMesh] = None) -> StructureQuantizer:
     """The codebook with orthogonal rows from the codebook's seed and its
     eval snapshot taken; f32."""
     q = cfg.model.quantizer
@@ -202,7 +212,7 @@ def build_quantizer(spec, cfg, device="cuda") -> StructureQuantizer:
             optimal_transport=q.get("optimal_transport", True))
     model.init_params(_generator(device, QUANTIZER_SEED))
     model.init_state()
-    return model
+    return model if mesh is None else replicate(mesh, model)
 
 
 def build_schedule(cfg) -> DiffusionSchedule:

@@ -41,8 +41,17 @@ Stage boundaries: a step called with `mark=fn` calls fn(name) as each stage
 ends: "encode", "teacher", "student", "losses", "backward" (once per
 micro-batch), then "optimizer".
 
-The data-parallel step (the JAX package's mesh, ZeRO-1 and GSPMD branches)
-is the next slice of the port (ROADMAP A3); asking for it raises.
+Data parallel (`mesh`, a `parallel.mesh.DataMesh`): each rank takes its rows
+of the global batch and its own draws (its rank stream); the masters'
+gradients, the loss terms and the metrics are averaged over the ranks after
+the backward, and the skip test reads the mean gradients, so every rank
+skips together. With `zero1` the AdamW moments are sharded over the ranks
+(`parallel/zero1.py`, `Zero1AdamW`): the full mean gradients are clipped by
+`min(1, max_grad_norm / (‖g‖ + 1e-12))` (the JAX package's ZeRO-1 clip, not
+the one-device formula), AdamW's arithmetic updates this rank's row of the
+flat f32 masters, the rows are gathered back and the compute copy is
+refreshed. The masters stay replicated. The 2-D data × model step (tensor
+parallelism) is ROADMAP A4 and raises.
 """
 from __future__ import annotations
 
@@ -56,6 +65,15 @@ from diffusion_pruning_tpu_torch.losses import diffusion_loss, snr_weights
 from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextEncoder
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL
+from diffusion_pruning_tpu_torch.parallel.mesh import DataMesh, all_gather, pmean_, pmean_dict
+from diffusion_pruning_tpu_torch.parallel.zero1 import (
+    flat_size,
+    gather_shards,
+    local_shard,
+    row,
+    shard_len,
+    unflatten,
+)
 from diffusion_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
 from diffusion_pruning_tpu_torch.training.pruner import (
     _applied_updates,
@@ -69,8 +87,8 @@ from diffusion_pruning_tpu_torch.training.pruner import (
 )
 
 LOSS_TERMS = ("loss", "diffusion_loss", "distillation_loss", "block_loss")
-DATA_PARALLEL = ("the data-parallel fine-tune step (mesh, ZeRO-1, tensor parallelism) is "
-                 "ROADMAP A3's data-parallel slice, not ported yet")
+TENSOR_PARALLEL = ("tensor parallelism (the 2-D data × model fine-tune step) is ROADMAP A4, "
+                   "not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +220,12 @@ class AdamW(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
+        self._update()
+        self.masters.refresh()
+
+    def _update(self) -> None:
+        """AdamW's arithmetic on the optimizer's own parameters and their
+        `.grad` (the masters here, one flat row under ZeRO-1)."""
         for group in self.param_groups:
             params: List[torch.Tensor] = group["params"]
             for p in params:
@@ -234,7 +258,6 @@ class AdamW(torch.optim.Optimizer):
                 torch._foreach_add_(mu, torch._foreach_mul(params, group["weight_decay"]))
             torch._foreach_mul_(mu, -group["lr"])
             torch._foreach_add_(params, mu)
-        self.masters.refresh()
 
     def load_state_dict(self, state_dict) -> None:
         super().load_state_dict(state_dict)
@@ -243,15 +266,82 @@ class AdamW(torch.optim.Optimizer):
                 state["mu"] = state["mu"].to(self.mu_dtype)
 
 
+class Zero1AdamW(AdamW):
+    """ZeRO-1 AdamW: the arithmetic of `AdamW` on this rank's row of the flat
+    f32 masters, its moments at the row's shape (`shard_len(P, world)`
+    elements each) for the whole run. `step` takes the full mean gradients
+    on the masters' `.grad` (replicated), updates the row, gathers every
+    rank's row back into the masters and refreshes the compute copy.
+
+    Its `state_dict` gathers the unpadded flat moments from every rank, a
+    collective every rank must call; `load_state_dict` takes this rank's row
+    of them, so a checkpoint resumes at any world size (bit for bit at the
+    same one)."""
+
+    def __init__(self, masters: MasterWeights, mesh: DataMesh, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None):
+        self.mesh = mesh
+        self.total = flat_size(masters.masters)
+        ref = masters.masters[0]
+        self.shard = torch.zeros(shard_len(self.total, mesh.world_size), dtype=ref.dtype,
+                                 device=ref.device)
+        torch.optim.Optimizer.__init__(self, [self.shard], dict(
+            lr=lr, peak_lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.masters = masters
+        self.mu_dtype = mu_dtype
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.shard.grad = None
+        for p in self.masters.masters + self.masters.copies:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        masters = self.masters.masters
+        self.shard.copy_(local_shard(self.mesh, masters))
+        self.shard.grad = local_shard(self.mesh, [m.grad for m in masters])
+        self._update()
+        flat = gather_shards(self.mesh, self.shard, self.total)
+        torch._foreach_copy_(masters, unflatten(flat, masters))
+        self.shard.grad = None
+        self.masters.refresh()
+
+    def state_dict(self):
+        out = super().state_dict()
+        state = out["state"].get(0)
+        if state:  # every rank's rows of the moments, unpadded (f32 on the wire)
+            out["state"][0] = dict(state, **{
+                k: all_gather(self.mesh, state[k].float())[:self.total].to(state[k].dtype)
+                for k in ("mu", "nu")})
+        out["zero1_total"] = self.total
+        return out
+
+    def load_state_dict(self, state_dict) -> None:
+        total = state_dict.get("zero1_total")
+        if total != self.total:
+            raise ValueError(f"not a ZeRO-1 state of {self.total} elements "
+                             f"(zero1_total {total}): resume with the optimizer that saved it")
+        state_dict = dict(state_dict, state={
+            i: dict(s, **{k: row(self.mesh, s[k].to(self.shard.device)) for k in ("mu", "nu")})
+            for i, s in state_dict["state"].items()})
+        state_dict.pop("zero1_total")
+        super().load_state_dict(state_dict)
+
+
 def make_finetune_optimizer(cfg: FineTuneConfig, masters: MasterWeights,
-                            global_batch: int) -> AdamW:
+                            global_batch: int, zero1_mesh: Optional[DataMesh] = None) -> AdamW:
     """AdamW on `masters` at unet_lr × √global_batch (with `scale_lr`); the
     step sets the learning rate from the warmup before each update it applies
-    and clips by the global norm first when `max_grad_norm` is set."""
+    and clips by the global norm first when `max_grad_norm` is set. With
+    `zero1_mesh`, the `Zero1AdamW` of that mesh."""
     lr = cfg.unet_lr * (global_batch ** 0.5 if cfg.scale_lr else 1.0)
-    return AdamW(masters, lr, betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
-                 weight_decay=cfg.weight_decay,
-                 mu_dtype=torch.bfloat16 if cfg.adam_mu_bf16 else None)
+    kw = dict(betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+              weight_decay=cfg.weight_decay,
+              mu_dtype=torch.bfloat16 if cfg.adam_mu_bf16 else None)
+    if zero1_mesh is not None:
+        return Zero1AdamW(masters, zero1_mesh, lr, **kw)
+    return AdamW(masters, lr, **kw)
 
 
 def complete_draws(mods: FineTunerModules, cfg: FineTuneConfig, batch: Dict[str, torch.Tensor],
@@ -295,17 +385,22 @@ def compute_losses(mods: FineTunerModules, cfg: FineTuneConfig, batch: Dict[str,
 
 
 def make_finetune_step(mods: FineTunerModules, cfg: FineTuneConfig, optimizer: AdamW,
-                       accum_steps: int = 1, zero1: bool = False) -> Callable:
+                       accum_steps: int = 1, zero1: bool = False,
+                       mesh: Optional[DataMesh] = None) -> Callable:
     """The train step: step(batch, draws=None, generator=None, mark=...) ->
     metrics (the loss terms, `grad_norm` and `skipped`). It updates the
     student in place through `optimizer` (`make_finetune_optimizer`); after
     it the masters' `.grad` hold this step's mean gradient. A step whose loss
     or gradient norm is not finite is skipped: the masters, the compute copy
     and the optimizer state (its step count too) stay as they were, so the
-    warmup does not advance. `zero1` is the data-parallel slice's and
-    raises."""
-    if zero1:
-        raise NotImplementedError(f"zero1: {DATA_PARALLEL}")
+    warmup does not advance. With a `mesh` the step is data parallel, and
+    `zero1` (which needs the `Zero1AdamW` of that mesh) shards the moments
+    (module docstring)."""
+    if zero1 and (mesh is None or not isinstance(optimizer, Zero1AdamW)
+                  or optimizer.mesh != mesh):
+        raise ValueError("zero1 needs a mesh and make_finetune_optimizer(..., zero1_mesh=mesh)")
+    if not zero1 and isinstance(optimizer, Zero1AdamW):
+        raise ValueError("a Zero1AdamW steps only under zero1=True")
     masters = optimizer.masters
 
     def step(batch, draws=None, generator=None, mark=_no_mark):
@@ -327,10 +422,17 @@ def make_finetune_step(mods: FineTunerModules, cfg: FineTuneConfig, optimizer: A
             torch._foreach_div_(grads, accum_steps)
         metrics = {k: sum(t[k] for t in terms) / accum_steps if accum_steps > 1 else terms[0][k]
                    for k in LOSS_TERMS}
+        if mesh is not None:
+            pmean_(mesh, grads)
+            metrics = pmean_dict(mesh, metrics)
         gnorm = _global_norm(grads)
         skipped = not bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
         if not skipped:
-            if cfg.max_grad_norm and not bool(gnorm < cfg.max_grad_norm):
+            if zero1:
+                if cfg.max_grad_norm:  # the clip on the full gradients, before sharding
+                    torch._foreach_mul_(grads, torch.clamp(
+                        cfg.max_grad_norm / (gnorm + 1e-12), max=1.0))
+            elif cfg.max_grad_norm and not bool(gnorm < cfg.max_grad_norm):
                 # optax.clip_by_global_norm: g / ‖g‖ · max_norm
                 torch._foreach_div_(grads, gnorm)
                 torch._foreach_mul_(grads, cfg.max_grad_norm)
@@ -343,19 +445,22 @@ def make_finetune_step(mods: FineTunerModules, cfg: FineTuneConfig, optimizer: A
     return step
 
 
-def make_finetune_validation_step(mods: FineTunerModules, cfg: FineTuneConfig) -> Callable:
+def make_finetune_validation_step(mods: FineTunerModules, cfg: FineTuneConfig,
+                                  mesh: Optional[DataMesh] = None) -> Callable:
     """Loss-only step for the held-out split: val(batch, draws=None,
-    generator=None) -> the loss terms, with no gradient and no update."""
+    generator=None) -> the loss terms, with no gradient and no update; with
+    a `mesh`, of this rank's rows, averaged over the ranks."""
 
     @torch.no_grad()
     def val(batch, draws=None, generator=None):
         draws = complete_draws(mods, cfg, batch, draws, generator)
-        return compute_losses(mods, cfg, batch, draws)[1]
+        terms = compute_losses(mods, cfg, batch, draws)[1]
+        return terms if mesh is None else pmean_dict(mesh, terms)
 
     return val
 
 
 def make_finetune_step_gspmd(*args, **kwargs):
     """The JAX package's 2-D data × model step: not ported yet."""
-    raise NotImplementedError(f"make_finetune_step_gspmd: {DATA_PARALLEL}")
+    raise NotImplementedError(f"make_finetune_step_gspmd: {TENSOR_PARALLEL}")
 

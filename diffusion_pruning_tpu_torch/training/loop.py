@@ -23,6 +23,17 @@ run's end) is not written twice.
 of the student's f32 weights, scalar logging, validation when given batches,
 checkpoints (the student's f32 masters, the optimizer, the EMA) with
 `arch_vector.pt` beside each, rotation and resume.
+
+Data parallel (`mesh`, a `parallel.mesh.DataMesh`): each rank runs the loop
+on its rows of each global batch (the batches it is given are those rows)
+with the mesh's step. Rank 0 alone writes: checkpoints and exports, tracker
+lines, heatmaps and the image logger's samples; every rank waits at a
+barrier after each save, and every rank resumes from the same checkpoint.
+The `torch.Generator(seed)` stays the stream every rank shares (the
+codebook's gumbel noise); a second generator, seeded from (seed, rank)
+(`utils/launch.rank_seed`), gives each rank its own draws. A ZeRO-1
+optimizer's checkpoint holds its moments gathered from every rank
+(`training/finetuner.Zero1AdamW`).
 """
 from __future__ import annotations
 
@@ -35,9 +46,11 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from diffusion_pruning_tpu_torch.parallel.mesh import DataMesh, barrier
 from diffusion_pruning_tpu_torch.utils.checkpoint import CheckpointManager
 from diffusion_pruning_tpu_torch.utils.export import export_pruning_checkpoint
-from diffusion_pruning_tpu_torch.utils.logging_utils import Tracker, heatmap_image
+from diffusion_pruning_tpu_torch.utils.launch import rank_seed
+from diffusion_pruning_tpu_torch.utils.logging_utils import NullTracker, Tracker, heatmap_image
 
 logger = logging.getLogger("diffusion_pruning_tpu_torch")
 
@@ -57,10 +70,46 @@ class LoopConfig:
 
 
 class _Loop:
-    """What both loops share: the batches' placement on the loop's device and
-    validation. Subclasses set `batch_keys`, `device`, `generator`,
-    `val_fn`, `tracker` and `global_step`."""
+    """What both loops share: the batches' placement on the loop's device,
+    the generators, the rank that writes, and validation. Subclasses call
+    `_setup` and set `batch_keys`, `device`, `val_fn` and `global_step`."""
     batch_keys = BATCH_KEYS
+    shares_codebook_noise = False  # whether the step takes `shared_generator`
+
+    def _setup(self, mesh: Optional[DataMesh], run_dir: str, loop_cfg: LoopConfig,
+               tracker: Optional[Tracker], seed: int) -> None:
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.ckpt = CheckpointManager(run_dir, loop_cfg.checkpoints_total_limit,
+                                      create=self.is_main)
+        self.tracker = tracker or (Tracker(run_dir) if self.is_main else NullTracker())
+        self.run_dir = run_dir
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.rank_generator = (None if mesh is None else torch.Generator(
+            device=self.device).manual_seed(rank_seed(seed, mesh.rank)))
+
+    def draw_kwargs(self) -> Dict[str, torch.Generator]:
+        """The generators a step or validation call takes: the one stream on
+        one process; under a mesh the rank's stream, and the shared one for
+        the codebook noise where the step draws it."""
+        if self.mesh is None:
+            return {"generator": self.generator}
+        out = {"generator": self.rank_generator}
+        if self.shares_codebook_noise:
+            out["shared_generator"] = self.generator
+        return out
+
+    def _write_checkpoint(self, state, artifacts, export=None):
+        """Rank 0 writes `state` and the artifacts (and calls export(path));
+        every rank then waits for it."""
+        path = self.ckpt.dir_for(self.global_step)
+        if self.is_main:
+            path = self.ckpt.save(self.global_step, state, artifacts)
+            if export is not None:
+                export(path)
+        barrier(self.mesh)
+        self._saved_step = self.global_step
+        logger.info("saved checkpoint %s", path)
 
     def _place(self, batch):
         out = {}
@@ -73,7 +122,7 @@ class _Loop:
     def validate(self, val_batches):
         agg: Dict[str, list] = {}
         for batch in val_batches():
-            for k, v in self.val_fn(self._place(batch), generator=self.generator).items():
+            for k, v in self.val_fn(self._place(batch), **self.draw_kwargs()).items():
                 agg.setdefault(k, []).append(float(v))
         means = {f"val_{k}": float(np.mean(v)) for k, v in agg.items()}
         self.tracker.log(means, self.global_step)
@@ -85,26 +134,26 @@ class _Loop:
 class PrunerLoop(_Loop):
     """mods: `PrunerModules` on one device; make_step(mods, cfg, optimizer,
     pretrain=...) and make_val(mods, cfg) build the step and the validation
-    step (`make_pruner_step`, `make_validation_step`, or partials of them)."""
+    step (`make_pruner_step`, `make_validation_step`, or partials of them),
+    each also given `mesh=` when the loop has one."""
+    shares_codebook_noise = True
 
     def __init__(self, mods, cfg, loop_cfg: LoopConfig, optimizer: torch.optim.Optimizer,
                  make_step: Callable, make_val: Callable, run_dir: str,
                  tracker: Optional[Tracker] = None, seed: int = 43,
-                 ema_decay: Optional[float] = None):
+                 ema_decay: Optional[float] = None, mesh: Optional[DataMesh] = None):
         self.mods, self.cfg, self.loop_cfg = mods, cfg, loop_cfg
         self.optimizer = optimizer
         self.device = mods.quantizer.embedding.weight.device
-        self.step_fns = {pretrain: make_step(mods, cfg, optimizer, pretrain=pretrain)
+        on_mesh = {} if mesh is None else {"mesh": mesh}
+        self.step_fns = {pretrain: make_step(mods, cfg, optimizer, pretrain=pretrain, **on_mesh)
                          for pretrain in (True, False)}
-        self.val_fn = make_val(mods, cfg)
-        self.ckpt = CheckpointManager(run_dir, loop_cfg.checkpoints_total_limit)
-        self.tracker = tracker or Tracker(run_dir)
-        self.run_dir = run_dir
+        self.val_fn = make_val(mods, cfg, **on_mesh)
+        self._setup(mesh, run_dir, loop_cfg, tracker, seed)
         self.export_unet_ref = None  # the U-Net, to also export unet/
         self.image_logger: Optional[Callable] = None  # image_logger(loop), after the heatmaps
         self.global_step = 0
         self.skipped_steps = 0
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._saved_step: Optional[int] = None
         # EMA of the trainables (hypernet and codebook): a few MB
         self.ema_decay = ema_decay
@@ -150,11 +199,8 @@ class PrunerLoop(_Loop):
             # tensor eval routing and expert materialisation use
             "quantizer_embeddings.pt": self.mods.quantizer.embedding_gs,
         }
-        path = self.ckpt.save(self.global_step, self.state_dict(), artifacts)
-        export_pruning_checkpoint(path, self.mods.hypernet, self.mods.quantizer,
-                                  unet=self.export_unet_ref)
-        self._saved_step = self.global_step
-        logger.info("saved checkpoint %s", path)
+        self._write_checkpoint(self.state_dict(), artifacts, lambda path: export_pruning_checkpoint(
+            path, self.mods.hypernet, self.mods.quantizer, unet=self.export_unet_ref))
 
     def maybe_resume(self):
         if self.loop_cfg.resume_from is None:
@@ -194,8 +240,7 @@ class PrunerLoop(_Loop):
                 if self.global_step >= lc.max_train_steps:
                     break
                 pretrain = self.global_step < lc.hypernet_pretraining_steps
-                metrics, aux = self.step_fns[pretrain](self._place(batch),
-                                                       generator=self.generator)
+                metrics, aux = self.step_fns[pretrain](self._place(batch), **self.draw_kwargs())
                 self.skipped_steps += int(metrics["skipped"])
                 if self.ema is not None:
                     self._update_ema()
@@ -218,7 +263,8 @@ class PrunerLoop(_Loop):
 
                 if val_batches is not None and self.global_step % lc.validation_steps == 0:
                     self.validate(val_batches)
-                if lc.image_logging_steps and self.global_step % lc.image_logging_steps == 0:
+                if (lc.image_logging_steps and self.global_step % lc.image_logging_steps == 0
+                        and self.is_main):
                     self.log_heatmaps(aux)
                     if self.image_logger is not None:
                         self.image_logger(self)
@@ -242,25 +288,23 @@ class FineTuneLoop(_Loop):
     masters by state-dict name (`student`, f32), the optimizer, the step
     count, the skipped steps and the EMA; `arch_vector.pt` is written beside
     it when the loop has one. A resumed run with `ema_decay` whose checkpoint
-    has no EMA starts the EMA from the restored weights."""
+    has no EMA starts the EMA from the restored weights. With a `mesh` the
+    steps are the mesh's (`make_finetune_step(..., mesh=mesh)`)."""
     batch_keys = ("pixel_values", "input_ids", "latent_mean", "latent_logvar")
 
     def __init__(self, step_fn: Callable, val_fn: Optional[Callable], optimizer,
                  loop_cfg: LoopConfig, run_dir: str, arch_vector=None,
                  tracker: Optional[Tracker] = None, seed: int = 43,
-                 ema_decay: Optional[float] = None):
+                 ema_decay: Optional[float] = None, mesh: Optional[DataMesh] = None):
         self.step_fn, self.val_fn = step_fn, val_fn
         self.optimizer = optimizer
         self.masters = optimizer.masters
         self.loop_cfg = loop_cfg
-        self.ckpt = CheckpointManager(run_dir, loop_cfg.checkpoints_total_limit)
-        self.tracker = tracker or Tracker(run_dir)
-        self.run_dir = run_dir
         self.arch_vector = arch_vector
         self.device = self.masters.masters[0].device
+        self._setup(mesh, run_dir, loop_cfg, tracker, seed)
         self.global_step = 0
         self.skipped_steps = 0
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._saved_step: Optional[int] = None
         self.ema_decay = ema_decay
         self.ema = self._fresh_ema() if ema_decay else None
@@ -279,9 +323,7 @@ class FineTuneLoop(_Loop):
         artifacts = {}
         if self.arch_vector is not None:  # beside every checkpoint, as the original code
             artifacts["arch_vector.pt"] = np.asarray(self.arch_vector)
-        path = self.ckpt.save(self.global_step, self.state_dict(), artifacts)
-        self._saved_step = self.global_step
-        logger.info("saved checkpoint %s", path)
+        self._write_checkpoint(self.state_dict(), artifacts)
 
     def maybe_resume(self):
         if self.loop_cfg.resume_from is None:
@@ -321,7 +363,7 @@ class FineTuneLoop(_Loop):
             for batch in train_batches(epoch):
                 if self.global_step >= lc.max_train_steps:
                     break
-                metrics = self.step_fn(self._place(batch), generator=self.generator)
+                metrics = self.step_fn(self._place(batch), **self.draw_kwargs())
                 self.skipped_steps += int(metrics["skipped"])
                 if self.ema is not None:
                     self._update_ema()

@@ -41,6 +41,25 @@ Stage boundaries: a step called with `mark=fn` calls fn(name) as each stage
 ends, in this order: "encode", "router", "teacher", "student", "losses",
 "backward", "optimizer". Recording a CUDA event there times the stages on
 the device's clock without synchronising.
+
+Data parallel (`mesh`, a `parallel.mesh.DataMesh`): the JAX step under a
+mesh, with torch DDP's semantics. Each rank takes its rows of the global
+batch and the trainables replicated. One `codebook_gumbel` draw is shared by
+every rank (from `shared_generator`, the stream every rank seeds alike);
+every other draw is the rank's own (from `generator`, its rank stream).
+Sinkhorn balances the global batch (`core/sinkhorn.py`). The contrastive
+loss compares each prompt with the global batch: the MPNet embeddings and
+the detached normalised gates are gathered, and this rank's live rows are
+spliced back in at its slot, so a rank differentiates the global similarity
+matrix through its own rows only and the ranks' mean gradient is the
+one-process gradient ÷ world, as under DDP. The resource, std and max terms
+use the local batch. After the backward the gradients, the loss terms and
+the metrics are averaged over the ranks; the skip test reads the mean
+gradients, so every rank skips together; then the per-group clip and the
+update run on every rank alike. `expert_indices` and
+`batch_resource_ratios` cover the global batch on every rank, rank by rank.
+Under `accum_steps` Sinkhorn and the contrastive loss span one micro-batch
+× the mesh.
 """
 from __future__ import annotations
 
@@ -62,6 +81,13 @@ from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
 from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextEncoder
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL
+from diffusion_pruning_tpu_torch.parallel.mesh import (
+    DataMesh,
+    all_gather,
+    axis_index,
+    pmean_,
+    pmean_dict,
+)
 from diffusion_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
 
 LOSS_TERMS = ("loss", "diffusion_loss", "distillation_loss", "block_loss",
@@ -226,11 +252,16 @@ def noisy_latents(sched: DiffusionSchedule, cfg, latents: torch.Tensor,
 
 def complete_draws(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torch.Tensor],
                    draws: Optional[Dict[str, torch.Tensor]] = None,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                   generator: Optional[torch.Generator] = None,
+                   shared_generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """`draws` with every entry the step needs (`fill_draws` with the
-    router's gumbel draws); missing ones come from `generator`."""
+    router's gumbel draws); missing ones come from `generator`, except
+    `codebook_gumbel`, which comes from `shared_generator` when it is given."""
     b = batch["input_ids"].shape[0]
     vq = mods.quantizer.spec.vq_dim
+    if shared_generator is not None and "codebook_gumbel" not in (draws or {}):
+        draws = dict(draws or {}, codebook_gumbel=sample_gumbel((mods.quantizer.n_e, vq),
+                                                                shared_generator))
     rows = 1 if mods.hypernet.single_arch_param else b  # the router's logits
     router = {
         "gumbel": lambda: sample_gumbel((rows, vq), generator),
@@ -246,11 +277,23 @@ def _no_mark(name: str) -> None:
     pass
 
 
+def gather_spliced(mesh: DataMesh, local: torch.Tensor) -> torch.Tensor:
+    """The global batch's rows of `local`, rank by rank: the other ranks' rows
+    gathered without gradient and this rank's live rows spliced back in at
+    its slot, so a loss of the result differentiates through this rank's
+    rows only (torch DDP's all_gather; the JAX package's stop-gradient gather
+    and `dynamic_update_index_in_dim`)."""
+    parts = list(all_gather(mesh, local).chunk(mesh.world_size))
+    parts[axis_index(mesh)] = local
+    return torch.cat(parts)
+
+
 def compute_losses(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torch.Tensor],
                    draws: Dict[str, torch.Tensor], pretrain: bool, p_actual: float,
-                   mark: Callable[[str], None] = _no_mark):
-    """(total loss, aux) for one batch; differentiable in the hypernet and the
-    codebook. `draws` must be complete (`complete_draws`)."""
+                   mark: Callable[[str], None] = _no_mark, mesh: Optional[DataMesh] = None):
+    """(total loss, aux) for one batch (this rank's rows under a `mesh`);
+    differentiable in the hypernet and the codebook. `draws` must be
+    complete (`complete_draws`)."""
     vae, sched, q = mods.vae, mods.schedule, mods.quantizer
     with torch.no_grad():
         latents = encode_latents(vae, batch, draws["vae_eps"])
@@ -263,11 +306,16 @@ def compute_losses(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
     text_emb = batch["mpnet_embeddings"].float()
     logits = mods.hypernet(text_emb)
     z_q, indices, embedding_gs = q.forward_train(logits, draws["codebook_gumbel"],
-                                                 draws["gates_gumbel"])
+                                                 draws["gates_gumbel"], mesh=mesh)
     gates = q.gumbel_sigmoid_trick(logits, draws["gumbel"])
     if mods.hypernet.single_arch_param:  # one arch vector, tiled over the batch
         gates = gates.expand(text_emb.shape[0], -1)
-    c_loss, arch_sim = contrastive_loss(text_emb, q.width_depth_normalize(gates),
+    gates_norm = q.width_depth_normalize(gates)
+    if mesh is None:
+        text_all, arch_all = text_emb, gates_norm
+    else:
+        text_all, arch_all = all_gather(mesh, text_emb), gather_spliced(mesh, gates_norm)
+    c_loss, arch_sim = contrastive_loss(text_all, arch_all,
                                         cfg.prompt_temperature, cfg.arch_temperature)
     arch_used = gates if pretrain else z_q
     mark("router")
@@ -335,11 +383,15 @@ def _micro_batches(batch, draws, accum_steps: int):
 
 
 def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.optim.Optimizer,
-                     pretrain: bool = False, accum_steps: int = 1) -> Callable:
+                     pretrain: bool = False, accum_steps: int = 1,
+                     mesh: Optional[DataMesh] = None) -> Callable:
     """The train step: step(batch, draws=None, generator=None) -> (metrics,
     aux), with an optional `mark` (module docstring). pretrain=True trains on
     the hypernet's own gates, else on the codebook rows z_q; `accum_steps`
-    splits the batch into micro-batches (module docstring).
+    splits the batch into micro-batches (module docstring). With a `mesh`
+    the step is data parallel (module docstring) and also takes
+    `shared_generator`, the stream of the shared codebook noise, which it
+    needs whenever `draws` lack `codebook_gumbel`.
 
     It updates the hypernet and codebook in place through `optimizer` (from
     `make_optimizer`) and writes the codebook snapshot into
@@ -351,12 +403,13 @@ def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.op
     p_actual = mods.resource_model.actual_pruning_target(cfg.pruning_target)
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
-    def step(batch, draws=None, generator=None, mark=_no_mark):
+    def step(batch, draws=None, generator=None, mark=_no_mark, shared_generator=None):
         optimizer.zero_grad(set_to_none=True)
         auxes = []
         for mb, mb_draws in _micro_batches(batch, draws, accum_steps):
-            mb_draws = complete_draws(mods, cfg, mb, mb_draws, generator)
-            loss, aux = compute_losses(mods, cfg, mb, mb_draws, pretrain, p_actual, mark)
+            _check_shared(mesh, mb_draws, shared_generator)
+            mb_draws = complete_draws(mods, cfg, mb, mb_draws, generator, shared_generator)
+            loss, aux = compute_losses(mods, cfg, mb, mb_draws, pretrain, p_actual, mark, mesh)
             loss.backward()
             mark("backward")
             auxes.append(aux)
@@ -367,6 +420,9 @@ def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.op
                 p.grad.div_(accum_steps)
         terms = {k: sum(a[k].detach() for a in auxes) / accum_steps if accum_steps > 1
                  else auxes[0][k].detach() for k in LOSS_TERMS}
+        if mesh is not None:
+            pmean_(mesh, [p.grad for p in params])
+            terms = pmean_dict(mesh, terms)
         gnorm = _global_norm([p.grad for p in params])
         skipped = not bool(torch.isfinite(terms["loss"]) & torch.isfinite(gnorm))
         if not skipped:
@@ -382,24 +438,40 @@ def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.op
             mods.quantizer.embedding_gs.copy_(auxes[-1]["embedding_gs"])
         mark("optimizer")
         metrics = dict(terms, grad_norm=gnorm, skipped=skipped)
-        return metrics, {
+        per_sample = {
             "expert_indices": torch.cat([a["expert_indices"] for a in auxes]),
             "batch_resource_ratios": torch.cat([a["batch_resource_ratios"].detach()
                                                 for a in auxes])}
+        if mesh is not None:  # the global batch on every rank
+            per_sample = {k: all_gather(mesh, v) for k, v in per_sample.items()}
+        return metrics, per_sample
 
     return step
 
 
+def _check_shared(mesh, draws, shared_generator) -> None:
+    """Under a mesh the codebook noise must come from the shared stream."""
+    if (mesh is not None and shared_generator is None
+            and "codebook_gumbel" not in (draws or {})):
+        raise ValueError("a data-parallel step draws the codebook noise from "
+                         "`shared_generator` (the stream every rank shares): pass it, or "
+                         "`codebook_gumbel` in the draws")
+
+
 def make_validation_step(mods: PrunerModules, cfg: PrunerConfig,
-                         pretrain: bool = False) -> Callable:
+                         pretrain: bool = False, mesh: Optional[DataMesh] = None) -> Callable:
     """Loss-only step for the held-out split: val(batch, draws=None,
-    generator=None) -> the loss terms, with no gradient and no update."""
+    generator=None) -> the loss terms, with no gradient and no update. With
+    a `mesh` it takes this rank's rows and `shared_generator` as the step
+    does, and the terms are the ranks' mean."""
     p_actual = mods.resource_model.actual_pruning_target(cfg.pruning_target)
 
     @torch.no_grad()
-    def val(batch, draws=None, generator=None):
-        draws = complete_draws(mods, cfg, batch, draws, generator)
-        _, aux = compute_losses(mods, cfg, batch, draws, pretrain, p_actual)
-        return {k: aux[k] for k in LOSS_TERMS}
+    def val(batch, draws=None, generator=None, shared_generator=None):
+        _check_shared(mesh, draws, shared_generator)
+        draws = complete_draws(mods, cfg, batch, draws, generator, shared_generator)
+        _, aux = compute_losses(mods, cfg, batch, draws, pretrain, p_actual, mesh=mesh)
+        terms = {k: aux[k] for k in LOSS_TERMS}
+        return terms if mesh is None else pmean_dict(mesh, terms)
 
     return val

@@ -54,12 +54,15 @@ def latest_checkpoint_dir(root: str) -> Optional[str]:
 
 
 class CheckpointManager:
-    """Step-indexed checkpoints with rotation and 'latest' resume."""
+    """Step-indexed checkpoints with rotation and 'latest' resume. With
+    `create=False` the manager reads checkpoints (the ranks that do not
+    write) and makes no directory."""
 
-    def __init__(self, root: str, total_limit: Optional[int] = 1):
+    def __init__(self, root: str, total_limit: Optional[int] = 1, create: bool = True):
         self.root = root
         self.total_limit = total_limit
-        os.makedirs(root, exist_ok=True)
+        if create:
+            os.makedirs(root, exist_ok=True)
 
     def list_steps(self) -> List[int]:
         return _steps(self.root)

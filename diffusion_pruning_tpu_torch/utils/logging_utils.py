@@ -20,15 +20,15 @@ import numpy as np
 logger = logging.getLogger("diffusion_pruning_tpu_torch")
 
 
-def init_logging(run_dir: str, level=logging.INFO) -> None:
-    os.makedirs(run_dir, exist_ok=True)
-    logging.basicConfig(
-        level=level,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-        handlers=[logging.StreamHandler(),
-                  logging.FileHandler(os.path.join(run_dir, "train.log"))],
-        force=True,
-    )
+def init_logging(run_dir: Optional[str], level=logging.INFO) -> None:
+    """Log to stderr and to run_dir/train.log (stderr alone for None: a rank
+    that does not write the run's files)."""
+    handlers = [logging.StreamHandler()]
+    if run_dir is not None:
+        os.makedirs(run_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(run_dir, "train.log")))
+    logging.basicConfig(level=level, format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+                        handlers=handlers, force=True)
 
 
 def make_run_dir(logging_dir: str, config_path: str, run_name: Optional[str]) -> str:
@@ -74,6 +74,19 @@ class Tracker:
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullTracker:
+    """The tracker of a rank that does not write: every call does nothing."""
+
+    def log(self, metrics: Dict[str, float], step: int) -> None:
+        pass
+
+    def log_images(self, images: Dict[str, np.ndarray], step: int) -> None:
+        pass
+
+    def close(self):
+        pass
 
 
 def heatmap_image(matrix: np.ndarray, scale: int = 8) -> np.ndarray:

@@ -331,12 +331,22 @@ def test_validation_step_gives_the_step_losses_without_updating(world):
 
 
 def test_data_parallel_branches_raise(world):
+    """ZeRO-1 without a mesh, or without the mesh's `Zero1AdamW`, and a
+    `Zero1AdamW` outside ZeRO-1, raise; the 2-D data × model step (tensor
+    parallelism) raises naming ROADMAP A4."""
+    from diffusion_pruning_tpu_torch.parallel.mesh import data_mesh
     mods = _port(world)
     cfg = ft.FineTuneConfig()
     opt = ft.make_finetune_optimizer(cfg, ft.MasterWeights(mods.student), B)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    with pytest.raises(ValueError, match="zero1 needs a mesh"):
         ft.make_finetune_step(mods, cfg, opt, zero1=True)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    with pytest.raises(ValueError, match="zero1 needs a mesh"):
+        ft.make_finetune_step(mods, cfg, opt, zero1=True, mesh=data_mesh("cpu"))
+    z1 = ft.make_finetune_optimizer(cfg, ft.MasterWeights(mods.student), B,
+                                    zero1_mesh=data_mesh("cpu"))
+    with pytest.raises(ValueError, match="Zero1AdamW"):
+        ft.make_finetune_step(mods, cfg, z1)
+    with pytest.raises(NotImplementedError, match="A4"):
         ft.make_finetune_step_gspmd(mods, cfg, opt, None)
 
 

@@ -156,10 +156,12 @@ def test_finetune_baseline_cli_runs_every_pruning_type(stage1, tmp_path, pruning
 
 
 def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monkeypatch):
-    """No card without `--device cpu`; the Hub upload (A5); `--mesh_shape` >
-    1, `optim.zero1` and `optim.tensor_parallel` > 1 (the data-parallel
-    slice, A3); a missing `--expert_id`. Each raises before the run directory
-    is made. An existing data_dir is trained on by both entry points."""
+    """No card without `--device cpu`; the Hub upload (A5);
+    `optim.tensor_parallel` > 1 (tensor parallelism, A4); a `--mesh_shape`
+    other than the launch's world size (1 here); `optim.zero1` in the
+    baseline entry point, which runs without ZeRO-1; a missing `--expert_id`.
+    Each raises before the run directory is made. An existing data_dir is
+    trained on by both entry points."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ft = ["--pruning_ckpt_dir", stage1, "--expert_id", "0"]
     base = _yaml(FINETUNE_YAML, tmp_path, "f.yaml")
@@ -168,16 +170,19 @@ def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monke
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
         cases = (
-            ("A5", _yaml(FINETUNE_YAML, tmp_path, "h.yaml",
-                         **{"training.hf_hub.push_to_hub": True}), []),
-            ("data-parallel", base, ["--mesh_shape", "2"]),
-            ("data-parallel", _yaml(FINETUNE_YAML, tmp_path, "z.yaml",
-                                    **{"training.optim.zero1": True}), []),
-            ("data-parallel", _yaml(FINETUNE_YAML, tmp_path, "t.yaml",
-                                    **{"training.optim.tensor_parallel": 2}), []),
+            (NotImplementedError, "A5", _yaml(FINETUNE_YAML, tmp_path, "h.yaml",
+                                              **{"training.hf_hub.push_to_hub": True}), []),
+            (ValueError, "--mesh_shape 2 differs from the world size 1", base,
+             ["--mesh_shape", "2"]),
+            (NotImplementedError, "A4", _yaml(FINETUNE_YAML, tmp_path, "t.yaml",
+                                              **{"training.optim.tensor_parallel": 2}), []),
         )
-        for match, config, more in cases:
-            with pytest.raises(NotImplementedError, match=match):
+        if main is finetune_baseline.main:
+            cases += ((ValueError, "without ZeRO-1", _yaml(FINETUNE_YAML, tmp_path, "z.yaml",
+                                                           **{"training.optim.zero1": True}),
+                       []),)
+        for error, match, config, more in cases:
+            with pytest.raises(error, match=match):
                 main(["--base_config_path", config, "--device", "cpu",
                       "--pretrained_model_name_or_path", "", *extra, *more])
     with pytest.raises(ValueError, match="--expert_id"):

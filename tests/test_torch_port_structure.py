@@ -120,7 +120,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "diffusion_pruning_tpu_torch.models.safety",
                    *("diffusion_pruning_tpu_torch.utils." + m for m in (
                        "config", "arg_utils", "logging_utils", "checkpoint", "export",
-                       "model_card"))}
+                       "model_card", "launch")),
+                   "diffusion_pruning_tpu_torch.parallel.mesh",
+                   "diffusion_pruning_tpu_torch.parallel.zero1"}
         print(len(names), bad, sorted(serving_modules - set(names)))
         sys.exit(1 if bad or len(names) < 20 or not serving_modules <= set(names) else 0)
     """)
@@ -158,6 +160,7 @@ def test_port_sources_import_no_transformers_regex_or_jax_anywhere():
 def test_entry_points_raise_without_a_device(monkeypatch):
     from diffusion_pruning_tpu_torch.pipelines import PruningPipeline
     from diffusion_pruning_tpu_torch.utils.device import resolve_device
+    from diffusion_pruning_tpu_torch.utils.launch import init_distributed
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -165,6 +168,15 @@ def test_entry_points_raise_without_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PruningPipeline(unet=None, vae=None, text_encoder=None)
     assert resolve_device("cpu") == torch.device("cpu")
+    # the launch: alone, and as one of two ranks (it raises before any rendezvous)
+    for env in ({}, {"WORLD_SIZE": "2", "RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                     "MASTER_PORT": "1"}):
+        for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_distributed()
 
 
 def test_kernel_wrapper_routes_cpu_tensors_to_plain_version_without_building(monkeypatch):
