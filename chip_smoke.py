@@ -248,10 +248,34 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   rank's peak memory, moment bytes, step seconds (two
                   processes on one card under gloo: not a scaling number) and
                   the phase's seconds on a summary line;
-                  phase 13's, 14's, 15's and 16's written files are removed;
+ 17. evaluation and serving through the entry points — on phase 13's weights
+                  and stage-1 run, phase 14's expert and phase 15's COCO
+                  folder: `cli.filter_dataset` (phase 13's router on the
+                  folder's captions); `cli.serve` in experts and routed modes
+                  in turns (16 of the folder's validation captions a call in
+                  two waves of 8, tiers up to 4, DDIM-10, phase 14's stage-2
+                  masters in its expert's slot): 16 uint8 256×256 images, each
+                  prompt's expert, both attention kernels launched; then
+                  `cli.generate_fid_images` (phase 14's expert with its
+                  masters where the router gives it at least 4 validation
+                  captions, else the busiest expert's slices) and
+                  `cli.generate_images --pruning_type magnitude`, 8 images
+                  each at most, PNDM-25; `cli.resize_and_save_images` on the
+                  validation JPEGs, `cli.save_captions`; `cli.clip_score` on a
+                  seeded random ViT-B/32 CLIP folder (HF names, phase 15's
+                  tokenizer files), `cli.cmmd` on a seeded random
+                  ViT-L/14-336 vision folder, `cli.fid` with a seeded
+                  TorchScript stand-in of the InceptionV3 contract (N×3×H×W in
+                  0-255 → N×2048) against the resized JPEGs; each tower's
+                  card embeddings against the same entry point's `--device
+                  cpu` ones, cosine per row >= TOWER_COS (the metric values of
+                  random weights are printed, not judged); img/s by mode,
+                  generated images/s, each tower's embeddings/s, seconds by
+                  part and peak memory on a summary line;
+                  phase 13's to 17's written files are removed;
 then a `kernels` JSON line (every kernel of the paths, each with its
-launches in the runs of phases 5, 8, 11, 12, 13, 14, 15 and 16) and, last,
-the device JSON line.
+launches in the runs of phases 5, 8, 11, 12, 13, 14, 15, 16 and 17) and,
+last, the device JSON line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
 are captured into a CUDA graph whose replay is timed (`device_ms`); they run
@@ -3130,11 +3154,12 @@ def serve_experts(pipe, mpnet, unet, device):
 
 def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
                   expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts,
-                  dp_counts):
+                  dp_counts, eval_counts):
     """One forward kernel's line: its share of the phase-3 sites (by
     `forward_kernel`) and of the phase-7 training sites, its launches in the
     serving, train-step, expert-serving, prune-CLI (run 2), finetune-CLI
-    (run 2) and dataset-folder (phase 15) runs, its device time over one expert forward's sites (phase 12)
+    (run 2), dataset-folder (phase 15), data-parallel (phase 16), serve-CLI and
+    evaluation (phase 17) runs, its device time over one expert forward's sites (phase 12)
     and, with lse, over the fine-tuned expert's sites at each batch phase 14
     times (null where the expert has no site of this kernel)."""
     from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
@@ -3149,7 +3174,8 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
     by_path = {"serving": serve_counts[key], "train_step": train_launches[key],
                "serving_experts": expert_counts[key], "stage1_cli": cli_counts[key],
                "finetune": ft_counts[key], "data_path": data_counts[key],
-               "dp": dp_counts[key]}
+               "dp": dp_counts[key], "serve_cli": eval_counts["serve_cli"][key],
+               "eval": eval_counts["eval"][key]}
     small = name == "gated_flash_fwd_small"
     return {
         "name": name, "route": "cuda",
@@ -5591,6 +5617,388 @@ def data_parallel(mods, cfg, initial, stage1, device):
     return {"world1": world1, "two_ranks": row, "summary": summary}, counts
 
 
+# ---------------------------------------------------------------- phase 17
+
+EVAL_DIR = os.path.join(STAGE1_DIR, "eval")   # under phase 13's folder; removed with it
+EVAL_PROMPTS = 16             # served prompts a call
+EVAL_SERVE_B = 4              # the serve CLI's largest tier
+EVAL_SERVE_WAVE = 8           # prompts a wave (two submits a call)
+EVAL_SERVE_STEPS = 10         # DDIM steps a served request
+EVAL_SERVE_TURNS = ("experts", "routed", "experts", "routed")
+EVAL_RES = 256                # the images' side (the coco yaml's resolution)
+EVAL_IMAGES = 8               # data.max_generated_samples of each generation CLI
+EVAL_MIN_IMAGES = 4           # phase 14's expert generates when the router gives it this many
+EVAL_GEN_STEPS = 25           # PNDM, the generation CLIs' default
+EVAL_EMBED_IMAGES = 32        # images (and captions) a tower embeds when timed
+FID_DIM = 2048                # the InceptionV3 pool features the stand-in's contract names
+TOWER_COS = 0.999             # per-row cosine of the card's embeddings against the CPU's
+
+
+def write_metric_towers(root, weights, device):
+    """Seeded random metric towers in Hugging Face names: a ViT-B/32 CLIP
+    folder (text and vision, config.json, projection and logit scale, phase
+    15's SD-2.1 tokenizer files) for CLIP-score, a ViT-L/14-336 vision folder
+    for CMMD, and a TorchScript stand-in of the InceptionV3 contract (N×3×H×W
+    in 0-255 → N×2048) for FID. Returns their paths."""
+    import shutil
+    import torch
+    import torch.nn.functional as F
+    from diffusion_pruning_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+    from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+    from safetensors.torch import save_file
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    clip_dir, cmmd_dir = os.path.join(root, "clip-vit-b32"), os.path.join(root, "clip-vit-l14-336")
+    tcfg = CLIPTextConfig(vocab_size=CLIP_VOCAB, hidden_size=512, num_layers=12, num_heads=8,
+                          intermediate_size=2048, hidden_act="quick_gelu")
+    vcfg = CLIPVisionConfig.vit_b32()
+    sd = {}
+    for cls, cfg in ((CLIPTextEncoder, tcfg), (CLIPVisionEncoder, vcfg)):
+        with torch.device(device):
+            module = cls(cfg)
+        random_init_(module, gen)
+        sd.update({k: v.float().cpu() for k, v in module.state_dict().items()})
+        del module
+    sd["text_projection.weight"] = (torch.randn((512, 512), generator=gen, device=device)
+                                    / 512 ** 0.5).cpu()
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    os.makedirs(clip_dir, exist_ok=True)
+    save_file({k: v.contiguous() for k, v in sd.items()}, os.path.join(clip_dir, "model.safetensors"))
+    for name in ("vocab.json", "merges.txt", "special_tokens_map.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(weights, "tokenizer", name), clip_dir)
+    with open(os.path.join(clip_dir, "config.json"), "w") as f:
+        json.dump({"model_type": "clip", "projection_dim": 512,
+                   "text_config": {"vocab_size": CLIP_VOCAB, "hidden_size": 512,
+                                   "num_hidden_layers": 12, "num_attention_heads": 8,
+                                   "intermediate_size": 2048, "max_position_embeddings": 77,
+                                   "hidden_act": "quick_gelu"},
+                   "vision_config": {"hidden_size": 768, "num_hidden_layers": 12,
+                                     "num_attention_heads": 12, "intermediate_size": 3072,
+                                     "image_size": 224, "patch_size": 32,
+                                     "hidden_act": "quick_gelu"}}, f)
+    with torch.device(device):
+        module = CLIPVisionEncoder(CLIPVisionConfig.vit_l14_336())
+    random_init_(module, gen)
+    os.makedirs(cmmd_dir, exist_ok=True)
+    save_file({k: v.bfloat16().contiguous() for k, v in module.state_dict().items()},
+              os.path.join(cmmd_dir, "model.safetensors"))
+    del module
+
+    class InceptionStandIn(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.convs = torch.nn.ModuleList([
+                torch.nn.Conv2d(3, 64, 3, stride=2), torch.nn.Conv2d(64, 192, 3, stride=2),
+                torch.nn.Conv2d(192, 768, 3, stride=2), torch.nn.Conv2d(768, FID_DIM, 3,
+                                                                       stride=2)])
+
+        def forward(self, x):
+            x = F.interpolate(x / 127.5 - 1.0, size=(299, 299), mode="bilinear",
+                              align_corners=False)
+            for conv in self.convs:
+                x = torch.relu(conv(x))
+            return x.mean(dim=(2, 3))
+
+    standin = InceptionStandIn()
+    cpu_gen = torch.Generator().manual_seed(SEED + 17)
+    with torch.no_grad():
+        for p in standin.parameters():
+            fan_in = p[0].numel() if p.dim() > 1 else 1
+            p.copy_(torch.randn(p.shape, generator=cpu_gen) * (2.0 / fan_in) ** 0.5
+                    if p.dim() > 1 else torch.zeros(p.shape))
+    inception = os.path.join(root, "inception_standin.pt")
+    torch.jit.trace(standin.eval(), torch.zeros(1, 3, 256, 256)).save(inception)
+    torch.cuda.empty_cache()
+    return {"clip": clip_dir, "cmmd": cmmd_dir, "inception": inception}
+
+
+def row_cosines(a, b):
+    import numpy as np
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def serve_cli_turns(config, weights, run_dir, ft_slot, expert14, prompts_file):
+    """`cli.serve` in experts and routed modes in turns (EVAL_SERVE_TURNS):
+    16 prompts a call in two waves of 8, tiers up to 4, DDIM-10, phase 14's
+    stage-2 masters in that expert's slot. Each call's images, routes and
+    launches are checked; returns (readings, launches of every call)."""
+    import io
+    import numpy as np
+    from diffusion_pruning_tpu_torch.cli import serve
+
+    total = collections.Counter()
+    calls = []
+    for turn, mode in enumerate(EVAL_SERVE_TURNS):
+        out = os.path.join(EVAL_DIR, f"served_{turn}_{mode}")
+        argv = ["--base_config_path", config, "--pretrained_model_name_or_path", weights,
+                "--prompt_encoder_model_name_or_path", os.path.join(weights, "mpnet"),
+                "--pruning_ckpt_dir", run_dir, "--finetuning_ckpt_dirs", ft_slot,
+                "--prompts_file", prompts_file, "--batch_size", str(EVAL_SERVE_B),
+                "--arrival_batch", str(EVAL_SERVE_WAVE),
+                "--num_inference_steps", str(EVAL_SERVE_STEPS), "--mode", mode,
+                "--out_dir", out, "--seed", str(SEED)]
+        reset_launch_counts()
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr), contextlib.redirect_stderr(err):
+            got = serve.main(argv)
+        seconds = time.perf_counter() - t0
+        sys.stderr.write(err.getvalue())
+        counts = launch_counts()
+        wrapper_counts(counts)  # the forward kernels' launches add up to their wrappers'
+        add_counts(total, counts)
+        files = sorted(os.listdir(out))
+        arrays = [np.load(os.path.join(out, f)) for f in files]
+        experts = sorted(set(got["experts"].values()))
+        slot_line = f"expert {expert14}: fine-tuned weights from"
+        if (got["images"] != EVAL_PROMPTS
+                or files != [f"img_{i:05d}.npy" for i in range(EVAL_PROMPTS)]
+                or any(a.dtype != np.uint8 or a.shape != (EVAL_RES, EVAL_RES, 3) for a in arrays)
+                or sorted(got["experts"]) != list(range(EVAL_PROMPTS))
+                or not all(0 <= e < CODEBOOK_SHAPE[0] for e in experts)
+                or (mode == "experts") != (slot_line in err.getvalue())
+                or (mode == "experts") != (len(got["macs_ratios"]) == CODEBOOK_SHAPE[0])
+                or not (counts["kernel:gated_flash_fwd_wgmma"] > 0
+                        and counts["kernel:gated_flash_fwd_small"] > 0)):
+            fail(f"cli.serve --mode {mode}: {got['images']} images, files {files[:3]}..., "
+                 f"experts {got['experts']}, MACs {got['macs_ratios']}, launches {counts}")
+        calls.append({"mode": mode, "img_per_sec": got["img_per_sec"],
+                      "serve_seconds": got["seconds"], "warmup_seconds": got["warmup_seconds"],
+                      "call_seconds": seconds, "experts_used": experts,
+                      "prompts_by_expert": np.bincount(list(got["experts"].values()),
+                                                       minlength=CODEBOOK_SHAPE[0]).tolist(),
+                      "macs_ratios": got["macs_ratios"],
+                      "launches": {k: v for k, v in counts.items() if v}})
+        emit({"phase": "serve_cli", "turn": turn, **calls[-1]})
+    return calls, total
+
+
+def timed_writer():
+    """Wraps the generation CLIs' image writer to time its generation apart
+    from the models' build: returns (restore, [(images, seconds)])."""
+    import torch
+    from diffusion_pruning_tpu_torch.cli import generate_fid_images as gfi
+    real, record = gfi.write_images, []
+
+    def write_images(pipe, tokenizer, captions, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        paths = real(pipe, tokenizer, captions, *a, **k)
+        torch.cuda.synchronize()
+        record.append((len(paths), time.perf_counter() - t))
+        return paths
+
+    gfi.write_images = write_images
+    return (lambda: setattr(gfi, "write_images", real)), record
+
+
+def check_generated(folder, n):
+    import numpy as np
+    files = sorted(os.listdir(folder))
+    arrays = [np.load(os.path.join(folder, f)) for f in files]
+    if (files != [f"{i:06d}.npy" for i in range(n)]
+            or any(a.dtype != np.uint8 or a.shape != (EVAL_RES, EVAL_RES, 3) for a in arrays)):
+        fail(f"{folder}: {files} ({[a.shape for a in arrays[:2]]})")
+
+
+def tower_rates(towers, fid_model, images, captions, device):
+    """Embeddings a second of each tower on the card at its CLI's batch
+    (one warm call, then timed): CLIP ViT-B/32 images and text, ViT-L/14-336
+    images (CMMD's 16), the FID stand-in (FID's 32)."""
+    import numpy as np
+    import torch
+    from diffusion_pruning_tpu_torch.cli.cmmd import EMBED_BATCH
+    from diffusion_pruning_tpu_torch.cli.fid import FID_BATCH
+
+    def rate(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return n / (time.perf_counter() - t)
+
+    bs = EVAL_EMBED_IMAGES  # cli.clip_score's default batch
+    x = torch.from_numpy(np.stack(images[:FID_BATCH])).to(device).permute(0, 3, 1, 2).float()
+    clip, vit_l = towers
+    with torch.inference_mode():
+        return {"clip_vit_b32_image": rate(lambda: clip.embed_images(images[:bs]), bs),
+                "clip_vit_b32_text": rate(lambda: clip.embed_texts(captions[:bs]), bs),
+                "clip_vit_l14_336_image": rate(
+                    lambda: vit_l.embed_images(images[:EMBED_BATCH], unit=True), EMBED_BATCH),
+                "fid_standin": rate(lambda: fid_model(x).float().cpu(), len(x))}
+
+
+def eval_and_serve(stage1, device):
+    """Phase 17: evaluation and serving through the entry points at SD-2.1
+    width on phase 13's weights and stage-1 run, phase 14's expert and phase
+    15's COCO folder (module docstring). Returns the summary and the
+    launches by path ("serve_cli", "eval")."""
+    import numpy as np
+    import torch
+    from diffusion_pruning_tpu_torch.cli import (clip_score, cmmd, fid, filter_dataset,
+                                                 generate_fid_images, generate_images,
+                                                 resize_and_save_images, save_captions)
+    from diffusion_pruning_tpu_torch.data import get_dataset
+    from diffusion_pruning_tpu_torch.metrics.towers import image_files, load_clip_towers, load_images
+    from diffusion_pruning_tpu_torch.models.clip_vision import CLIPVisionConfig
+
+    parts = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated() / 2 ** 30  # earlier phases' live tensors
+    weights, run_dir = stage1["weights"], stage1["run_dir"]
+    expert14 = pick_expert(run_dir)[0]
+    ft_run = os.path.join(FT_DIR, "runs", "sd21_finetune", f"cli-expert{expert14}")
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    config = stage1_yaml(os.path.join(EVAL_DIR, "sd21_eval.yaml"), **{
+        "data.data_dir": DATA_DIR, "data.max_generated_samples": EVAL_IMAGES,
+        "model.quantizer.quantizer_base": STAGE1_QUANTIZER_BASE,
+        "training.num_inference_steps": EVAL_GEN_STEPS,
+        "training.logging.logging_dir": EVAL_DIR})
+    common = ["--base_config_path", config, "--pretrained_model_name_or_path", weights,
+              "--prompt_encoder_model_name_or_path", os.path.join(weights, "mpnet"),
+              "--seed", str(SEED)]
+    val_caps = get_dataset(type("DataCfg", (), {"data_dir": DATA_DIR, "dataset_name": "coco",
+                                                "year": 2014}))["validation"]["caption"]
+
+    # phase 13's router on the folder's captions (the assignment generation reads)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        routed = filter_dataset.main([*common, "--pruning_ckpt_dir", run_dir])
+    parts["routing"] = time.perf_counter() - t0
+    val_counts = np.bincount(routed["validation"], minlength=CODEBOOK_SHAPE[0])
+
+    # serving
+    prompts_file = os.path.join(EVAL_DIR, "prompts.txt")
+    with open(prompts_file, "w") as f:
+        f.write("\n".join(val_caps[:EVAL_PROMPTS]) + "\n")
+    t0 = time.perf_counter()
+    serve_calls, serve_counts = serve_cli_turns(
+        config, weights, run_dir, "," * expert14 + ft_run, expert14, prompts_file)
+    parts["serve_cli"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # generation: phase 14's fine-tuned expert where the router gives it
+    # captions enough, else the busiest expert's slices; the magnitude baseline
+    gen_expert = (expert14 if val_counts[expert14] >= EVAL_MIN_IMAGES
+                  else int(val_counts.argmax()))
+    n_expert = int(min(EVAL_IMAGES, val_counts[gen_expert]))
+    restore, written = timed_writer()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            expert_dir = generate_fid_images.main([
+                *common, "--pruning_ckpt_dir", run_dir, "--expert_id", str(gen_expert),
+                *(["--finetuning_ckpt_dir", ft_run] if gen_expert == expert14 else [])])
+            parts["generate_fid_images"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            base_dir = generate_images.main([*common, "--pruning_type", "magnitude"])
+            parts["generate_images_magnitude"] = time.perf_counter() - t0
+    finally:
+        restore()
+    eval_counts = launch_counts()
+    wrapper_counts(eval_counts)
+    check_generated(expert_dir, n_expert)
+    check_generated(base_dir, EVAL_IMAGES)
+    if not (eval_counts["kernel:gated_flash_fwd_wgmma"] > 0
+            and eval_counts["kernel:gated_flash_fwd_small"] > 0):
+        fail(f"the generation entry points launched {dict(eval_counts)}")
+    gen_rate = {"expert": written[0][0] / written[0][1], "magnitude": written[1][0] / written[1][1]}
+    torch.cuda.empty_cache()
+
+    # scoring
+    t0 = time.perf_counter()
+    towers = write_metric_towers(os.path.join(EVAL_DIR, "towers"), weights, device)
+    parts["write_towers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_dir = os.path.join(EVAL_DIR, "ref_npy")
+    with contextlib.redirect_stdout(sys.stderr):
+        n_ref = resize_and_save_images.main([os.path.join(DATA_DIR, "images", "val2014"),
+                                             ref_dir, "--resolution", "256"])
+        caps = {}
+        for name, folder, argv in (
+                ("expert", expert_dir, ["--pruning_ckpt_dir", run_dir, "--expert_id",
+                                        str(gen_expert)]),
+                ("magnitude", base_dir, [])):
+            caps[name] = os.path.join(EVAL_DIR, f"captions_{name}.json")
+            save_captions.main(["--base_config_path", config, *argv, "--out", caps[name]])
+    parts["reference_and_captions"] = time.perf_counter() - t0
+    scores, cpu_cos = {}, {}
+    with contextlib.redirect_stdout(sys.stderr):
+        for name, folder in (("expert", expert_dir), ("magnitude", base_dir)):
+            t0 = time.perf_counter()
+            card = clip_score.main([folder, "--captions", caps[name], "--clip_model",
+                                    towers["clip"]])
+            parts[f"clip_score_{name}"] = time.perf_counter() - t0
+            scores[f"clip_score_{name}"] = card["score"]
+            if name == "expert":
+                t0 = time.perf_counter()
+                cpu = clip_score.main([folder, "--captions", caps[name], "--clip_model",
+                                       towers["clip"], "--device", "cpu"])
+                parts["clip_score_cpu"] = time.perf_counter() - t0
+                cpu_cos["clip_vit_b32_image"] = row_cosines(card["image_features"],
+                                                            cpu["image_features"]).min()
+                cpu_cos["clip_vit_b32_text"] = row_cosines(card["text_features"],
+                                                           cpu["text_features"]).min()
+        t0 = time.perf_counter()
+        ref_emb = os.path.join(EVAL_DIR, "cmmd_ref.npy")
+        card = cmmd.main([expert_dir, ref_dir, "--clip_model", towers["cmmd"],
+                          "--save_ref_embeddings", ref_emb])
+        parts["cmmd"] = time.perf_counter() - t0
+        scores["cmmd_expert"] = card["cmmd"]
+        t0 = time.perf_counter()
+        cpu = cmmd.main([expert_dir, ref_emb, "--clip_model", towers["cmmd"], "--device", "cpu"])
+        parts["cmmd_cpu"] = time.perf_counter() - t0
+        cpu_cos["clip_vit_l14_336_image"] = row_cosines(card["gen"], cpu["gen"]).min()
+        t0 = time.perf_counter()
+        card = fid.main([expert_dir, "--ref_stats", ref_dir, "--inception", towers["inception"]])
+        parts["fid"] = time.perf_counter() - t0
+        scores["fid_expert"] = card["fid"]
+        cpu_feats = fid.inception_features(expert_dir, towers["inception"], torch.device("cpu"))
+        cpu_cos["fid_standin"] = row_cosines(card["features"], cpu_feats).min()
+    cpu_cos = {k: float(v) for k, v in cpu_cos.items()}
+    if not all(v >= TOWER_COS for v in cpu_cos.values()) or not all(
+            math.isfinite(v) for v in scores.values()):
+        fail(f"metric towers on the card against the CPU (min cosine a row, limit {TOWER_COS}): "
+             f"{cpu_cos}; scores {scores}")
+
+    # each tower's pace on the card
+    t0 = time.perf_counter()
+    ref_images = load_images(ref_dir, image_files(ref_dir)[:EVAL_EMBED_IMAGES])
+    vit_b = load_clip_towers(towers["clip"], device)
+    vit_l = load_clip_towers(towers["cmmd"], device, text=False,
+                             vision_cfg=CLIPVisionConfig.vit_l14_336())
+    fid_model = torch.jit.load(towers["inception"], map_location=device).eval()
+    rates = tower_rates((vit_b, vit_l), fid_model, ref_images, list(val_caps), device)
+    del vit_b, vit_l, fid_model
+    parts["tower_rates"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_mode = {m: [c["img_per_sec"] for c in serve_calls if c["mode"] == m]
+               for m in dict.fromkeys(EVAL_SERVE_TURNS)}
+    summary = {"phase": "eval_serve_summary", "resolution": EVAL_RES, "prompts": EVAL_PROMPTS,
+               "serve_steps": EVAL_SERVE_STEPS, "serve_batch_size": EVAL_SERVE_B,
+               "serve_img_per_sec_by_mode": by_mode,
+               "serve_warmup_seconds": [c["warmup_seconds"] for c in serve_calls
+                                        if c["mode"] == "experts"],
+               "finetuned_slot": expert14, "generation_expert": gen_expert,
+               "generation_expert_is_finetuned": gen_expert == expert14,
+               "validation_captions_by_expert": val_counts.tolist(),
+               "generation_images": {"expert": n_expert, "magnitude": EVAL_IMAGES},
+               "generation_steps": EVAL_GEN_STEPS,
+               "generation_images_per_sec": gen_rate, "embeddings_per_sec": rates,
+               "reference_images": n_ref,
+               "metrics_of_random_weights": scores, "cpu_min_row_cosine": cpu_cos,
+               "cpu_cosine_limit": TOWER_COS, "seconds_by_part": parts,
+               "memory_at_start_gib": at_start, "peak_memory_gib": peak}
+    emit(summary)
+    counts = {"serve_cli": dict(serve_counts), "eval": dict(eval_counts)}
+    return summary, counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5738,6 +6146,12 @@ def main() -> None:
         t0 = time.perf_counter()
         dp, dp_counts = data_parallel(mods, cfg, initial, stage1, device)
         log(f"phase 16 took {time.perf_counter() - t0:.1f}s")
+
+        # 17. evaluation and serving through the entry points: cli.serve in
+        # turns, the generation CLIs, the metric CLIs on random towers
+        t0 = time.perf_counter()
+        evaluation, eval_counts = eval_and_serve(stage1, device)
+        log(f"phase 17 took {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(STAGE1_DIR, ignore_errors=True)
 
@@ -5750,7 +6164,7 @@ def main() -> None:
     forward_entries = [
         forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
                       expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts,
-                      dp_counts)
+                      dp_counts, eval_counts)
         for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd_small")]
     kernels = [*forward_entries,
                *backward_entries(train_rows, train_check, train_launches, cli_counts, ft_counts,
@@ -5821,7 +6235,9 @@ def main() -> None:
         f"the card, gloo) stage-1 grads min cosine "
         f"{min(st['min_cos'] for st in dp['two_ranks']['steps']):.6f}, ZeRO-1 moments a rank "
         f"{dp['summary']['moment_bytes_by_rank_world2']} bytes against "
-        f"{dp['summary']['moment_bytes_world1']} at world 1")
+        f"{dp['summary']['moment_bytes_world1']} at world 1; cli.serve img/s by mode "
+        f"{evaluation['serve_img_per_sec_by_mode']}, generation images/s "
+        f"{evaluation['generation_images_per_sec']}")
     # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
 """Frozen text encoders as plain `nn.Module`s: CLIP text (the conditioning of
-SD-2.1) and MPNet (the router's input, mean-pooled).
+SD-2.1, and with `clip_pooled_text_features` the text side of CLIP-score)
+and MPNet (the router's input, mean-pooled).
 
 Attribute names follow the Hugging Face state dicts (`text_model.encoder.
 layers.0.self_attn.q_proj`, `encoder.layer.0.attention.attn.q`, ...), so the
@@ -9,6 +10,7 @@ real checkpoints load without a key map. Attention is plain torch ops
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,6 +31,9 @@ class CLIPTextConfig:
     intermediate_size: int = 4096
     max_positions: int = 77
     layer_norm_eps: float = 1e-5
+    # SD-2.1's OpenCLIP text tower uses exact GELU; OpenAI's CLIP checkpoints
+    # (the CLIP-score towers) name quick_gelu, x·σ(1.702x), in their config
+    hidden_act: str = "gelu"
 
     @classmethod
     def sd21(cls) -> "CLIPTextConfig":
@@ -88,8 +93,8 @@ class _CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextEncoder(nn.Module):
-    """Causal pre-LN transformer with learned positions and exact GELU;
-    returns the final-LN hidden states (B, S, D)."""
+    """Causal pre-LN transformer with learned positions and exact GELU (or
+    the config's `hidden_act`); returns the final-LN hidden states (B, S, D)."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -109,8 +114,32 @@ class CLIPTextEncoder(nn.Module):
                            at.v_proj(x).view(b, s, nh, hd), causal)
             h = h + at.out_proj(o.reshape(b, s, -1))
             x = layer.layer_norm2(h)
-            h = h + layer.mlp.fc2(F.gelu(layer.mlp.fc1(x)))
+            h = h + layer.mlp.fc2(self._act(layer.mlp.fc1(x)))
         return tm.final_layer_norm(h)
+
+    def _act(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.hidden_act == "quick_gelu":
+            return x * torch.sigmoid(1.702 * x)
+        return F.gelu(x)
+
+
+def clip_pooled_text_features(hidden: torch.Tensor, input_ids: torch.Tensor,
+                              projection: Optional[torch.Tensor] = None,
+                              eos_token_id: Optional[int] = None) -> torch.Tensor:
+    """CLIP's pooled text feature for CLIP-score: the final-LN hidden state
+    (B, S, D) at the EOS position (the argmax of the ids, where EOS is the
+    largest id as in OpenAI's tokenizers, else the first `eos_token_id`),
+    then `projection` (D, proj_dim) when given (the transpose of HF's
+    `text_projection.weight`)."""
+    ids = input_ids.to(hidden.device)
+    if eos_token_id is None:
+        idx = torch.argmax(ids, dim=-1)
+    else:
+        idx = torch.argmax((ids == eos_token_id).to(torch.int32), dim=-1)
+    pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+    if projection is not None:
+        pooled = pooled @ projection.to(pooled.dtype)
+    return pooled
 
 
 # ---------------------------------------------------------------- MPNet

@@ -41,8 +41,8 @@ from diffusion_pruning_tpu_torch.models.unet.pruned import (
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.pipelines.pruning_pipeline import PruningPipeline
 
-_NOT_PORTED = ("is not ported: the port's counterpart of the JAX package's AOT programs "
-               "is captured CUDA graphs (ROADMAP A1)")
+NOT_PORTED = ("is not ported: the port's counterpart of the JAX package's AOT programs "
+              "is captured CUDA graphs (ROADMAP A1b)")
 
 # (tier size, padded rows) -> the tier's initial latents
 LatentSource = Callable[[int, np.ndarray], torch.Tensor]
@@ -139,9 +139,9 @@ class ExpertServer:
         weights. `num_inference_steps` does not change what is run. Returns
         {"loaded": 0, "built": n}, n the (U-Net, tier) pairs run."""
         if aot_dir is not None:
-            raise NotImplementedError(f"warmup(aot_dir=...) {_NOT_PORTED}")
+            raise NotImplementedError(f"warmup(aot_dir=...) {NOT_PORTED}")
         if parallel > 1:
-            raise NotImplementedError(f"warmup(parallel > 1) {_NOT_PORTED}")
+            raise NotImplementedError(f"warmup(parallel > 1) {NOT_PORTED}")
         base = self.base_pipeline
         cfg = base.unet.cfg
         device = base.device
@@ -306,7 +306,8 @@ class ExpertServer:
 class ServingQueue:
     """Continuous batching across requests: `submit()` encodes, routes and
     enqueues prompts; `flush()` drains every expert's pending set at the tier
-    shapes, so requests of different submits share batches."""
+    shapes, so requests of different submits share batches. `routes` maps
+    every submitted request id to its expert."""
     server: ExpertServer
     num_inference_steps: int = 25
     guidance_scale: float = 7.5
@@ -318,6 +319,7 @@ class ServingQueue:
         # per submit: (prompt_embeds, neg_embeds, initial latents or None), on
         # the device until flushed
         self._embeds: Dict[int, tuple] = {}
+        self.routes: Dict[int, int] = {}         # request id -> its expert
         self._next_id = 0
         self._next_batch = 0
         self.last_slots_used = 0
@@ -343,6 +345,7 @@ class ServingQueue:
             ids = list(range(self._next_id, self._next_id + n))
             self._next_id += n
             self._pending.extend((rid, bi, r, int(experts[r])) for r, rid in enumerate(ids))
+            self.routes.update((rid, int(experts[r])) for r, rid in enumerate(ids))
         return ids
 
     def pending_per_expert(self) -> Dict[int, int]:

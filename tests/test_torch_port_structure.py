@@ -110,6 +110,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "diffusion_pruning_tpu_torch.cli.finetune_baseline",
                    "diffusion_pruning_tpu_torch.cli.filter_dataset",
                    "diffusion_pruning_tpu_torch.cli.cache_latents",
+                   *("diffusion_pruning_tpu_torch.cli." + m for m in (
+                       "clip_features", "clip_score", "cmmd", "fid", "generate_fid_images",
+                       "generate_images", "save_captions", "sample_coco_30k",
+                       "resize_and_save_images", "serve", "calculate_pruning_ratio",
+                       "depth_analysis")),
+                   "diffusion_pruning_tpu_torch.metrics",
+                   "diffusion_pruning_tpu_torch.metrics.metrics",
+                   "diffusion_pruning_tpu_torch.metrics.towers",
                    *("diffusion_pruning_tpu_torch.data." + m for m in (
                        "datasets", "dummy_tokenizer", "latent_cache", "loader", "tokenizers")),
                    "diffusion_pruning_tpu_torch.training.loop",
