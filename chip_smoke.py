@@ -272,10 +272,43 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   random weights are printed, not judged); img/s by mode,
                   generated images/s, each tower's embeddings/s, seconds by
                   part and peak memory on a summary line;
-                  phase 13's to 17's written files are removed;
+ 18. tensor parallel — ranks spawned with torchrun's variables
+                  (`chip_smoke.py --tp-rank`), sharing the card under gloo:
+                  (1) two ranks on a 1 × 2 mesh, each building phase 4's
+                  U-Net and phase 5's pipeline from the seed: the U-Net
+                  sharded (`parallel.tp.shard_unet`: heads 3/2, 5/5, 10/10)
+                  on phase 4's inputs (256px, bf16, B_eff 16, the random
+                  arch) against the one-process forward on the same weights
+                  in f32 with plain attention (<= UNET_REL_L2; the
+                  one-process bf16 forward's own reading and the two bf16
+                  forwards' difference beside it), plain and under
+                  `fused_norm_conv`, with
+                  32 attention launches and 70 reductions a forward (45
+                  norm_conv3x3 and 16 norm_linear under the flag), and two
+                  planted faults, emulated in the sharded forward (each
+                  row-parallel bias, drawn from the seed, added on both
+                  ranks; rank 1's partial dropped), above the limit; the sharded and one-process
+                  forwards timed in turns, the host seconds inside the
+                  reductions; (2) on the same ranks `shard_pipeline` and
+                  `ExpertServer.from_codebook` on it (phase 12's codebook,
+                  bf16), 8 prompts steered to 4 experts, DDIM-4, against
+                  the one-process pipeline and server rank 0 runs first:
+                  the same expert indices, each image <= SERVED_REL_L2;
+                  (3) four ranks on a 2 × 2 mesh: `cli.finetune` with
+                  `optim.tensor_parallel: 2` on phase 14's expert, a
+                  global B = 16, 2 steps, each step's launches those of
+                  `backward_plan` at the rank's local heads and rows, the
+                  checkpoint gathered whole; against the one-process run of
+                  the same config and draws in this process: each step's
+                  loss within TP_LOSS_REL, each leaf's update at cosine >=
+                  TP_UPDATE_COS, and the planted fault (the one-process run
+                  with model rank 1's partials dropped) beyond one of them;
+                  times, peak memory and reduction seconds per rank on
+                  summary lines;
+                  phase 13's to 18's written files are removed;
 then a `kernels` JSON line (every kernel of the paths, each with its
-launches in the runs of phases 5, 8, 11, 12, 13, 14, 15, 16 and 17) and,
-last, the device JSON line.
+launches in the runs of phases 5, 8, 11, 12, 13, 14, 15, 16, 17 and 18)
+and, last, the device JSON line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
 are captured into a CUDA graph whose replay is timed (`device_ms`); they run
@@ -3154,12 +3187,12 @@ def serve_experts(pipe, mpnet, unet, device):
 
 def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
                   expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts,
-                  dp_counts, eval_counts):
+                  dp_counts, eval_counts, tp_counts):
     """One forward kernel's line: its share of the phase-3 sites (by
     `forward_kernel`) and of the phase-7 training sites, its launches in the
     serving, train-step, expert-serving, prune-CLI (run 2), finetune-CLI
     (run 2), dataset-folder (phase 15), data-parallel (phase 16), serve-CLI and
-    evaluation (phase 17) runs, its device time over one expert forward's sites (phase 12)
+    evaluation (phase 17) and tensor-parallel (phase 18, every rank) runs, its device time over one expert forward's sites (phase 12)
     and, with lse, over the fine-tuned expert's sites at each batch phase 14
     times (null where the expert has no site of this kernel)."""
     from diffusion_pruning_tpu_torch.ops.flash_attention import forward_kernel
@@ -3175,7 +3208,7 @@ def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, trai
                "serving_experts": expert_counts[key], "stage1_cli": cli_counts[key],
                "finetune": ft_counts[key], "data_path": data_counts[key],
                "dp": dp_counts[key], "serve_cli": eval_counts["serve_cli"][key],
-               "eval": eval_counts["eval"][key]}
+               "eval": eval_counts["eval"][key], "tp": tp_counts[key]}
     small = name == "gated_flash_fwd_small"
     return {
         "name": name, "route": "cuda",
@@ -3241,11 +3274,11 @@ def fused_kernel_entry(check, name, source, replaces, also, library_call, launch
 
 
 def backward_entries(train_rows, train_check, train_launches, cli_counts, ft_counts, ft_totals,
-                     data_counts, dp_counts):
+                     data_counts, dp_counts, tp_counts):
     """The backward kernels' lines: each kernel's times summed over the
     sites of one student pass where `backward_plan` runs it, its launches in
-    the train-step run, the prune CLI's run 2, the finetune CLI's run 2 and
-    the dataset-folder phase,
+    the train-step run, the prune CLI's run 2, the finetune CLI's run 2, the
+    dataset-folder, data-parallel and tensor-parallel phases,
     its worst readings on its route's phase-7 cases, and its times over the
     fine-tuned expert's sites at each batch phase 14 times (no gate; null
     where `backward_plan` runs it at none of them)."""
@@ -3268,12 +3301,12 @@ def backward_entries(train_rows, train_check, train_launches, cli_counts, ft_cou
         entry = {"name": name, "route": "cuda", "source": src, "replaces": f"{fa_py}:{line}",
                  "also_replaces": [f"{fa_py}:{n}" for n in also], "role": role,
                  "launches": (train_launches[name] + cli_counts[name] + ft_counts[name]
-                              + data_counts[name] + dp_counts[name]),
+                              + data_counts[name] + dp_counts[name] + tp_counts[name]),
                  "launches_by_path": {"train_step": train_launches[name],
                                       "stage1_cli": cli_counts[name],
                                       "finetune": ft_counts[name],
                                       "data_path": data_counts[name],
-                                      "dp": dp_counts[name]},
+                                      "dp": dp_counts[name], "tp": tp_counts[name]},
                  "finetune_path": {**{f"b{b}": finetune_reading(t, kind)
                                       for b, t in sorted(ft_totals.items())},
                                    "shapes": "no gate, at the kept heads of the fine-tuned "
@@ -4021,26 +4054,37 @@ def log_seconds(path):
     return out
 
 
-def run_finetune_in_process(argv, per_step):
+def run_finetune_in_process(argv, per_step, gspmd=False, tamper=None, save=True,
+                            keep_masters=False):
     """The finetune entry point's `main(argv)` in this process, timed by part
     (the factory from the call to the loop's start, each step, the
     checkpoint saves, the resume), each step's launches checked against
     `per_step`. Returns the loop, the parts, the steps, the state right after
-    the resume, the modules, the teacher's state before any step (on the
-    host), the counts and the peak memory."""
+    the resume, the modules, the teacher's state (and, `keep_masters`, the
+    masters) before any step (on the host), the counts and the peak memory.
+    `gspmd`: the entry point builds the 2-D step (`optim.tensor_parallel`);
+    `tamper(mods, optimizer)` runs before the first step; `save=False` writes
+    no checkpoint."""
     import torch
     import diffusion_pruning_tpu_torch.training as training
     from diffusion_pruning_tpu_torch.cli import finetune
+    from diffusion_pruning_tpu_torch.training import finetuner
     from diffusion_pruning_tpu_torch.training import loop as loop_module
 
     parts = collections.defaultdict(float)
     steps, resumed, held = [], {}, {}
-    real_make_step = training.make_finetune_step
+    owner, attr = (finetuner, "make_finetune_step_gspmd") if gspmd else (training,
+                                                                          "make_finetune_step")
+    real_make_step = getattr(owner, attr)
 
-    def make_step(mods, cfg, *args, **kwargs):
+    def make_step(mods, cfg, optimizer, *args, **kwargs):
         held["mods"], held["cfg"] = mods, cfg
         held["teacher"] = to_host(mods.teacher.state_dict())
-        step = real_make_step(mods, cfg, *args, **kwargs)
+        if tamper is not None:
+            tamper(mods, optimizer)
+        if keep_masters:
+            held["masters"] = to_host(optimizer.masters.state_dict())
+        step = real_make_step(mods, cfg, optimizer, *args, **kwargs)
 
         def timed(batch, **kw):
             before = launch_counts()
@@ -4083,11 +4127,13 @@ def run_finetune_in_process(argv, per_step):
              for name in ("maybe_resume", "save_checkpoint", "validate")}
     real_loop_config = loop_module.LoopConfig
     try:
-        training.make_finetune_step = make_step
+        setattr(owner, attr, make_step)
         loop_module.LoopConfig = functools.partial(real_loop_config, log_every=1)
         for name, part in (("maybe_resume", "resume"), ("save_checkpoint", "checkpoint_save"),
                            ("validate", "validation")):
             setattr(loop_module.FineTuneLoop, name, timed_method(name, part))
+        if not save:
+            loop_module.FineTuneLoop.save_checkpoint = lambda self: None
         loop_module.FineTuneLoop.train = train
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -4096,7 +4142,7 @@ def run_finetune_in_process(argv, per_step):
             loop = finetune.main(argv)
         counts = launch_counts()
     finally:
-        training.make_finetune_step = real_make_step
+        setattr(owner, attr, real_make_step)
         loop_module.LoopConfig = real_loop_config
         for name, fn in saved.items():
             setattr(loop_module.FineTuneLoop, name, fn)
@@ -5300,10 +5346,11 @@ def dp_rank_cli(mesh, job, device):
     return out
 
 
-def dp_worker(job_path, out_path):
+def dp_worker(job_path, out_dir, rank):
     """One rank of phase 16's two, run as `python3 chip_smoke.py --dp-rank
-    JOB OUT` with torchrun's variables: the group (gloo: the ranks share the
-    card), the stage-1 steps, then the entry points. Never on the CPU."""
+    JOB OUT_DIR RANK` with torchrun's variables: the group (gloo: the ranks
+    share the card), the stage-1 steps, then the entry points. Never on the
+    CPU."""
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from diffusion_pruning_tpu_torch.ops import build
@@ -5325,7 +5372,7 @@ def dp_worker(job_path, out_path):
     t0 = time.perf_counter()
     out["cli"] = dp_rank_cli(mesh, job, device)
     out["cli_seconds"] = time.perf_counter() - t0
-    torch.save(out, out_path)
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     barrier(mesh)
     torch.distributed.destroy_process_group()
 
@@ -5451,29 +5498,7 @@ def check_two_ranks(mods, cfg, initial, weights, pruning_dir, expert, plan, devi
     load_trainables(mods, initial)
     ref_fingerprint = fingerprint(mods)
     torch.cuda.empty_cache()
-    port = free_port()
-    procs, logs = [], []
-    t0 = time.perf_counter()
-    for rank in range(DP_WORLD):
-        logs.append(os.path.join(HERE, "build", f"dp_rank{rank}.log"))  # ignored by git
-        with torchrun_env(DP_WORLD, rank, port), open(logs[-1], "w") as log_file:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--dp-rank", job_path,
-                 os.path.join(DP_DIR, f"rank{rank}.pt")], cwd=HERE, env=dict(os.environ),
-                stdout=log_file, stderr=subprocess.STDOUT))
-    try:
-        deadline = time.perf_counter() + DP_TIMEOUT
-        codes = [p.wait(timeout=max(1.0, deadline - time.perf_counter())) for p in procs]
-    except BaseException:
-        for p in procs:
-            p.kill()
-            p.wait()
-        raise
-    ranks_seconds = time.perf_counter() - t0
-    for rank, (log_path, code) in enumerate(zip(logs, codes)):
-        if code != 0:
-            with open(log_path) as f:
-                fail(f"rank {rank} exited {code}: {f.read()[-3000:]}")
+    ranks_seconds = run_ranks(DP_WORLD, ["--dp-rank", job_path, DP_DIR], "dp", DP_TIMEOUT)
     got = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt"), weights_only=False)
            for r in range(DP_WORLD)]
     reference = dp_reference(mods, cfg, initial, job, got[0]["steps"]["steps"], device)
@@ -5999,6 +6024,490 @@ def eval_and_serve(stage1, device):
     return summary, counts
 
 
+# ---------------------------------------------------------------- phase 18
+
+TP_DIR = os.path.join(STAGE1_DIR, "tp")  # under phase 13's folder; removed with it
+TP_MODEL = 2               # model ranks: parts 1-2 on a 1 × 2 mesh, part 3 on 2 × 2
+TP_FT_WORLD = 4
+TP_TIMED_FORWARDS = 3      # sharded and one-process forwards timed per rank, in turns
+TP_DDIM = 4                # the sharded pipeline's and server's DDIM steps
+# the experts the 8 prompts are steered to: tiers of 4 (expert 0), 2, 1 and 1
+TP_EXPERTS = (0, 0, 0, 0, 1, 1, 2, 3)
+TP_FT_B = 16               # part 3's global batch: 8 rows a data rank
+TP_FT_STEPS = 2
+# part 3 against the one-process run of the same config and draws: each
+# step's loss within TP_LOSS_REL of it, and each leaf's update over the two
+# steps at cosine >= TP_UPDATE_COS (bf16 partials round on each rank before
+# the sum; Adam's early steps follow the gradients' signs); the planted fault,
+# the one-process run with model rank 1's share of every row-parallel input
+# zeroed (its partial dropped), must read beyond one of them (PERF.md)
+TP_LOSS_REL = 1e-2
+TP_UPDATE_COS = 0.9
+TP_TIMEOUT = 600           # seconds the ranks of one part may take
+ROW_BIASES = ("to_out.0.bias", "ff.net.2.bias", "conv2.bias")
+TP_BIAS_STD = 0.05         # parts 1-2's row-parallel biases (the seeded init's are zero)
+
+
+def run_ranks(world, args, tag, timeout=TP_TIMEOUT):
+    """`world` ranks of this script (`python3 chip_smoke.py *args RANK` with
+    torchrun's variables; logs in build/<tag>_rank<r>.log), sharing the card
+    under gloo (phases 16 and 18); their exit codes checked. Returns the wall
+    seconds."""
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(world):
+        logs.append(os.path.join(HERE, "build", f"{tag}_rank{rank}.log"))  # ignored by git
+        with torchrun_env(world, rank, port), open(logs[-1], "w") as log_file:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), *args, str(rank)], cwd=HERE,
+                env=dict(os.environ), stdout=log_file, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.perf_counter() + timeout
+        codes = [p.wait(timeout=max(1.0, deadline - time.perf_counter())) for p in procs]
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    for rank, (log_path, code) in enumerate(zip(logs, codes)):
+        if code != 0:
+            with open(log_path) as f:
+                fail(f"{tag} rank {rank} exited {code}: {f.read()[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def tp_requests(device, mpnet, pipe, codes):
+    """8 prompts from the seed, steered to TP_EXPERTS, with their initial
+    latents (`expert_requests`' recipe)."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.text_encoders import mean_pool
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    n = len(TP_EXPERTS)
+    ids = torch.randint(0, 49408, (n, 77), device=device, generator=gen)
+    neg = torch.randint(0, 49408, (n, 77), device=device, generator=gen)
+    mp_ids = torch.randint(0, 30527, (n, 128), device=device, generator=gen)
+    mask = torch.ones(n, 128, dtype=torch.long, device=device)
+    cfg = pipe.unet.cfg
+    latents = torch.randn(n, cfg.sample_size, cfg.sample_size, cfg.in_channels, device=device,
+                          generator=gen)
+    with torch.inference_mode():
+        feats = mean_pool(mpnet(mp_ids, mask), mask)
+    experts = torch.as_tensor(TP_EXPERTS)
+    return {"ids": ids, "neg": neg, "latents": latents,
+            "kw": {"hyper_net_input": feats, "num_inference_steps": TP_DDIM,
+                   "guidance_scale": GUIDANCE, "latents": latents,
+                   "route_noise": steering_noise(pipe.quantizer, codes, experts)}}
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tp_rank_serve(mesh, device):
+    """Parts 1 and 2 on one rank of the 1 × 2 mesh: phase 4's U-Net and phase
+    5's pipeline built from the seed, the U-Net's row-parallel biases drawn
+    from it too (TP_BIAS_STD); the sharded U-Net (and its
+    `fused_norm_conv` twin) on phase 4's inputs against the one-process
+    forward, each forward's launches and reductions, the planted faults, the
+    times in turns; then `shard_pipeline` and `ExpertServer.from_codebook` on
+    it, serving 8 steered prompts (rank 0 first serves them one-process)."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet import attention, blocks
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.parallel import tp
+    from diffusion_pruning_tpu_torch.parallel.mesh import barrier
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import ExpertServer
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    unet = build_unet(UNetConfig.sd21(256), device, gen)
+    pipe, mpnet = build_pipeline(unet, device, gen)
+    bias_gen = torch.Generator(device=device).manual_seed(SEED + 51)
+    with torch.no_grad():  # a bias added on both ranks must show
+        for name, p in unet.named_parameters():
+            if name.endswith(ROW_BIASES):
+                p.copy_(TP_BIAS_STD * torch.randn(p.shape, generator=bias_gen, device=device))
+    x, t, ehs, arch = unet_inputs(unet, device)
+    twin = fused_twin(unet, fused_norm_conv=True)
+    sharded, sharded_twin = tp.shard_unet(unet, mesh), tp.shard_unet(twin, mesh)
+    real = tp.reduce_from_model
+    faults = {  # emulated in the sharded forward itself
+        "bias_on_both_ranks": lambda axis, p, b, like: real(
+            axis, p, None if b is None else b * axis.world_size, like),
+        "one_rank_partial_dropped": lambda axis, p, b, like: real(
+            axis, p * 0 if axis.rank == 1 else p, b, like)}
+    out = {"rank": mesh.rank}
+    with torch.inference_mode():
+        # the one-process forwards: bf16 (the kernels, as the sharded one) and
+        # f32 (plain attention), the reference UNET_REL_L2 is defined against
+        f32 = fused_twin(unet, use_flash_attention=False).float()
+        ref32 = f32(x, t, ehs, arch=arch.float()).float()
+        del f32
+        ref, ref_twin = (m(x, t, ehs, arch=arch).float() for m in (unet, twin))
+        forwards = {"one_process_rel_l2": rel_l2(ref, ref32),
+                    "one_process_rel_l2_fused_norm_conv": rel_l2(ref_twin, ref32)}
+        for name, model in (("plain", sharded), ("fused_norm_conv", sharded_twin)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            tp.reset_tp_stats()
+            got = model(x, t, ehs, arch=arch).float()
+            torch.cuda.synchronize()
+            forwards[name] = {"rel_l2": rel_l2(got, ref32),
+                              "rel_l2_to_one_process_bf16": rel_l2(
+                                  got, ref if name == "plain" else ref_twin),
+                              "finite": bool(torch.isfinite(got).all()),
+                              "launches": launch_counts(), "reductions": tp.tp_stats["reductions"]}
+        for name, fn in faults.items():
+            with patched(attention, "reduce_from_model", fn), \
+                    patched(blocks, "reduce_from_model", fn):
+                forwards[f"fault_{name}"] = rel_l2(sharded(x, t, ehs, arch=arch), ref32)
+        seconds = {"sharded": [], "one_process": []}
+        tp.reset_tp_stats()
+        for _ in range(TP_TIMED_FORWARDS):  # in turns
+            seconds["sharded"].append(timed(lambda: sharded(x, t, ehs, arch=arch))[1])
+            seconds["one_process"].append(timed(lambda: unet(x, t, ehs, arch=arch))[1])
+        forwards["seconds"] = seconds
+        forwards["reduce_seconds_per_forward"] = tp.tp_stats["reduce_seconds"] / TP_TIMED_FORWARDS
+    out["forward"] = forwards
+    del twin, sharded_twin, ref, ref_twin, ref32
+    # part 2
+    codes = expert_codebook(pipe.quantizer, unet.spec)
+    req = tp_requests(device, mpnet, pipe, codes)
+    serve_args = (req["ids"], req["neg"])
+    server_kw = {k: v for k, v in req["kw"].items()}
+    if mesh.rank == 0:
+        images, indices, _ = pipe(*serve_args, **req["kw"])
+        server = ExpertServer.from_codebook(pipe, unet.spec, unet.cfg, batch_size=4,
+                                            param_dtype=torch.bfloat16)
+        served, experts = server.generate(*serve_args, **server_kw)
+        out["one_process"] = {"images": images.cpu(), "indices": indices.cpu(),
+                              "served": served, "experts": experts}
+        del server
+        torch.cuda.empty_cache()
+    barrier(mesh)
+    sp = tp.shard_pipeline(pipe, mesh)
+    reset_launch_counts()
+    tp.reset_tp_stats()
+    (images, indices, _), pipe_s = timed(lambda: sp(*serve_args, **req["kw"]))
+    server, build_s = timed(lambda: ExpertServer.from_codebook(
+        sp, unet.spec, unet.cfg, batch_size=4, param_dtype=torch.bfloat16))
+    (served, experts), serve_s = timed(lambda: server.generate(*serve_args, **server_kw))
+    out["sharded"] = {"images": images.cpu(), "indices": indices.cpu(), "served": served,
+                      "experts": experts, "seconds": {"pipeline": pipe_s, "server_build": build_s,
+                                                      "server_generate": serve_s},
+                      "sharded_experts": all(m.shard is not None for m in server.expert_models),
+                      "counts": launch_counts(), "reductions": tp.tp_stats["reductions"],
+                      "reduce_seconds": tp.tp_stats["reduce_seconds"]}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def tp_step_launches(cfg, plan, b, rank, n_model):
+    """`finetune_step_launches` of one model rank of a 2-D step at local
+    batch b: the teacher's lse-free forward at each dense site where the rank
+    holds heads, the student's forward with lse and `backward_plan`'s
+    kernels at each expert site where it holds heads, at its local heads (a
+    rank holding none launches nothing there)."""
+    from diffusion_pruning_tpu_torch.ops import flash_attention as fa
+    from diffusion_pruning_tpu_torch.parallel.tp import unit_range
+    out = collections.Counter()
+
+    def local(h):
+        lo, hi = unit_range(h, rank, n_model)
+        return hi - lo
+
+    for s_q, s_kv, h, sites in TRAIN_CASES:
+        if local(h):
+            out["gated_flash_fwd"] += sites
+            out[f"kernel:{fa.forward_kernel(s_q, s_kv)}"] += sites
+    for s_q, s_kv, h in expert_attention_sites(cfg, plan):
+        if local(h):
+            out["gated_flash_fwd_lse"] += 1
+            out[f"kernel:{fa.forward_kernel(s_q, s_kv)}"] += 1
+            for name, n in fa.backward_plan(b, local(h), s_q, s_kv).launches.items():
+                out[name] += n
+    return dict(out)
+
+
+def tp_rank_finetune(mesh, job, device):
+    """Part 3 on one rank of the 2 × 2 mesh: `cli.finetune` with
+    `optim.tensor_parallel: 2` on phase 14's expert, each step's launches
+    held against `tp_step_launches`."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.parallel import tp
+    per_step = tp_step_launches(UNetConfig.sd21(256), job["plan"], TP_FT_B // 2,
+                                mesh.model.rank, TP_MODEL)
+    tp.reset_tp_stats()
+    loop, parts, steps, _, _, counts, peak = run_finetune_in_process(
+        finetune_argv(job["tp_yaml"], job["weights"], job["pruning_dir"], job["expert"]),
+        per_step, gspmd=True)
+    opt = loop.optimizer
+    return {"rank": mesh.rank, "coords": (mesh.data.rank, mesh.model.rank),
+            "mesh": loop.mesh.shape, "optimizer": type(opt).__name__, "run_dir": loop.run_dir,
+            "global_step": loop.global_step, "parts": parts, "steps": steps,
+            "counts": counts, "peak_memory_gib": peak, "tp_stats": dict(tp.tp_stats),
+            "master_elements": sum(m.numel() for m in loop.masters.masters),
+            "moment_bytes": sum(v.numel() * v.element_size() for st in opt.state.values()
+                                for k, v in st.items() if k in ("mu", "nu"))}
+
+
+def tp_worker(part, job_path, out_dir, rank):
+    """One rank of phase 18, run as `python3 chip_smoke.py --tp-rank PART JOB
+    OUT_DIR RANK` with torchrun's variables: the group (gloo: the ranks share
+    the card), the mesh, then part "serve" (1 × 2) or "finetune" (2 × 2).
+    Never on the CPU."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from diffusion_pruning_tpu_torch.ops import build
+    from diffusion_pruning_tpu_torch.parallel.mesh import barrier
+    from diffusion_pruning_tpu_torch.parallel.tp import dp_tp_mesh
+    from diffusion_pruning_tpu_torch.utils.launch import init_distributed, world_size
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_distributed()
+    mesh = dp_tp_mesh(world_size() // TP_MODEL, TP_MODEL, device)
+    if device.type != "cuda" or mesh.backend != "gloo":
+        fail(f"rank on {device} in {mesh}: ranks on one card run under gloo")
+    build.build_kernels()  # this checkout's kernels, built by the script before it
+    job = torch.load(job_path, weights_only=False)
+    t0 = time.perf_counter()
+    out = (tp_rank_serve(mesh, device) if part == "serve"
+           else tp_rank_finetune(mesh, job, device))
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"{part}_rank{rank}.pt"))
+    barrier(mesh)
+    torch.distributed.destroy_process_group()
+
+
+def drop_rank1_partials(mods, optimizer):
+    """The planted fault of part 3, in one process: the input channels of
+    model rank 1's units of every row-parallel weight (to_out.0, ff.net.2,
+    conv2) zeroed in the student's masters (and so its compute copy) and in
+    the teacher, as if that rank's partial never reached the sum."""
+    import torch
+    from diffusion_pruning_tpu_torch.parallel.tp import local_index, split_keys, tp_plan
+
+    def zero(named, keys):
+        for name, t in named:
+            if name in keys and keys[name][1] == 1:  # a row-parallel weight
+                site, dim, halves = keys[name]
+                t.index_fill_(dim, local_index(site, 1, TP_MODEL, halves, t.device), 0.0)
+
+    masters = optimizer.masters
+    with torch.no_grad():
+        zero(zip(masters.names, masters.masters), split_keys(tp_plan(mods.student)))
+        masters.refresh()
+        zero(mods.teacher.named_parameters(), split_keys(tp_plan(mods.teacher)))
+
+
+def check_serve_ranks(got):
+    """Parts 1-2's readings of both ranks, checked."""
+    ref = got[0]["one_process"]
+    rows = []
+    for g in got:
+        f, s = g["forward"], g["sharded"]
+        images = [rel_l2(a, b) for a, b in zip(s["images"], ref["images"])]
+        served = [rel_l2(a, b) for a, b in zip(s["served"], ref["served"])]
+        rows.append({
+            "rank": g["rank"],
+            "forward_rel_l2": f["plain"]["rel_l2"],
+            "forward_rel_l2_fused_norm_conv": f["fused_norm_conv"]["rel_l2"],
+            "one_process_rel_l2": f["one_process_rel_l2"],
+            "one_process_rel_l2_fused_norm_conv": f["one_process_rel_l2_fused_norm_conv"],
+            "forward_rel_l2_to_one_process_bf16": f["plain"]["rel_l2_to_one_process_bf16"],
+            "forward_rel_l2_to_one_process_bf16_fused_norm_conv":
+                f["fused_norm_conv"]["rel_l2_to_one_process_bf16"],
+            "fault_rel_l2": {k[6:]: v for k, v in f.items() if k.startswith("fault_")},
+            "launches_per_forward": {k: v for k, v in f["plain"]["launches"].items() if v},
+            "launches_per_forward_fused_norm_conv": {
+                k: v for k, v in f["fused_norm_conv"]["launches"].items() if v},
+            "reductions_per_forward": f["plain"]["reductions"],
+            "forward_seconds_sharded": f["seconds"]["sharded"],
+            "forward_seconds_one_process": f["seconds"]["one_process"],
+            "reduce_seconds_per_forward": f["reduce_seconds_per_forward"],
+            "pipeline_images_rel_l2_max": max(images),
+            "pipeline_indices_equal": torch_equal(s["indices"], ref["indices"]),
+            "served_images_rel_l2_max": max(served),
+            "served_experts_equal": torch_equal(s["experts"], ref["experts"]),
+            "experts_sharded": s["sharded_experts"], "serving_seconds": s["seconds"],
+            "serving_reductions": s["reductions"],
+            "serving_reduce_seconds": s["reduce_seconds"],
+            "peak_memory_gib": g["peak_memory_gib"], "seconds": g["seconds"]})
+    row = {"phase": "tp_serve", "mesh": [1, TP_MODEL], "backend": "gloo", "b_eff": FUSED_B,
+           "limit": UNET_REL_L2, "served_limit": SERVED_REL_L2, "ranks": rows,
+           "experts_steered": list(TP_EXPERTS), "one_process_indices": ref["indices"].tolist()}
+    emit(row)
+    for r, g in zip(rows, got):
+        f = g["forward"]
+        bad = [k for k in ("plain", "fused_norm_conv")
+               if not (f[k]["finite"] and f[k]["rel_l2"] <= UNET_REL_L2)]
+        if bad:
+            fail(f"rank {r['rank']}: the sharded U-Net disagrees with the f32 one-process U-Net "
+                 f"({bad}): {r}")
+        if not min(r["fault_rel_l2"].values()) > UNET_REL_L2:
+            fail(f"a planted fault reads within {UNET_REL_L2}: {r}")
+        want = {"gated_flash_fwd": 32, "kernel:gated_flash_fwd_wgmma": 20,
+                "kernel:gated_flash_fwd_small": 12}
+        if r["launches_per_forward"] != want or r["reductions_per_forward"] != 70:
+            fail(f"rank {r['rank']}: expected {want} launches and 70 reductions a forward: {r}")
+        fused = r["launches_per_forward_fused_norm_conv"]
+        if (fused.get("norm_conv3x3") != 45 or fused.get("norm_linear") != 16
+                or fused.get("gated_flash_fwd") != 32):
+            fail(f"rank {r['rank']}: expected 45 norm_conv3x3, 16 norm_linear and 32 attention "
+                 f"launches a fused forward: {fused}")
+        if not (r["pipeline_indices_equal"] and r["served_experts_equal"]
+                and r["pipeline_images_rel_l2_max"] <= SERVED_REL_L2
+                and r["served_images_rel_l2_max"] <= SERVED_REL_L2 and r["experts_sharded"]):
+            fail(f"rank {r['rank']}: the sharded pipeline or server disagrees with one "
+                 f"process: {r}")
+    return row
+
+
+def torch_equal(a, b):
+    import torch
+    return bool(torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()))
+
+
+def leaf_update_cosines(after, before, want_after):
+    """Per leaf, the cosine of (after − before) with (want_after − before);
+    leaves neither run moved are left out."""
+    import torch
+    out = {}
+    for name, b in before.items():
+        u, w = (after[name] - b).double().flatten(), (want_after[name] - b).double().flatten()
+        if u.norm() == 0 and w.norm() == 0:
+            continue
+        out[name] = float(torch.nn.functional.cosine_similarity(u, w, dim=0))
+    return out
+
+
+def tensor_parallel(stage1, device):
+    """Phase 18: tensor parallelism on the card (module docstring)."""
+    import torch
+    os.makedirs(TP_DIR, exist_ok=True)
+    parts = {}
+    expert, macs, _, plan, _ = pick_expert(stage1["run_dir"])
+    common = {"training.max_train_steps": TP_FT_STEPS,
+              "training.validation_steps": TP_FT_STEPS + 1,
+              "training.logging.logging_dir": os.path.join(TP_DIR, "runs")}
+    job = {"weights": stage1["weights"], "pruning_dir": stage1["run_dir"], "expert": expert,
+           "plan": plan,
+           "tp_yaml": finetune_yaml(os.path.join(TP_DIR, "tp", "sd21_tp.yaml"), **common, **{
+               "training.optim.tensor_parallel": TP_MODEL,
+               "data.dataloader.train_batch_size": TP_FT_B // (TP_FT_WORLD // TP_MODEL)}),
+           "one_yaml": finetune_yaml(os.path.join(TP_DIR, "one", "sd21_one.yaml"), **common, **{
+               "data.dataloader.train_batch_size": TP_FT_B})}
+    job_path = os.path.join(TP_DIR, "job.pt")
+    torch.save(job, job_path)
+    torch.cuda.empty_cache()
+    # parts 1-2: two ranks, a 1 × 2 mesh
+    parts["serve_ranks"] = run_ranks(TP_MODEL, ["--tp-rank", "serve", job_path, TP_DIR],
+                                     "tp_serve")
+    got = [torch.load(os.path.join(TP_DIR, f"serve_rank{r}.pt"), weights_only=False)
+           for r in range(TP_MODEL)]
+    serve_row = check_serve_ranks(got)
+    # part 3: four ranks, a 2 × 2 mesh, then the one-process run and its fault
+    parts["finetune_ranks"] = run_ranks(TP_FT_WORLD,
+                                        ["--tp-rank", "finetune", job_path, TP_DIR], "tp_ft")
+    ranks = [torch.load(os.path.join(TP_DIR, f"finetune_rank{r}.pt"), weights_only=False)
+             for r in range(TP_FT_WORLD)]
+    ft_row = check_finetune_ranks(job, ranks, macs, parts)
+    counts = collections.Counter()
+    for g in got:
+        counts.update(g["sharded"]["counts"])
+        counts.update(g["forward"]["plain"]["launches"])
+        counts.update(g["forward"]["fused_norm_conv"]["launches"])
+    for r in ranks:
+        counts.update(r["counts"])
+    return {"serve": serve_row, "finetune": ft_row}, counts
+
+
+def check_finetune_ranks(job, ranks, macs, parts):
+    """Part 3's readings: the ranks' checkpoint against the one-process run
+    of the same config and draws and against the planted fault, both run in
+    this process; checked."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.utils.checkpoint import CheckpointManager
+    expert, plan = job["expert"], job["plan"]
+    t0 = time.perf_counter()
+    saved = CheckpointManager(ranks[0]["run_dir"], create=False)
+    tp_state = saved.restore(TP_FT_STEPS)
+    parts["restore_tp_checkpoint"] = time.perf_counter() - t0
+    cfg256 = UNetConfig.sd21(256)
+    runs = {}
+    for name, tamper in (("one_process", None), ("fault_rank1_partial_dropped", drop_rank1_partials)):
+        t0 = time.perf_counter()
+        loop, _, steps, _, held, _, peak = run_finetune_in_process(
+            finetune_argv(job["one_yaml"], job["weights"], job["pruning_dir"], expert),
+            finetune_step_launches(cfg256, plan, TP_FT_B, 1), tamper=tamper, save=False,
+            keep_masters=True)
+        runs[name] = {"steps": steps, "before": held["masters"],
+                      "after": to_host(loop.masters.state_dict()), "peak_memory_gib": peak}
+        del loop, held
+        torch.cuda.empty_cache()
+        parts[name] = time.perf_counter() - t0
+    before = runs["one_process"]["before"]
+    cos = leaf_update_cosines(tp_state["student"], before, runs["one_process"]["after"])
+    cos_fault = leaf_update_cosines(runs["fault_rank1_partial_dropped"]["after"], before,
+                                    tp_state["student"])
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    ref_losses = [s["loss"] for s in runs["one_process"]["steps"]]
+    fault_losses = [s["loss"] for s in runs["fault_rank1_partial_dropped"]["steps"]]
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    ft_row = {"phase": "tp_finetune", "mesh": [TP_FT_WORLD // TP_MODEL, TP_MODEL],
+              "backend": "gloo", "expert": expert, "macs_ratio": macs, "global_batch": TP_FT_B,
+              "steps": TP_FT_STEPS, "losses": losses, "one_process_losses": ref_losses,
+              "loss_rel_diff": rel(losses, ref_losses), "loss_limit": TP_LOSS_REL,
+              "update_cos_min": min(cos.values()), "update_cos_min_leaf": min(cos, key=cos.get),
+              "update_cos_median": statistics.median(cos.values()),
+              "leaves_compared": len(cos), "update_cos_limit": TP_UPDATE_COS,
+              "fault_loss_rel_diff": rel(fault_losses, losses),
+              "fault_update_cos_min": min(cos_fault.values()),
+              "fault_update_cos_median": statistics.median(cos_fault.values()),
+              "checkpoint_keys_equal": sorted(tp_state["student"]) == sorted(before),
+              "checkpoint_shapes_equal": all(tp_state["student"][k].shape == v.shape
+                                             for k, v in before.items()),
+              "ranks": [{k: r[k] for k in ("rank", "coords", "mesh", "optimizer", "global_step",
+                                           "parts", "peak_memory_gib", "tp_stats",
+                                           "master_elements", "moment_bytes", "seconds")}
+                        | {"step_seconds": [s["seconds"] for s in r["steps"]],
+                           "losses": [s["loss"] for s in r["steps"]]} for r in ranks],
+              "one_process_step_seconds": [s["seconds"] for s in runs["one_process"]["steps"]],
+              "one_process_peak_memory_gib": runs["one_process"]["peak_memory_gib"],
+              "seconds_by_part": parts}
+    emit(ft_row)
+    if [r["mesh"] for r in ranks] != [{"data": 2, "model": 2}] * TP_FT_WORLD or any(
+            r["optimizer"] != "AdamW" or r["global_step"] != TP_FT_STEPS for r in ranks):
+        fail(f"the 2 × 2 finetune ranks: {ft_row['ranks']}")
+    if any(r["losses"] != losses for r in ft_row["ranks"]):
+        fail(f"the ranks logged different losses: {ft_row['ranks']}")
+    if not (ft_row["checkpoint_keys_equal"] and ft_row["checkpoint_shapes_equal"]):
+        fail("the tensor-parallel checkpoint has other keys or shapes than the one-process "
+             "run's masters")
+    if not (max(ft_row["loss_rel_diff"]) <= TP_LOSS_REL and ft_row["update_cos_min"]
+            >= TP_UPDATE_COS):
+        fail(f"the 2 × 2 run disagrees with the one-process run: {ft_row}")
+    if not (max(ft_row["fault_loss_rel_diff"]) > TP_LOSS_REL
+            or ft_row["fault_update_cos_min"] < TP_UPDATE_COS):
+        fail(f"the planted fault reads within both limits: {ft_row}")
+    return ft_row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6152,6 +6661,12 @@ def main() -> None:
         t0 = time.perf_counter()
         evaluation, eval_counts = eval_and_serve(stage1, device)
         log(f"phase 17 took {time.perf_counter() - t0:.1f}s")
+
+        # 18. tensor parallel: the sharded U-Net, pipeline and expert server on
+        # a 1 × 2 mesh and cli.finetune on a 2 × 2 one, ranks sharing the card
+        t0 = time.perf_counter()
+        tensor_par, tp_counts = tensor_parallel(stage1, device)
+        log(f"phase 18 took {time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(STAGE1_DIR, ignore_errors=True)
 
@@ -6164,16 +6679,17 @@ def main() -> None:
     forward_entries = [
         forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
                       expert_counts, expert_check, cli_counts, ft_counts, ft_totals, data_counts,
-                      dp_counts, eval_counts)
+                      dp_counts, eval_counts, tp_counts)
         for name in ("gated_flash_fwd_wgmma", "gated_flash_fwd_small")]
     kernels = [*forward_entries,
                *backward_entries(train_rows, train_check, train_launches, cli_counts, ft_counts,
-                                 ft_totals, data_counts, dp_counts),
+                                 ft_totals, data_counts, dp_counts, tp_counts),
                fused_kernel_entry(
         fused_checks["group_norm_silu"], "group_norm_silu",
         "diffusion_pruning_tpu_torch/csrc/group_norm.cu",
         "diffusion_pruning_tpu/ops/group_norm.py:26", [], "F.group_norm, then F.silu",
-        {"serving_fused_norms": counts_gn["group_norm_silu"], "dp": dp_counts["group_norm_silu"]},
+        {"serving_fused_norms": counts_gn["group_norm_silu"], "dp": dp_counts["group_norm_silu"],
+         "tp": tp_counts["group_norm_silu"]},
         expert_check["fused_kernel_device_ms_mean"]["fused_norms"]),
         fused_kernel_entry(
         fused_checks["norm_conv3x3"], "norm_conv3x3",
@@ -6183,7 +6699,7 @@ def main() -> None:
         "gate multiply, F.group_norm, F.silu, F.conv2d (channels_last, bf16)",
         {"serving_fused_norm_conv": counts_nc["norm_conv3x3"],
          "train_fused_norm_conv": fused_train["launches"]["norm_conv3x3"],
-         "dp": dp_counts["norm_conv3x3"]},
+         "dp": dp_counts["norm_conv3x3"], "tp": tp_counts["norm_conv3x3"]},
         expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"]),
         fused_kernel_entry(
         fused_checks["norm_linear"], "norm_linear",
@@ -6191,7 +6707,7 @@ def main() -> None:
         "diffusion_pruning_tpu/ops/norm_conv.py:279", [], "F.group_norm, then F.linear",
         {"serving_fused_norm_conv": counts_nc["norm_linear"],
          "train_fused_norm_conv": fused_train["launches"]["norm_linear"],
-         "dp": dp_counts["norm_linear"]},
+         "dp": dp_counts["norm_linear"], "tp": tp_counts["norm_linear"]},
         expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"]),
         {"name": "conv_split_reduce", "route": "cuda",
          "source": "diffusion_pruning_tpu_torch/csrc/norm_conv.cu",
@@ -6200,11 +6716,12 @@ def main() -> None:
                  "their plans split K (a split linear site's ms includes it)",
          "launches": (counts_nc["conv_split_reduce"]
                       + fused_train["launches"]["conv_split_reduce"]
-                      + dp_counts["conv_split_reduce"]),
+                      + dp_counts["conv_split_reduce"] + tp_counts["conv_split_reduce"]),
          "launches_by_path": {"serving_fused_norm_conv": counts_nc["conv_split_reduce"],
                               "train_fused_norm_conv":
                                   fused_train["launches"]["conv_split_reduce"],
-                              "dp": dp_counts["conv_split_reduce"]},
+                              "dp": dp_counts["conv_split_reduce"],
+                              "tp": tp_counts["conv_split_reduce"]},
          **split_reduce_entry(fused_checks["norm_conv3x3"]),
          "expert_path": expert_path_entry(
              expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"], "conv_split_reduce"),
@@ -6237,7 +6754,10 @@ def main() -> None:
         f"{dp['summary']['moment_bytes_by_rank_world2']} bytes against "
         f"{dp['summary']['moment_bytes_world1']} at world 1; cli.serve img/s by mode "
         f"{evaluation['serve_img_per_sec_by_mode']}, generation images/s "
-        f"{evaluation['generation_images_per_sec']}")
+        f"{evaluation['generation_images_per_sec']}; tensor parallel (ranks sharing the card, "
+        f"gloo) forward rel L2 "
+        f"{max(r['forward_rel_l2'] for r in tensor_par['serve']['ranks']):.5f}, 2 × 2 finetune "
+        f"update min cosine {tensor_par['finetune']['update_cos_min']:.5f}")
     # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -6245,6 +6765,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
-        dp_worker(*sys.argv[2:4])
+        dp_worker(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_worker(*sys.argv[2:6])
     else:
         main()

@@ -39,8 +39,17 @@ rank 0 alone writing): `optim.zero1` (ZeRO-1, the AdamW moments sharded over
 the ranks) defaults to on when the world size exceeds 1, as in the JAX entry
 point; asked for at world size 1 it runs on a mesh of one process.
 
-Not yet here, each raising before anything is built: the Hub upload
-(ROADMAP A5) and `optim.tensor_parallel` > 1 (tensor parallelism, A4).
+Tensor parallel under torchrun (`optim.tensor_parallel: M` > 1, the JAX
+entry point's 2-D branch): the world (a multiple of M, else it raises) forms
+a `dp_tp_mesh(world // M, M)`; the global batch is `train_batch_size` ×
+world // M, each data rank's rows shared by its M model ranks; the student
+(the expert at its uneven kept widths) and the teacher are sharded on the
+model axis (`parallel.tp.shard_unet`); the step is
+`make_finetune_step_gspmd` with AdamW on the master shards and no ZeRO-1;
+checkpoints hold full tensors, as at M = 1.
+
+Not yet here, raising before anything is built: the Hub upload (ROADMAP
+A5).
 """
 from __future__ import annotations
 
@@ -58,10 +67,6 @@ EMA_DECAY = 0.9999  # diffusers' EMAModel default
 
 def check_supported(args, cfg) -> None:
     """Raise for what the port does not run yet."""
-    from diffusion_pruning_tpu_torch.training.finetuner import TENSOR_PARALLEL
-    optim = cfg.training.get("optim") or {}
-    if int(optim.get("tensor_parallel", 1) or 1) > 1:
-        raise NotImplementedError(f"optim.tensor_parallel > 1: {TENSOR_PARALLEL}")
     if cfg.get_path("training.hf_hub.push_to_hub", False):
         raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A5, "
                                   "not ported yet")
@@ -96,6 +101,7 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
     a data `mesh` each rank trains on its rows of the global batch, ZeRO-1
     when `zero1`, and rank 0 alone writes."""
     from diffusion_pruning_tpu_torch.models.unet.pruned import expert_macs_ratio, make_expert_plan
+    from diffusion_pruning_tpu_torch.parallel.tp import DpTpMesh, shard_unet
     from diffusion_pruning_tpu_torch.training import (
         FineTunerModules,
         MasterWeights,
@@ -103,6 +109,7 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
         make_finetune_step,
         make_finetune_validation_step,
     )
+    from diffusion_pruning_tpu_torch.training.finetuner import make_finetune_step_gspmd
     from diffusion_pruning_tpu_torch.training.factory import (
         build_schedule,
         build_student,
@@ -129,12 +136,16 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
     arch = pick_arch(dense)
     plan = None if arch is None else make_expert_plan(dense.spec, arch)
     student = build_student(dense, plan, mesh=mesh)
+    macs = 1.0 if plan is None else expert_macs_ratio(dense.spec, plan)
+    teacher = dense.to(frozen_dtype)
+    del dense
+    tp = mesh if isinstance(mesh, DpTpMesh) else None
+    if tp is not None:  # each rank's slices of both (the expert's at its kept widths)
+        student, teacher = shard_unet(student, tp), shard_unet(teacher, tp)
     # the masters take the student's f32 values; the cast then makes its
     # parameters the compute copy that forward and backward run on
     masters = MasterWeights(student, separate=compute_dtype != torch.float32)
     student.to(compute_dtype)
-    teacher = dense.to(frozen_dtype)
-    macs = 1.0 if plan is None else expert_macs_ratio(dense.spec, plan)
     print(f"{label}: MACs ratio {macs:.3f} of dense", file=sys.stderr)
     main_rank = mesh is None or mesh.is_main
     if arch is not None and main_rank:
@@ -145,13 +156,17 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
                             schedule=build_schedule(cfg))
 
     ft_cfg = finetune_config(cfg)
-    world = world_size()
-    global_batch = cfg.data.dataloader.get("train_batch_size", 8) * world  # per rank × world
+    rows = mesh if tp is None else tp.data  # the axis the global batch's rows split over
+    n_data = 1 if rows is None else rows.world_size
+    global_batch = cfg.data.dataloader.get("train_batch_size", 8) * n_data  # per rank × ranks
     optimizer = make_finetune_optimizer(ft_cfg, masters, global_batch,
                                         zero1_mesh=mesh if zero1 else None)
-    step = make_finetune_step(mods, ft_cfg, optimizer,
-                              accum_steps=int(cfg.training.get("gradient_accumulation_steps", 1)),
-                              zero1=zero1, mesh=mesh)
+    accum = int(cfg.training.get("gradient_accumulation_steps", 1))
+    if tp is None:
+        step = make_finetune_step(mods, ft_cfg, optimizer, accum_steps=accum, zero1=zero1,
+                                  mesh=mesh)
+    else:
+        step = make_finetune_step_gspmd(mods, ft_cfg, optimizer, tp, accum_steps=accum)
     logging_cfg = cfg.training.get("logging") or {}
     loop_cfg = LoopConfig(
         max_train_steps=cfg.training.get("max_train_steps", 30000),
@@ -164,16 +179,17 @@ def fine_tune(args, cfg, run_dir: str, device: torch.device, pick_arch: Callable
                if main_rank else NullTracker())
     loop = FineTuneLoop(step, make_finetune_validation_step(mods, ft_cfg, mesh=mesh), optimizer,
                         loop_cfg, run_dir, arch_vector=arch, tracker=tracker, seed=args.seed,
-                        ema_decay=EMA_DECAY if use_ema else None, mesh=mesh)
+                        ema_decay=EMA_DECAY if use_ema else None, mesh=mesh,
+                        shard=None if tp is None else student.shard)
 
     resolution = ucfg.sample_size * 8
     data_dir = cfg.data.get("data_dir") or ""
     if os.path.exists(data_dir):
         train_batches, val_batches = dataset_batches(args, cfg, text, resolution, global_batch,
-                                                     expert_id, mesh)
+                                                     expert_id, rows)
     else:
         print(f"[smoke] dataset dir {data_dir!r} missing — synthetic data", file=sys.stderr)
-        train_batches, val_batches = rank_rows(mesh, *synthetic_batches(
+        train_batches, val_batches = rank_rows(rows, *synthetic_batches(
             args.seed, global_batch, resolution, max(loop_cfg.max_train_steps, 1)))
     loop.train(train_batches, val_batches)
     if main_rank:
@@ -217,8 +233,9 @@ def dataset_batches(args, cfg, text_encoder, resolution: int, batch: int,
     """(train_batches, val_batches) of the dataset folder with CLIP ids: the
     train split (only `expert_id`'s captions where the router's assignment is
     there) and the validation split's first `max_validation_samples`. `batch`
-    is the global batch; with a `mesh` the pipelines make this rank's rows
-    (validation: validation_batch_size × world rows a global batch)."""
+    is the global batch; with a `mesh` (the axis the rows split over) the
+    pipelines make this rank's rows (validation: validation_batch_size ×
+    the mesh's ranks a global batch)."""
     from diffusion_pruning_tpu_torch.data import get_dataset
     from diffusion_pruning_tpu_torch.data.loader import DataPipeline
     from diffusion_pruning_tpu_torch.data.tokenizers import build_clip_tokenizer
@@ -235,7 +252,7 @@ def dataset_batches(args, cfg, text_encoder, resolution: int, batch: int,
     train = splits["train"]
     if expert_id is not None:
         train = expert_rows(train, args.pruning_ckpt_dir, cfg.data.dataset_name, expert_id)
-    world = world_size()
+    world = 1 if mesh is None else mesh.world_size
 
     def rows(n):  # this rank's rows of a global batch of n
         return None if mesh is None else rank_slice(mesh, n)
@@ -252,18 +269,34 @@ def dataset_batches(args, cfg, text_encoder, resolution: int, batch: int,
     return train_pipe.epoch, lambda: val_pipe.epoch(0)
 
 
-def data_parallel(args, cfg, zero1_default: bool = True):
+def data_parallel(args, cfg, zero1_default: bool = True, tensor_parallel: bool = True):
     """(device, mesh, zero1) of a finetune entry point: the launch
-    (`cli.prune.launch`), the unported options refused, and `optim.zero1`
+    (`cli.prune.launch`), the unported options refused, and either
+    `optim.tensor_parallel` = M > 1 (where `tensor_parallel`; else it
+    raises): the `dp_tp_mesh(world // M, M)`, no ZeRO-1; or `optim.zero1`
     (default: on when the world size exceeds 1 and `zero1_default`), which
     at world size 1 runs on a mesh of one process."""
     from diffusion_pruning_tpu_torch.cli.prune import launch
     from diffusion_pruning_tpu_torch.parallel.mesh import data_mesh
+    from diffusion_pruning_tpu_torch.parallel.tp import dp_tp_mesh
 
     device, mesh = launch(args)
     check_supported(args, cfg)
     world = world_size()
-    zero1 = bool((cfg.training.get("optim") or {}).get("zero1", zero1_default and world > 1))
+    optim = cfg.training.get("optim") or {}
+    tp = int(optim.get("tensor_parallel", 1) or 1)
+    if tp > 1:
+        if not tensor_parallel:
+            raise ValueError("optim.tensor_parallel > 1: the baseline entry point runs data "
+                             "parallel only, as the JAX one does")
+        if world % tp:
+            raise ValueError(f"optim.tensor_parallel {tp} does not divide the world size "
+                             f"{world} (torchrun --nproc_per_node sets it)")
+        if optim.get("zero1"):
+            raise ValueError("optim.zero1 with optim.tensor_parallel > 1: the 2-D step keeps "
+                             "its AdamW moments at the master shards, without ZeRO-1")
+        return device, dp_tp_mesh(world // tp, tp, device), False
+    zero1 = bool(optim.get("zero1", zero1_default and world > 1))
     if zero1 and mesh is None:
         mesh = data_mesh(device)
     return device, mesh, zero1

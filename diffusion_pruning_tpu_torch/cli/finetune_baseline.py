@@ -20,8 +20,8 @@ The counterpart of the JAX package's `scripts/baselines/finetune_baseline.py`:
 Each runs through the same student, teacher and loop as `cli/finetune.py`
 (run directory `<logging_dir>/<config>/baseline-<type>`), whose rules for
 devices, launch and unported options hold here too. Under torchrun it runs
-data parallel without ZeRO-1, as the JAX entry point does (`optim.zero1`
-raises).
+data parallel only, without ZeRO-1 or tensor parallelism, as the JAX entry
+point does (`optim.zero1` and `optim.tensor_parallel` > 1 raise).
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ def main(argv=None):
     pruning_type = args.pruning_type or "no-pruning"
     cfg = load_config(args.base_config_path)
     cfg.update_flat(vars(args))
-    device, mesh, zero1 = data_parallel(args, cfg, zero1_default=False)
+    device, mesh, zero1 = data_parallel(args, cfg, zero1_default=False, tensor_parallel=False)
     if zero1:
         raise ValueError("optim.zero1: the baseline entry point runs data parallel without "
                          "ZeRO-1, as the JAX one does")

@@ -7,6 +7,12 @@ feed-forward gates both of its halves. Attribute names follow diffusers'
 `BasicTransformerBlock` state dict (`attn1.to_q`, `ff.net.0.proj`, ...).
 `active_heads` and `active_inner` build a physically pruned expert's
 projections: only the kept heads (of the dense head size) and GEGLU units.
+A block of a tensor-parallel U-Net (`parallel/tp.py`) holds this rank's
+heads or GEGLU units at those widths and its `tp` split: its input passes
+`copy_to_model`, its gate is cut to the rank's units, and its output
+projection's partial product is summed over the model axis with the bias
+added once (`reduce_from_model`); a rank holding no unit launches nothing
+and puts zeros into the sum.
 """
 from __future__ import annotations
 
@@ -20,6 +26,12 @@ from diffusion_pruning_tpu_torch.ops.flash_attention import (
     gated_flash_attention,
 )
 from diffusion_pruning_tpu_torch.ops.gates import channel_gate, match_batch
+from diffusion_pruning_tpu_torch.parallel.tp import (
+    Split,
+    copy_to_model,
+    empty_partial,
+    reduce_from_model,
+)
 
 
 class GatedAttention(nn.Module):
@@ -30,6 +42,7 @@ class GatedAttention(nn.Module):
     otherwise through the plain masked path. `active_heads` < heads keeps
     that many heads of the dense head size `dim // heads`: q, k and v emit
     only them and to_out takes them; the output stays `dim` wide."""
+    tp: Optional[Split] = None
 
     def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None,
                  use_flash: bool = False, active_heads: Optional[int] = None):
@@ -45,7 +58,14 @@ class GatedAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
 
     def forward(self, x, context=None, gate=None):
-        b, s, _ = x.shape
+        b, s, dim = x.shape
+        tp = self.tp
+        if tp is not None:
+            x, context, gate = copy_to_model(tp.axis, x, context, gate)
+            if tp.empty:
+                return reduce_from_model(tp.axis, empty_partial((b, s, dim), x, context, gate),
+                                         self.to_out[0].bias, x)
+            gate = None if gate is None else gate[:, tp.lo:tp.hi]
         ctx = x if context is None else context
         q = self.to_q(x).view(b, s, self.heads, self.head_dim)
         k = self.to_k(ctx).view(b, ctx.shape[1], self.heads, self.head_dim)
@@ -57,7 +77,11 @@ class GatedAttention(nn.Module):
             o = gated_flash_attention(q, k, v, g)
         else:
             o = gated_attention_reference(q, k, v, g)
-        return self.to_out[0](o.reshape(b, s, self.heads * self.head_dim))
+        o = o.reshape(b, s, self.heads * self.head_dim)
+        if tp is None:
+            return self.to_out[0](o)
+        return reduce_from_model(tp.axis, F.linear(o, self.to_out[0].weight), self.to_out[0].bias,
+                                 x)
 
 
 class GatedGEGLU(nn.Module):
@@ -78,6 +102,7 @@ class GatedGEGLU(nn.Module):
 
 class GatedFeedForward(nn.Module):
     """`active_inner` < dim·mult keeps that many GEGLU units (an expert's)."""
+    tp: Optional[Split] = None
 
     def __init__(self, dim: int, mult: int = 4, active_inner: Optional[int] = None):
         super().__init__()
@@ -86,7 +111,14 @@ class GatedFeedForward(nn.Module):
         self.net = nn.ModuleList([GatedGEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
 
     def forward(self, x, gate=None):
-        return self.net[2](self.net[0](x, gate))
+        tp, out = self.tp, self.net[2]
+        if tp is None:
+            return out(self.net[0](x, gate))
+        x, gate = copy_to_model(tp.axis, x, gate)
+        if tp.empty:
+            return reduce_from_model(tp.axis, empty_partial(x.shape, x, gate), out.bias, x)
+        gate = None if gate is None else gate[:, tp.lo:tp.hi]
+        return reduce_from_model(tp.axis, F.linear(self.net[0](x, gate), out.weight), out.bias, x)
 
 
 class GatedTransformerBlock(nn.Module):

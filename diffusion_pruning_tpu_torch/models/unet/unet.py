@@ -15,6 +15,12 @@ a physically pruned expert: every subblock at its kept widths, and a dropped
 subblock left out (a `None` in its block's list, so that the kept modules
 keep their diffusers indices and `slice_expert_params` of the dense state
 dict gives exactly the expert's keys). An expert runs without an arch.
+
+With `shard` (a `parallel.tp.UNetShard`) it builds one model rank's slice of
+a tensor-parallel U-Net, dense or expert: each resnet, attention and
+feed-forward at the rank's units of its site (`parallel.tp.shard_unet`
+builds it and loads the shard). Its forward takes the same arguments and
+returns the same tensors on every rank of the model axis.
 """
 from __future__ import annotations
 
@@ -110,24 +116,32 @@ class _Block(nn.Module):
 
 
 class GatedUNet(nn.Module):
-    def __init__(self, cfg: UNetConfig, plan: Optional[ExpertPlan] = None):
+    def __init__(self, cfg: UNetConfig, plan: Optional[ExpertPlan] = None, shard=None):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
+        self.shard = shard
         self.spec = build_structure(cfg)
         b0 = cfg.block_out_channels[0]
         temb = cfg.time_embed_dim
         g = cfg.norm_num_groups
         L = cfg.num_levels
         kept = plan.by_name if plan is not None else {}
+        split = shard is not None and shard.axis.distributed  # a model axis of one splits nothing
 
         def resnet(cin, cout, name):
             p = kept.get(name)
             if p is not None and p.dropped:
                 return None
             keep = p.sites[0] if p is not None else None
-            return GatedResnetBlock(cin, cout, temb, g, cfg.norm_eps, cfg.fused_norms,
-                                    cfg.fused_norm_conv, keep and keep.kept_channels)
+            hidden = keep and keep.kept_channels
+            if shard is not None:
+                hidden = shard.local_channels(name, "resnet")
+            block = GatedResnetBlock(cin, cout, temb, g, cfg.norm_eps, cfg.fused_norms,
+                                     cfg.fused_norm_conv, hidden)
+            if split:
+                block.tp = shard.split(name, "resnet")
+            return block
 
         def transformer(c, heads, name):
             p = kept.get(name)
@@ -138,10 +152,18 @@ class GatedUNet(nn.Module):
                 ff = p.site("ff")
                 active = (len(p.site("attn1").kept), len(p.site("attn2").kept),
                           ff and ff.kept_channels)
-            return GatedTransformer2D(c, heads, cfg.cross_attention_dim, g,
-                                      cfg.use_flash_attention, cfg.fused_norms,
-                                      cfg.fused_norm_conv, *active,
-                                      use_linear_projection=cfg.use_linear_projection)
+            if shard is not None:
+                active = (shard.local_units(name, "attn1"), shard.local_units(name, "attn2"),
+                          shard.local_channels(name, "ff"))
+            block = GatedTransformer2D(c, heads, cfg.cross_attention_dim, g,
+                                       cfg.use_flash_attention, cfg.fused_norms,
+                                       cfg.fused_norm_conv, *active,
+                                       use_linear_projection=cfg.use_linear_projection)
+            if split:
+                tb = block.transformer_blocks[0]
+                tb.attn1.tp, tb.attn2.tp = shard.split(name, "attn1"), shard.split(name, "attn2")
+                tb.ff.tp = shard.split(name, "ff")
+            return block
 
         self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = _TimeEmbedding(b0, temb)

@@ -14,6 +14,11 @@ pending prompts accumulate per expert and `flush()` drains them at the tier
 shapes. Hybrid dispatch sends only full largest-tier batches through experts
 and pools every remainder into one gated batch with per-prompt archs.
 
+On a pipeline that carries a tensor-parallel mesh (`parallel.tp.
+shard_pipeline`), every expert is cut from the gathered dense weights and
+sharded on the mesh's model axis by the same rules at its kept widths, and
+the expert pipelines inherit the mesh.
+
 Randomness: routing takes the quantizer's gumbel noise (`route_noise`, as
 `PruningPipeline.route` does), and initial latents are either given per
 prompt row or drawn from one `torch.Generator`, tier by tier in dispatch
@@ -79,9 +84,15 @@ class ExpertServer:
         given; `param_dtype` casts each expert once (outside
         `torch.inference_mode`, so the copies keep their version counters). A
         leaf an expert does not cut shares the dense U-Net's storage when the
-        dtype is unchanged."""
+        dtype is unchanged. On a pipeline with a mesh, the dense weights are
+        gathered from the model axis first (a collective) and each expert is
+        sharded on it (`parallel.tp.shard_unet`)."""
+        from diffusion_pruning_tpu_torch.parallel.tp import gather_state, shard_unet
         codes = (pipeline.quantizer.embedding_gs.float() >= 0.5).float().cpu().numpy()
+        mesh = pipeline.mesh
         dense = pipeline.unet.state_dict()
+        if mesh is not None:
+            dense = gather_state(mesh.model, dense, pipeline.unet.shard.plan)
         models, ratios = [], []
         for e in range(codes.shape[0]):
             plan = make_expert_plan(spec, codes[e])
@@ -91,7 +102,8 @@ class ExpertServer:
                 sd = slice_expert_params(dense, plan)
             with torch.inference_mode(False):
                 sd = {k: v.to(pipeline.device, param_dtype) for k, v in sd.items()}
-            models.append(build_expert(cfg, plan, sd))
+            expert = build_expert(cfg, plan, sd)
+            models.append(expert if mesh is None else shard_unet(expert, mesh))
             ratios.append(expert_macs_ratio(spec, plan))
         return cls(pipeline, models, ratios, batch_size)
 

@@ -15,6 +15,13 @@ DDIM with a decoded snapshot every few steps) and `depth_analysis_arch`.
 With a `safety_checker` (`models/safety.SafetyChecker`), `__call__` screens
 the decoded images: flagged ones come back black, and the flags are a fourth
 return value.
+
+With a `mesh` (a `parallel.tp.DpTpMesh`, set by `parallel.tp.shard_pipeline`
+with the U-Net sharded on its model axis), encoding and routing run whole on
+every rank; the denoise and the decode take this rank's rows on the data
+axis when the batch divides over it (else every row, as the JAX pipeline
+keeps a (1, 77) negative prompt whole), and the rows are gathered back, so
+every rank returns the full batch.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
 from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextEncoder
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL
+from diffusion_pruning_tpu_torch.ops.gates import match_batch
+from diffusion_pruning_tpu_torch.parallel.mesh import all_gather, rank_slice
 from diffusion_pruning_tpu_torch.schedulers import (
     DDIMSampler,
     DiffusionSchedule,
@@ -61,6 +70,7 @@ class PruningPipeline:
         self.schedule = schedule or DiffusionSchedule()
         self.sampler = sampler
         self.safety_checker = self._place(safety_checker)
+        self.mesh = None  # a `parallel.tp.DpTpMesh` once `shard_pipeline` sets one
 
     def _place(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
         return None if module is None else module.to(self.device).eval()
@@ -75,6 +85,20 @@ class PruningPipeline:
         pipe = copy.copy(self)
         pipe.unet = self._place(unet)
         return pipe
+
+    def _splits(self, n: int) -> bool:
+        return self.mesh is not None and n % self.mesh.data.world_size == 0
+
+    def _data_shard(self, x: Optional[torch.Tensor], n: int) -> Optional[torch.Tensor]:
+        """This rank's rows on the data axis of a batch of n rows (x with n
+        rows; x with one row, None, or a batch that does not divide, whole)."""
+        if x is None or x.shape[0] == 1 or not self._splits(n):
+            return x
+        return match_batch(x, n)[rank_slice(self.mesh.data, n)]
+
+    def _data_gather(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The n rows of a batch every data rank holds its rows of."""
+        return all_gather(self.mesh.data, x) if self._splits(n) else x
 
     # ------------------------------------------------------------------
 
@@ -127,16 +151,22 @@ class PruningPipeline:
                 height: Optional[int] = None, width: Optional[int] = None,
                 latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """CFG trajectory of `self.sampler`. Initial latents are `latents` if
-        given, else standard normals from `generator` (f32, NHWC)."""
-        latents = self._initial_latents(generator, prompt_embeds.shape[0], latents, height,
-                                        width)
-        model_fn = self._model_fn(prompt_embeds, neg_embeds, arch, guidance_scale)
-        return self._sampler().sample(model_fn, latents, num_inference_steps)
+        given, else standard normals from `generator` (f32, NHWC). Under a
+        mesh, of this rank's rows, gathered."""
+        n = prompt_embeds.shape[0]
+        latents = self._initial_latents(generator, n, latents, height, width)
+        shard = [self._data_shard(x, n) for x in (prompt_embeds, neg_embeds, arch, latents)]
+        model_fn = self._model_fn(*shard[:3], guidance_scale)
+        out = self._sampler().sample(model_fn, shard[3], num_inference_steps)
+        return self._data_gather(out, n)
 
     @torch.inference_mode()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
-        """Latents → images in [0, 1], NHWC, float32."""
-        return torch.clamp(self.vae.decode(latents).float() / 2 + 0.5, 0.0, 1.0)
+        """Latents → images in [0, 1], NHWC, float32 (under a mesh, of this
+        rank's rows, gathered)."""
+        n = latents.shape[0]
+        images = self.vae.decode(self._data_shard(latents, n))
+        return self._data_gather(torch.clamp(images.float() / 2 + 0.5, 0.0, 1.0), n)
 
     # ------------------------------------------------------------------
 

@@ -50,8 +50,20 @@ skips together. With `zero1` the AdamW moments are sharded over the ranks
 `min(1, max_grad_norm / (‖g‖ + 1e-12))` (the JAX package's ZeRO-1 clip, not
 the one-device formula), AdamW's arithmetic updates this rank's row of the
 flat f32 masters, the rows are gathered back and the compute copy is
-refreshed. The masters stay replicated. The 2-D data × model step (tensor
-parallelism) is ROADMAP A4 and raises.
+refreshed. The masters stay replicated.
+
+The 2-D data × model step (`make_finetune_step_gspmd`, the JAX package's
+GSPMD step) runs a student and a teacher sharded on the model axis of a
+`parallel.tp.DpTpMesh` (`parallel.tp.shard_unet`) with global-batch
+semantics: it equals the one-process step at the same global batch and
+draws. Each rank takes its data rows of the global batch; the draws are the
+global batch's (given, or drawn from one generator every rank seeds alike)
+cut to those rows, so every rank of a model group sees the same ones. The
+gradients of split leaves stay this rank's slices; every leaf's gradient and
+the metrics are averaged over the data axis only; the skip and the clip read
+the global norm (the split leaves' squares summed over the model axis, the
+replicated ones counted once). AdamW runs on the f32 master shards, its
+moments at their shapes; there is no ZeRO-1 under tensor parallelism.
 """
 from __future__ import annotations
 
@@ -65,7 +77,15 @@ from diffusion_pruning_tpu_torch.losses import diffusion_loss, snr_weights
 from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextEncoder
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL
-from diffusion_pruning_tpu_torch.parallel.mesh import DataMesh, all_gather, pmean_, pmean_dict
+from diffusion_pruning_tpu_torch.parallel.mesh import (
+    DataMesh,
+    all_gather,
+    pmean_,
+    pmean_dict,
+    psum,
+    rank_slice,
+)
+from diffusion_pruning_tpu_torch.parallel.tp import DpTpMesh
 from diffusion_pruning_tpu_torch.parallel.zero1 import (
     flat_size,
     gather_shards,
@@ -87,8 +107,6 @@ from diffusion_pruning_tpu_torch.training.pruner import (
 )
 
 LOSS_TERMS = ("loss", "diffusion_loss", "distillation_loss", "block_loss")
-TENSOR_PARALLEL = ("tensor parallelism (the 2-D data × model fine-tune step) is ROADMAP A4, "
-                   "not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,13 +419,23 @@ def make_finetune_step(mods: FineTunerModules, cfg: FineTuneConfig, optimizer: A
         raise ValueError("zero1 needs a mesh and make_finetune_optimizer(..., zero1_mesh=mesh)")
     if not zero1 and isinstance(optimizer, Zero1AdamW):
         raise ValueError("a Zero1AdamW steps only under zero1=True")
+    return _step(mods, cfg, optimizer, accum_steps, zero1, mesh, None)
+
+
+def _step(mods: FineTunerModules, cfg: FineTuneConfig, optimizer: AdamW, accum_steps: int,
+          zero1: bool, mesh: Optional[DataMesh], tp: Optional[DpTpMesh]) -> Callable:
+    """The step of `make_finetune_step` (`tp` None) and of
+    `make_finetune_step_gspmd` (`mesh` its data axis)."""
     masters = optimizer.masters
+    split = tp is not None and tp.model.distributed  # a model axis of one splits nothing
+    norm = _tp_global_norm(mods.student, masters, tp) if split else _global_norm
 
     def step(batch, draws=None, generator=None, mark=_no_mark):
         optimizer.zero_grad(set_to_none=True)
         terms = []
         for mb, mb_draws in _micro_batches(batch, draws, accum_steps):
-            mb_draws = complete_draws(mods, cfg, mb, mb_draws, generator)
+            mb_draws = (complete_draws(mods, cfg, mb, mb_draws, generator) if tp is None
+                        else rank_draws(mods, cfg, mb, mb_draws, generator, tp))
             loss, aux = compute_losses(mods, cfg, mb, mb_draws, mark)
             loss.backward()
             masters.accumulate_grads()
@@ -425,7 +453,7 @@ def make_finetune_step(mods: FineTunerModules, cfg: FineTuneConfig, optimizer: A
         if mesh is not None:
             pmean_(mesh, grads)
             metrics = pmean_dict(mesh, metrics)
-        gnorm = _global_norm(grads)
+        gnorm = norm(grads)
         skipped = not bool(torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm))
         if not skipped:
             if zero1:
@@ -449,18 +477,69 @@ def make_finetune_validation_step(mods: FineTunerModules, cfg: FineTuneConfig,
                                   mesh: Optional[DataMesh] = None) -> Callable:
     """Loss-only step for the held-out split: val(batch, draws=None,
     generator=None) -> the loss terms, with no gradient and no update; with
-    a `mesh`, of this rank's rows, averaged over the ranks."""
+    a `mesh`, of this rank's rows, averaged over the ranks; with a
+    `DpTpMesh`, of this rank's data rows with the global batch's draws
+    (`rank_draws`), averaged over the data axis."""
+    tp = mesh if isinstance(mesh, DpTpMesh) else None
 
     @torch.no_grad()
     def val(batch, draws=None, generator=None):
-        draws = complete_draws(mods, cfg, batch, draws, generator)
+        if tp is None:
+            draws = complete_draws(mods, cfg, batch, draws, generator)
+        else:
+            draws = rank_draws(mods, cfg, batch, draws, generator, tp)
         terms = compute_losses(mods, cfg, batch, draws)[1]
-        return terms if mesh is None else pmean_dict(mesh, terms)
+        if mesh is None:
+            return terms
+        return pmean_dict(mesh if tp is None else tp.data, terms)
 
     return val
 
 
-def make_finetune_step_gspmd(*args, **kwargs):
-    """The JAX package's 2-D data × model step: not ported yet."""
-    raise NotImplementedError(f"make_finetune_step_gspmd: {TENSOR_PARALLEL}")
+def rank_draws(mods: FineTunerModules, cfg: FineTuneConfig, batch: Dict[str, torch.Tensor],
+               draws: Optional[Dict[str, torch.Tensor]], generator: Optional[torch.Generator],
+               mesh: DpTpMesh) -> Dict[str, torch.Tensor]:
+    """This rank's data rows of the draws of the global batch (`batch` is
+    this rank's rows of it, one of n_data equal parts): `draws` holds the
+    global batch's rows, and what it lacks is drawn at the global batch's
+    shapes from `generator`, which every rank seeds alike."""
+    rows = batch["input_ids"].shape[0] * mesh.data.world_size
+    if draws is None or any(k not in draws for k in ("vae_eps", "noise", "timesteps")):
+        shapes = {k: torch.empty((rows, *v.shape[1:]), device="meta") for k, v in batch.items()}
+        draws = complete_draws(mods, cfg, shapes, draws, generator)
+    mine = rank_slice(mesh.data, rows)
+    return {k: v[mine] for k, v in draws.items()}
+
+
+def _tp_global_norm(student: GatedUNet, masters: MasterWeights, mesh: DpTpMesh) -> Callable:
+    """norm(grads): the global gradient norm of a student sharded on the
+    model axis: the split leaves' squares summed over the axis, each
+    replicated leaf's counted once."""
+    split = set(student.shard.split_keys)
+    is_split = [name in split for name in masters.names]
+
+    def norm(grads):
+        sq = [torch.linalg.vector_norm(g.float()).square() for g in grads]
+        zero = torch.zeros((), device=grads[0].device)
+        split_sq = sum((s for s, t in zip(sq, is_split) if t), zero)
+        replicated_sq = sum((s for s, t in zip(sq, is_split) if not t), zero)
+        return torch.sqrt(psum(mesh.model, split_sq) + replicated_sq)
+
+    return norm
+
+
+def make_finetune_step_gspmd(mods: FineTunerModules, cfg: FineTuneConfig, optimizer: AdamW,
+                             mesh: DpTpMesh, accum_steps: int = 1) -> Callable:
+    """The 2-D data × model train step (the JAX package's GSPMD step):
+    step(batch, draws=None, generator=None, mark=...) -> the metrics of
+    `make_finetune_step`. `mods.student` and `mods.teacher` are sharded on
+    the model axis of `mesh` (`parallel.tp.shard_unet`), `optimizer` holds
+    the student's master shards, `batch` is this rank's data rows of the
+    global batch and `draws` (one mapping per micro-batch) the global
+    batch's; the semantics are the global batch's (module docstring)."""
+    if isinstance(optimizer, Zero1AdamW):
+        raise ValueError("the 2-D step runs AdamW on the master shards, without ZeRO-1")
+    if getattr(mods.student, "shard", None) is None:
+        raise ValueError("the 2-D step's student is a sharded U-Net (parallel.tp.shard_unet)")
+    return _step(mods, cfg, optimizer, accum_steps, False, mesh.data, mesh)
 

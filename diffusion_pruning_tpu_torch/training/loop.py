@@ -34,6 +34,13 @@ codebook's gumbel noise); a second generator, seeded from (seed, rank)
 (`utils/launch.rank_seed`), gives each rank its own draws. A ZeRO-1
 optimizer's checkpoint holds its moments gathered from every rank
 (`training/finetuner.Zero1AdamW`).
+
+Tensor parallel (`FineTuneLoop` with a `parallel.tp.DpTpMesh` and the
+student's `shard`): the steps draw from the one generator every rank seeds
+alike (the 2-D step cuts the global batch's draws to the rank's rows); a
+checkpoint's masters, AdamW moments and EMA are gathered to full tensors
+(a collective) and rank 0 writes them, with the keys and shapes of a
+one-process run's, and a resume cuts them to the rank's shard again.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from diffusion_pruning_tpu_torch.parallel.mesh import DataMesh, barrier
+from diffusion_pruning_tpu_torch.parallel.tp import DpTpMesh, gather_state, shard_params
 from diffusion_pruning_tpu_torch.utils.checkpoint import CheckpointManager
 from diffusion_pruning_tpu_torch.utils.export import export_pruning_checkpoint
 from diffusion_pruning_tpu_torch.utils.launch import rank_seed
@@ -91,8 +99,9 @@ class _Loop:
     def draw_kwargs(self) -> Dict[str, torch.Generator]:
         """The generators a step or validation call takes: the one stream on
         one process; under a mesh the rank's stream, and the shared one for
-        the codebook noise where the step draws it."""
-        if self.mesh is None:
+        the codebook noise where the step draws it; under a `DpTpMesh` the
+        one stream (the 2-D step cuts the global draws)."""
+        if self.mesh is None or isinstance(self.mesh, DpTpMesh):
             return {"generator": self.generator}
         out = {"generator": self.rank_generator}
         if self.shares_codebook_noise:
@@ -289,14 +298,21 @@ class FineTuneLoop(_Loop):
     count, the skipped steps and the EMA; `arch_vector.pt` is written beside
     it when the loop has one. A resumed run with `ema_decay` whose checkpoint
     has no EMA starts the EMA from the restored weights. With a `mesh` the
-    steps are the mesh's (`make_finetune_step(..., mesh=mesh)`)."""
+    steps are the mesh's (`make_finetune_step(..., mesh=mesh)`); with a
+    `DpTpMesh` and `shard`, the student's `parallel.tp.UNetShard`, the 2-D
+    step's (`make_finetune_step_gspmd`), and checkpoints hold full tensors
+    (module docstring)."""
     batch_keys = ("pixel_values", "input_ids", "latent_mean", "latent_logvar")
 
     def __init__(self, step_fn: Callable, val_fn: Optional[Callable], optimizer,
                  loop_cfg: LoopConfig, run_dir: str, arch_vector=None,
                  tracker: Optional[Tracker] = None, seed: int = 43,
-                 ema_decay: Optional[float] = None, mesh: Optional[DataMesh] = None):
+                 ema_decay: Optional[float] = None, mesh: Optional[DataMesh] = None,
+                 shard=None):
+        if (shard is None) != (not isinstance(mesh, DpTpMesh)):
+            raise ValueError("a tensor-parallel loop takes a DpTpMesh and the student's shard")
         self.step_fn, self.val_fn = step_fn, val_fn
+        self.shard = shard
         self.optimizer = optimizer
         self.masters = optimizer.masters
         self.loop_cfg = loop_cfg
@@ -312,11 +328,39 @@ class FineTuneLoop(_Loop):
     def _fresh_ema(self) -> Dict[str, torch.Tensor]:
         return {n: m.detach().clone() for n, m in self.masters.state_dict().items()}
 
+    def _full(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tensors by the student's names, whole (gathered under tensor
+        parallelism, a collective)."""
+        if self.shard is None:
+            return tensors
+        return gather_state(self.shard.axis, tensors, self.shard.plan)
+
+    def _mine(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors by the student's names cut to this rank's shard."""
+        if self.shard is None:
+            return tensors
+        axis = self.shard.axis
+        return shard_params(tensors, axis.rank, axis.world_size, self.shard.plan)
+
+    def _optimizer_state(self, state: Dict, convert) -> Dict:
+        """An optimizer state dict with each parameter's AdamW moments passed
+        through convert({name: tensor})."""
+        names = self.masters.names
+        out = dict(state, state={i: dict(s) for i, s in state["state"].items()})
+        for key in ("mu", "nu"):
+            moments = convert({names[i]: s[key] for i, s in out["state"].items()})
+            for i, s in out["state"].items():
+                s[key] = moments[names[i]]
+        return out
+
     def state_dict(self) -> Dict:
-        state = {"student": self.masters.state_dict(), "optimizer": self.optimizer.state_dict(),
+        optimizer = self.optimizer.state_dict()
+        if self.shard is not None:
+            optimizer = self._optimizer_state(optimizer, self._full)
+        state = {"student": self._full(self.masters.state_dict()), "optimizer": optimizer,
                  "step": self.global_step, "skipped_steps": self.skipped_steps}
         if self.ema is not None:
-            state["ema"] = self.ema
+            state["ema"] = self._full(self.ema)
         return state
 
     def save_checkpoint(self):
@@ -330,11 +374,14 @@ class FineTuneLoop(_Loop):
             return
         step = None if self.loop_cfg.resume_from == "latest" else int(self.loop_cfg.resume_from)
         state = self.ckpt.restore(step)
-        self.masters.load_state_dict(state["student"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self.masters.load_state_dict(self._mine(state["student"]))
+        optimizer = state["optimizer"]
+        if self.shard is not None:
+            optimizer = self._optimizer_state(optimizer, self._mine)
+        self.optimizer.load_state_dict(optimizer)
         if self.ema is not None:
             if "ema" in state:
-                for name, t in state["ema"].items():
+                for name, t in self._mine(state["ema"]).items():
                     self.ema[name].copy_(t)
             else:
                 logger.info("the checkpoint has no EMA: it starts from the restored weights")

@@ -332,9 +332,11 @@ def test_validation_step_gives_the_step_losses_without_updating(world):
 
 def test_data_parallel_branches_raise(world):
     """ZeRO-1 without a mesh, or without the mesh's `Zero1AdamW`, and a
-    `Zero1AdamW` outside ZeRO-1, raise; the 2-D data × model step (tensor
-    parallelism) raises naming ROADMAP A4."""
+    `Zero1AdamW` outside ZeRO-1, raise; the 2-D data × model step at a 1 × 1
+    mesh (a student sharded on a model axis of one) equals the one-process
+    step bit for bit."""
     from diffusion_pruning_tpu_torch.parallel.mesh import data_mesh
+    from diffusion_pruning_tpu_torch.parallel.tp import dp_tp_mesh, shard_unet
     mods = _port(world)
     cfg = ft.FineTuneConfig()
     opt = ft.make_finetune_optimizer(cfg, ft.MasterWeights(mods.student), B)
@@ -346,8 +348,20 @@ def test_data_parallel_branches_raise(world):
                                     zero1_mesh=data_mesh("cpu"))
     with pytest.raises(ValueError, match="Zero1AdamW"):
         ft.make_finetune_step(mods, cfg, z1)
-    with pytest.raises(NotImplementedError, match="A4"):
-        ft.make_finetune_step_gspmd(mods, cfg, opt, None)
+    batch, draws = _port_batch(_batch()), _jax_draws(jax.random.PRNGKey(40))
+    runs = {}
+    for name in ("one_process", "gspmd_1x1"):
+        m = _port(world)
+        if name == "gspmd_1x1":
+            mesh = dp_tp_mesh(1, 1, "cpu")
+            m.student, m.teacher = shard_unet(m.student, mesh), shard_unet(m.teacher, mesh)
+        o = ft.make_finetune_optimizer(cfg, ft.MasterWeights(m.student), B)
+        step = (ft.make_finetune_step(m, cfg, o) if name == "one_process"
+                else ft.make_finetune_step_gspmd(m, cfg, o, mesh))
+        runs[name] = (step(batch, draws), o.masters.state_dict())
+    (m1, p1), (m2, p2) = runs["one_process"], runs["gspmd_1x1"]
+    assert {k: float(v) for k, v in m1.items()} == {k: float(v) for k, v in m2.items()}
+    assert list(p1) == list(p2) and all(torch.equal(p1[k], p2[k]) for k in p1)
 
 
 # ---------------------------------------------------------------- the loop

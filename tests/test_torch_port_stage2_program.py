@@ -157,7 +157,9 @@ def test_finetune_baseline_cli_runs_every_pruning_type(stage1, tmp_path, pruning
 
 def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monkeypatch):
     """No card without `--device cpu`; the Hub upload (A5);
-    `optim.tensor_parallel` > 1 (tensor parallelism, A4); a `--mesh_shape`
+    `optim.tensor_parallel` 2 at world size 1 (the finetune entry point's
+    mesh needs a world it divides; the baseline one runs data parallel
+    only); a `--mesh_shape`
     other than the launch's world size (1 here); `optim.zero1` in the
     baseline entry point, which runs without ZeRO-1; a missing `--expert_id`.
     Each raises before the run directory is made. An existing data_dir is
@@ -174,8 +176,10 @@ def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monke
                                               **{"training.hf_hub.push_to_hub": True}), []),
             (ValueError, "--mesh_shape 2 differs from the world size 1", base,
              ["--mesh_shape", "2"]),
-            (NotImplementedError, "A4", _yaml(FINETUNE_YAML, tmp_path, "t.yaml",
-                                              **{"training.optim.tensor_parallel": 2}), []),
+            (ValueError, ("optim.tensor_parallel 2 does not divide the world size 1"
+                          if main is finetune.main else "runs data parallel only"),
+             _yaml(FINETUNE_YAML, tmp_path, "t.yaml", **{"training.optim.tensor_parallel": 2}),
+             []),
         )
         if main is finetune_baseline.main:
             cases += ((ValueError, "without ZeRO-1", _yaml(FINETUNE_YAML, tmp_path, "z.yaml",

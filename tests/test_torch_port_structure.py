@@ -130,7 +130,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                        "config", "arg_utils", "logging_utils", "checkpoint", "export",
                        "model_card", "launch")),
                    "diffusion_pruning_tpu_torch.parallel.mesh",
-                   "diffusion_pruning_tpu_torch.parallel.zero1"}
+                   "diffusion_pruning_tpu_torch.parallel.zero1",
+                   "diffusion_pruning_tpu_torch.parallel.tp"}
         print(len(names), bad, sorted(serving_modules - set(names)))
         sys.exit(1 if bad or len(names) < 20 or not serving_modules <= set(names) else 0)
     """)
