@@ -140,10 +140,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   forward's sites; then 16 prompts at 256px, DDIM-25, CFG
                   7.5, in two submits of 8 through a `ServingQueue`: `flush`
                   (experts) and `flush_async` (hybrid) and the gated
-                  pipeline, in turns for two rounds (request ids, slot
+                  pipeline, in turns for one round, phase 19 has the turns (request ids, slot
                   accounting, finite images in [0, 1]; img/s of each); one
-                  request of 2 prompts under PNDM and under DPM++; one expert
-                  flush under torch.profiler;
+                  request of 2 prompts under PNDM and under DPM++ (all eager,
+                  every denoise cache emptied, `eager_programs`; its warm-up
+                  captures the server's CUDA graphs, which phase 19 replays);
  13. stage 1 as a program — seeded random SD-2.1-width weights written in
                   bf16 as diffusers/HF checkpoint folders (unet/, vae/,
                   text_encoder/, an MPNet folder) under build/ by the port's
@@ -251,8 +252,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
  17. evaluation and serving through the entry points — on phase 13's weights
                   and stage-1 run, phase 14's expert and phase 15's COCO
                   folder: `cli.filter_dataset` (phase 13's router on the
-                  folder's captions); `cli.serve` in experts and routed modes
-                  in turns (16 of the folder's validation captions a call in
+                  folder's captions); `cli.serve` in experts and routed modes,
+                  once each, phase 19 has the turns (16 of the folder's
+                  validation captions a call in
                   two waves of 8, tiers up to 4, DDIM-10, phase 14's stage-2
                   masters in its expert's slot): 16 uint8 256×256 images, each
                   prompt's expert, both attention kernels launched; then
@@ -306,8 +308,42 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   times, peak memory and reduction seconds per rank on
                   summary lines;
                   phase 13's to 18's written files are removed;
+ 19. the last modules — (sd21-256-graphs, run right after phase 12 on its
+                  server and the graphs its warm-up captured) the
+                  routed pipeline (8 prompts, DDIM-25, CFG 7.5) with its
+                  trajectory captured as a CUDA graph
+                  (`PruningPipeline.prepare_denoise`, `pipelines/aot.py`)
+                  and eager, GRAPH_TURNS times each in turns; then phase
+                  12's 16 steered prompts in experts and hybrid modes, eager
+                  (every denoise cache emptied) and through the graphs
+                  phase 12's `ExpertServer.warmup` captured (one per
+                  (expert, tier) and per gated tier), GRAPH_TURNS times each
+                  in turns, each program replayed as often as its tier plan
+                  runs it; one
+                  captured request under `fused_norm_conv`, `fused_norms`,
+                  PNDM and DPM++ each beside the eager one: captured images equal
+                  to eager ones bit for bit (or within GRAPH_FALLBACK_ATOL,
+                  reported), the same expert indices and routes, the same
+                  launch counts (each replay adds the launches its capture
+                  recorded), two back-to-back captured calls on different
+                  latents that do not alias; img/s, capture and warm-up
+                  seconds, the graphs, the pool's bytes and peak memory by
+                  mode, one captured request's busy share under
+                  `utils.profiling.trace` beside phase 6's eager one;
+                  (sd21-256-convergence, after phase 18) `cli.convergence_run`
+                  at SD-2.1 width on the JAX script's smoke schedule (60
+                  steps at B = 8, 20 pretraining, 10 stage-2 steps, one
+                  expert, planted redundancy) in this process: its summary
+                  and metrics written, every logged loss finite, the
+                  training kernels launched; C1-C5 are readings;
+                  (sd21-256-replay) `cli.replay_chain --experts 1` on phase
+                  13's weights and phase 15's tokenizer files, every link a
+                  subprocess on the card: each exits 0, finite FID, CLIP-score
+                  and CMMD, the seconds of each link;
 then a `kernels` JSON line (every kernel of the paths, each with its
-launches in the runs of phases 5, 8, 11, 12, 13, 14, 15, 16, 17 and 18)
+launches in the runs of phases 5, 8, 11, 12, 13, 14, 15, 16, 17, 18 and 19;
+phase 19's under `graphs`, the captured calls' replays alone, and
+`convergence`)
 and, last, the device JSON line.
 
 Kernel and library times (`ms`, `library_ms`) are device times: the launches
@@ -394,6 +430,10 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def took(name: str, t0: float) -> None:
+    log(f"{name} took {time.perf_counter() - t0:.1f}s")
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -2650,7 +2690,8 @@ EXPERT_B_EFF = 8           # the expert forwards of the check: 4 prompts under C
 # tier shape: 4 and a tail of 1, a padded 4 (3 prompts), 2 and 1
 EXPERT_COUNTS = (5, 3, 1, 2, 1, 1, 2, 1)
 EXPERT_PROMPTS = sum(EXPERT_COUNTS)
-EXPERT_ROUNDS = 2          # timed rounds of expert, hybrid and gated serving, in turns
+EXPERT_ROUNDS = 1          # timed rounds of expert, hybrid and gated serving, in turns
+                           # (phase 19 serves the same prompts eager GRAPH_TURNS times)
 # a served image against the same prompt run alone, with the same initial
 # latents, through its expert's pipe (or, a hybrid remainder, through the
 # gated pipe under its code): relative L2 per image. Set from the readings,
@@ -2948,12 +2989,12 @@ def tier_plans(server, pending, hybrid):
     return plans
 
 
-def serve_queue(server, requests, hybrid):
+def serve_queue(server, requests, hybrid, phase="serving_experts"):
     """The prompts through a ServingQueue in two submits of 8, with their
     routing noise and initial latents, then `flush` (expert mode) or
     `flush_async` (hybrid); checks the routing, the request ids, the slot
-    accounting and the images. Returns the row and the images (N, H, W, 3)
-    on the host."""
+    accounting and the images. Returns the row (with each request's expert)
+    and the images (N, H, W, 3) on the host."""
     import torch
     from diffusion_pruning_tpu_torch.pipelines.expert_server import ServingQueue
     queue = ServingQueue(server, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
@@ -2972,9 +3013,10 @@ def serve_queue(server, requests, hybrid):
     seconds = time.perf_counter() - t0
     images = torch.stack([results[r] for r in sorted(results)]) if results else None
     tiers = tier_plans(server, pending, hybrid)
-    row = {"phase": "serving_experts", "mode": "hybrid" if hybrid else "experts",
+    row = {"phase": phase, "mode": "hybrid" if hybrid else "experts",
            "prompts": EXPERT_PROMPTS, "resolution": 256, "steps": STEPS, "guidance": GUIDANCE,
            "seconds": seconds, "images_per_sec": EXPERT_PROMPTS / seconds,
+           "routes": [queue.routes[r] for r in rids],
            "pending_per_expert": {str(k): v for k, v in sorted(pending.items())},
            "tiers": tiers, "slots_used": queue.last_slots_used,
            "slots_planned": sum(t for p in tiers.values() for t, _ in p),
@@ -3097,29 +3139,30 @@ def serve_samplers(pipe, requests, device):
     return rows
 
 
-def profile_expert_flush(server, requests):
-    """One expert-mode flush of the prompts under torch.profiler: device
-    kernel time by category and the device's busy share. Only the device's
-    activity is recorded: the host's op events of a whole flush slow it
-    and take minutes to reduce."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve_queue(server, requests, False)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    row = {"phase": "profile_experts", "mode": "experts", "prompts": EXPERT_PROMPTS,
-           "wall_ms": wall_ms, **device_kernel_times(prof, wall_ms)}
-    emit(row)
-    return row
+@contextlib.contextmanager
+def eager_programs(server):
+    """Serve through the eager loop: every denoise cache of `server` (its
+    experts' and the gated pipeline's) emptied for the block and restored
+    after."""
+    caches = [*server._expert_caches.values(), server.base_pipeline._denoise_cache]
+    saved = [dict(c) for c in caches]
+    for c in caches:
+        c.clear()
+    try:
+        yield
+    finally:
+        for c, kept in zip(caches, saved):
+            c.clear()
+            c.update(kept)
 
 
 def serve_experts(pipe, mpnet, unet, device):
     """Phase 12: K = 8 experts cut from a seeded codebook, checked against the
-    f32 dense U-Net, then served: two rounds of expert, hybrid and gated
+    f32 dense U-Net, then served: EXPERT_ROUNDS rounds of expert, hybrid and gated
     serving of the same 16 prompts (routed to every expert), in turns (every
     launch count set to 0 before the first and read after the last), the
     first round's served images held against each prompt run alone, the
-    PNDM and DPM++ requests and one profiled expert flush."""
+    PNDM and DPM++ requests."""
     import torch
     from diffusion_pruning_tpu_torch.pipelines.expert_server import ExpertServer
 
@@ -3140,29 +3183,34 @@ def serve_experts(pipe, mpnet, unet, device):
     check_rows, check = check_experts(server, unet, codes, device)
     lap("expert_check")
     torch.backends.cudnn.allow_tf32 = True  # serving as phase 5 serves
+    # the server's CUDA graphs, one per (expert, tier) and gated tier: phase 19
+    # replays them; this phase serves through the eager loop (`eager_programs`)
+    held = torch.cuda.memory_allocated()
     warm = server.warmup(STEPS, GUIDANCE, hybrid=True)
+    warm["graph_pool_bytes"] = torch.cuda.memory_allocated() - held
     lap("warmup")
+    warm["seconds"] = parts["warmup"]
     requests = expert_requests(device, mpnet, pipe, codes)
     seconds = {"experts": [], "hybrid": [], "gated": []}
     served, tiers = {}, {}
-    reset_launch_counts()
-    for _ in range(EXPERT_ROUNDS):
-        for mode, hybrid in (("experts", False), ("hybrid", True)):
-            row, images = serve_queue(server, requests, hybrid)
-            seconds[mode].append(row["seconds"])
-            served.setdefault(mode, images)
-            tiers[mode] = row["tiers"]
-        seconds["gated"].append(serve_gated(pipe, requests)["seconds"])
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    lap("serving")
-    served_checks = {mode: check_served_images(server, requests, served[mode], mode == "hybrid")
-                     for mode in ("experts", "hybrid")}
-    lap("served_image_check")
-    samplers = serve_samplers(pipe, requests, device)
-    lap("samplers")
-    profiled = profile_expert_flush(server, requests)
-    lap("profiled_flush")
+    with eager_programs(server):
+        reset_launch_counts()
+        for _ in range(EXPERT_ROUNDS):
+            for mode, hybrid in (("experts", False), ("hybrid", True)):
+                row, images = serve_queue(server, requests, hybrid)
+                seconds[mode].append(row["seconds"])
+                served.setdefault(mode, images)
+                tiers[mode] = row["tiers"]
+            seconds["gated"].append(serve_gated(pipe, requests)["seconds"])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        lap("serving")
+        served_checks = {mode: check_served_images(server, requests, served[mode],
+                                                   mode == "hybrid")
+                         for mode in ("experts", "hybrid")}
+        lap("served_image_check")
+        samplers = serve_samplers(pipe, requests, device)
+        lap("samplers")
     torch.backends.cudnn.allow_tf32 = False
     summary = {"phase": "serving_experts_summary", "experts": len(server.expert_models),
                "seconds_by_part": parts, "warmup": warm,
@@ -3175,14 +3223,13 @@ def serve_experts(pipe, mpnet, unet, device):
                "served_planted_fault_least": {
                    k: min(r["rel_l2_planted_fault_next_rows_image"])
                    for k, r in served_checks.items()},
-               "profiled_flush_busy_share": profiled["device_busy_share"],
                "sampler_seconds": {r["sampler"]: r["seconds"] for r in samplers},
                "expert_forward_ms_b8": check["forward_ms"],
                "gated_forward_ms_b8": check["gated_forward_ms"],
                "expert_forward_device_ms_b8": check["device_ms"],
                "gated_forward_device_ms_b8": check["gated_device_ms"]}
     emit(summary)
-    return summary, counts, check
+    return summary, counts, check, server, requests
 
 
 def forward_entry(name, rows, train_rows, worst, train_check, serve_counts, train_launches,
@@ -3333,10 +3380,15 @@ def sass_counts(build):
     if not os.path.exists(tool):
         return "not measured"
     out = {}
-    for source in build.SOURCES:
-        lib = build._library_path(source)
-        sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
-                              text=True).stdout
+    from concurrent.futures import ThreadPoolExecutor
+
+    def dump(source):
+        return subprocess.run([tool, "--dump-sass", str(build._library_path(source))],
+                              capture_output=True, text=True).stdout
+
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:  # one cuobjdump a library, together
+        dumps = dict(zip(build.SOURCES, pool.map(dump, build.SOURCES)))
+    for source, sass in dumps.items():
         fn = None
         for line in sass.splitlines():
             if "Function :" in line:
@@ -5649,7 +5701,7 @@ EVAL_PROMPTS = 16             # served prompts a call
 EVAL_SERVE_B = 4              # the serve CLI's largest tier
 EVAL_SERVE_WAVE = 8           # prompts a wave (two submits a call)
 EVAL_SERVE_STEPS = 10         # DDIM steps a served request
-EVAL_SERVE_TURNS = ("experts", "routed", "experts", "routed")
+EVAL_SERVE_TURNS = ("experts", "routed")  # once each; phase 19 has the turns
 EVAL_RES = 256                # the images' side (the coco yaml's resolution)
 EVAL_IMAGES = 8               # data.max_generated_samples of each generation CLI
 EVAL_MIN_IMAGES = 4           # phase 14's expert generates when the router gives it this many
@@ -6508,6 +6560,368 @@ def check_finetune_ranks(job, ranks, macs, parts):
     return ft_row
 
 
+# ---------------------------------------------------------------- phase 19
+
+GRAPH_TURNS = 3             # eager and captured turns of each cell, in one process
+GRAPH_PROMPTS = 8           # the routed pipeline's request of sd21-256-graphs
+GRAPH_FALLBACK_ATOL = 1e-3  # images in [0, 1] where a library op takes another algorithm
+GRAPH_TRACE_DIR = os.path.join(HERE, "build", "graph_trace")  # ignored by git; removed after
+CONVERGENCE_DIR = os.path.join(STAGE1_DIR, "convergence")  # under phase 13's folder
+CONVERGENCE_ARGS = ("--steps", "60", "--pretrain_steps", "20", "--ft_steps", "10", "--batch",
+                    "8", "--ft_experts", "1")   # the JAX script's docstring smoke schedule
+REPLAY_DIR = os.path.join(STAGE1_DIR, "replay")
+REPLAY_ARGS = ("--experts", "1", "--steps", "2", "--ft_steps", "2", "--infer_steps", "2")
+REPLAY_TIMEOUT = 600
+
+
+def graph_request(pipe, mpnet, device):
+    """GRAPH_PROMPTS prompts from the seed: CLIP ids, negative ids, MPNet
+    features, zero routing noise and initial latents; a second set of
+    latents for the aliasing check."""
+    import torch
+    from diffusion_pruning_tpu_torch.models.text_encoders import mean_pool
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    b, cfg = GRAPH_PROMPTS, pipe.unet.cfg
+    ids = torch.randint(0, 49408, (b, 77), device=device, generator=gen)
+    neg = torch.randint(0, 49408, (b, 77), device=device, generator=gen)
+    mp_ids = torch.randint(0, 30527, (b, 128), device=device, generator=gen)
+    mask = torch.ones(b, 128, dtype=torch.long, device=device)
+    shape = (b, cfg.sample_size, cfg.sample_size, cfg.in_channels)
+    with torch.inference_mode():
+        feats = mean_pool(mpnet(mp_ids, mask), mask)
+    return {"ids": ids, "neg": neg, "feats": feats,
+            "noise": torch.zeros(b, pipe.unet.spec.vq_dim, device=device),
+            "latents": torch.randn(shape, device=device, generator=gen),
+            "latents2": torch.randn(shape, device=device, generator=gen)}
+
+
+def routed_call(pipe, req):
+    """One routed request: (images, expert indices, seconds, launches)."""
+    import torch
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images, indices, _ = pipe(req["ids"], req["neg"], hyper_net_input=req["feats"],
+                              num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                              latents=req["latents"], route_noise=req["noise"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return images, indices, seconds, {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def programs_of(caches):
+    """The prepared programs of every dispatch table in `caches`."""
+    from diffusion_pruning_tpu_torch.pipelines import aot
+    return [p for cache in caches for d in cache.values() if isinstance(d, aot.ShapeDispatch)
+            for p in d.programs]
+
+
+def replays(programs):
+    from diffusion_pruning_tpu_torch.pipelines import aot
+    return sum(p.replays for p in programs if isinstance(p, aot.CapturedProgram))
+
+
+def same_bits(name, eager, captured):
+    """{bit_equal, max_abs}; fails unless the captured images equal the eager
+    ones bit for bit or, where a library op took another algorithm under
+    capture, within GRAPH_FALLBACK_ATOL."""
+    max_abs = float((eager.float() - captured.float()).abs().max())
+    out = {"bit_equal": bool(eager.shape == captured.shape and (eager == captured).all()),
+           "max_abs": max_abs}
+    if not out["bit_equal"] and not max_abs <= GRAPH_FALLBACK_ATOL:
+        fail(f"{name}: captured images differ from the eager ones by {max_abs}")
+    return out
+
+
+def graph_pipeline_cell(pipe, mpnet, eager_busy_share, device):
+    """The routed pipeline, eager and captured in turns: bits, launches,
+    img/s, capture seconds, peak memory, aliasing, one profiled captured
+    request. Returns the row, the routed arch and the launches of the
+    captured calls."""
+    import torch
+    from diffusion_pruning_tpu_torch.utils.profiling import trace
+    req = graph_request(pipe, mpnet, device)
+    eager, graph = pipe.with_unet(pipe.unet), pipe.with_unet(pipe.unet)
+    with torch.inference_mode():
+        arch, _ = pipe.route(pipe.encode_prompt(req["ids"][:1]), req["feats"][:1],
+                             req["noise"][:1])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    graph.prepare_denoise(STEPS, GUIDANCE, (GRAPH_PROMPTS,), arch=arch)
+    capture_s = time.perf_counter() - t0
+    pool_bytes = torch.cuda.memory_allocated() - held
+    programs = programs_of([graph._denoise_cache])
+    seconds = {"eager": [], "captured": []}
+    peaks, bits, counts_differ = {}, [], []
+    captured_counts = collections.Counter()
+    for turn in range(GRAPH_TURNS):
+        got = {}
+        for mode, p in (("eager", eager), ("captured", graph)):
+            torch.cuda.reset_peak_memory_stats()
+            images, indices, s, counts = routed_call(p, req)
+            peaks[mode] = max(peaks.get(mode, 0), torch.cuda.max_memory_allocated())
+            seconds[mode].append(s)
+            got[mode] = (images, indices, counts)
+        bits.append(same_bits("routed pipeline", got["eager"][0], got["captured"][0]))
+        captured_counts.update(got["captured"][2])
+        if not torch.equal(got["eager"][1], got["captured"][1]):
+            fail(f"captured routing differs: {got['eager'][1]} against {got['captured'][1]}")
+        if wrapper_counts(got["eager"][2]) != wrapper_counts(got["captured"][2]):
+            counts_differ.append([got["eager"][2], got["captured"][2]])
+    if counts_differ:
+        fail(f"replayed launch counts differ from the eager ones: {counts_differ[0]}")
+    if replays(programs) != GRAPH_TURNS:
+        fail(f"{GRAPH_TURNS} captured requests replayed {replays(programs)} graphs")
+    # two back-to-back calls on different inputs do not alias
+    with torch.inference_mode():
+        pe, ne = graph.encode_prompt(req["ids"]), graph.encode_prompt(req["neg"])
+        rows = arch.repeat(GRAPH_PROMPTS, 1)
+        before = launch_counts()
+        first = graph.denoise(None, pe, ne, rows, STEPS, GUIDANCE, latents=req["latents"])
+        kept = first.clone()
+        second = graph.denoise(None, pe, ne, rows, STEPS, GUIDANCE, latents=req["latents2"])
+        captured_counts.update({k: v - before[k] for k, v in launch_counts().items()})
+        want = eager.denoise(None, pe, ne, rows, STEPS, GUIDANCE, latents=req["latents2"])
+    aliasing = {"first_unchanged": bool(torch.equal(first, kept)),
+                "outputs_differ": not bool(torch.equal(first, second)),
+                "second_vs_eager": same_bits("second call", want, second)}
+    if not (aliasing["first_unchanged"] and aliasing["outputs_differ"]):
+        fail(f"back-to-back captured calls alias: {aliasing}")
+    # one captured request under the profiler (utils.profiling.trace)
+    t_trace = time.perf_counter()
+    with trace(GRAPH_TRACE_DIR) as prof:
+        t0 = time.perf_counter()
+        captured_counts.update(routed_call(graph, req)[3])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    profiled = device_kernel_times(prof, wall_ms)
+    import shutil
+    shutil.rmtree(GRAPH_TRACE_DIR, ignore_errors=True)
+    trace_s = time.perf_counter() - t_trace
+    row = {"phase": "graphs_pipeline", "prompts": GRAPH_PROMPTS, "resolution": 256,
+           "steps": STEPS, "guidance": GUIDANCE, "graphs": len(programs),
+           "capture_seconds": capture_s, "graph_pool_bytes": pool_bytes,
+           "seconds": seconds,
+           "img_per_sec": {k: GRAPH_PROMPTS / statistics.median(v) for k, v in seconds.items()},
+           "peak_memory_gib": {k: v / 2 ** 30 for k, v in peaks.items()},
+           "bits": bits, "aliasing": aliasing,
+           "captured_request_profile": {"wall_ms": wall_ms, "seconds_with_trace": trace_s,
+                                        "device_kernel_ms": profiled["device_kernel_ms"],
+                                        "device_busy_share": profiled["device_busy_share"],
+                                        "kernel_ms_by_category": profiled[
+                                            "kernel_ms_by_category"]},
+           "eager_request_busy_share_phase6": eager_busy_share}
+    emit(row)
+    return row, arch, captured_counts
+
+
+def server_programs(server):
+    """{(owner, tier): program} of every program the server's warm-up
+    prepared: owner an expert's index as a string, or "pooled" for the gated
+    U-Net's (hybrid's pooled remainders), as `tier_plans` names them. A
+    dispatch holds its programs in the order of `batch_shapes`."""
+    from diffusion_pruning_tpu_torch.pipelines import aot
+    caches = {**{str(e): c for e, c in server._expert_caches.items()},
+              "pooled": server.base_pipeline._denoise_cache}
+    return {(owner, tier): p for owner, cache in caches.items() for d in cache.values()
+            if isinstance(d, aot.ShapeDispatch) for tier, p in zip(server.batch_shapes,
+                                                                    d.programs)}
+
+
+def graph_server_cell(server, requests, warm):
+    """Phase 12's server and the graphs its warm-up captured (`warm`: the
+    warm-up's result, seconds and pool bytes): its 16 steered prompts eager
+    and captured in turns, in experts and hybrid modes. A captured turn
+    replays each program as often as its tier plan runs it, and no other.
+    Returns the row and the launches of the captured turns."""
+    import torch
+    from diffusion_pruning_tpu_torch.pipelines import aot
+    programs = server_programs(server)
+    n_graphs = sum(isinstance(p, aot.CapturedProgram) for p in programs.values())
+    if n_graphs != warm["built"] or len(programs) != warm["built"]:
+        fail(f"warmup built {warm['built']} programs, {n_graphs} of them graphs")
+    seconds = {f"{m}_{k}": [] for m in ("experts", "hybrid") for k in ("eager", "captured")}
+    peaks, bits = {}, {"experts": [], "hybrid": []}
+    captured_counts = collections.Counter()
+    t0 = time.perf_counter()
+    for turn in range(GRAPH_TURNS):
+        for mode, hybrid in (("experts", False), ("hybrid", True)):
+            got = {}
+            for kind in ("eager", "captured"):
+                before = launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                played = {k: p.replays for k, p in programs.items()}
+                if kind == "eager":
+                    with eager_programs(server):
+                        row, images = serve_queue(server, requests, hybrid, "graphs_server_turn")
+                else:
+                    row, images = serve_queue(server, requests, hybrid, "graphs_server_turn")
+                peaks[kind] = max(peaks.get(kind, 0), torch.cuda.max_memory_allocated())
+                ran = {f"{o}@{t}": p.replays - played[(o, t)] for (o, t), p in programs.items()
+                       if p.replays != played[(o, t)]}
+                want = {} if kind == "eager" else dict(collections.Counter(
+                    f"{o}@{t}" for o, plan in row["tiers"].items() for t, _ in plan))
+                if ran != want:
+                    fail(f"{mode} {kind}: replays by (owner, tier) {ran}, its tier plans "
+                         f"{want}")
+                seconds[f"{mode}_{kind}"].append(row["seconds"])
+                delta = {k: v - before[k] for k, v in launch_counts().items()}
+                if kind == "captured":
+                    captured_counts.update(delta)
+                got[kind] = (row, images, delta)
+            bits[mode].append(same_bits(f"served {mode}", got["eager"][1], got["captured"][1]))
+            if got["eager"][0]["routes"] != got["captured"][0]["routes"]:
+                fail(f"captured serving routed otherwise: {got['eager'][0]['routes']} against "
+                     f"{got['captured'][0]['routes']}")
+            if wrapper_counts(got["eager"][2]) != wrapper_counts(got["captured"][2]):
+                fail(f"replayed launch counts differ from the eager ones ({mode}): "
+                     f"{got['eager'][2]} against {got['captured'][2]}")
+    turns_s = time.perf_counter() - t0
+    row = {"phase": "graphs_server", "prompts": EXPERT_PROMPTS, "resolution": 256,
+           "steps": STEPS, "guidance": GUIDANCE,
+           "warmup": {k: warm[k] for k in ("loaded", "built")},
+           "warmup_seconds_phase12": warm["seconds"],
+           "graphs": n_graphs, "graph_pool_bytes": warm["graph_pool_bytes"],
+           "turns_seconds": turns_s,
+           "seconds": seconds,
+           "img_per_sec": {k: EXPERT_PROMPTS / statistics.median(v) for k, v in seconds.items()},
+           "peak_memory_gib": {k: v / 2 ** 30 for k, v in peaks.items()}, "bits": bits}
+    emit(row)
+    return row, captured_counts
+
+
+def graph_variants_cell(pipe, mpnet, twins, arch, device):
+    """One captured request under `fused_norm_conv`, one under `fused_norms`,
+    and one each under PNDM and DPM++ (whose history and per-step floats are
+    host state at capture), each against the eager request on the same
+    inputs. Returns the readings and the launches of the captured
+    requests."""
+    req = graph_request(pipe, mpnet, device)
+    out, captured_counts = {}, collections.Counter()
+    for flag in ("fused_norm_conv", "fused_norms", "pndm", "dpm++"):
+        if flag in twins:
+            eager = fused_pipeline(pipe, twins[flag], device)
+        else:
+            eager = pipe.with_unet(pipe.unet)
+            eager.sampler = flag
+        graph = eager.with_unet(eager.unet)
+        graph.prepare_denoise(STEPS, GUIDANCE, (GRAPH_PROMPTS,), arch=arch)
+        e_img, _, e_s, e_counts = routed_call(eager, req)
+        c_img, _, c_s, c_counts = routed_call(graph, req)
+        if wrapper_counts(e_counts) != wrapper_counts(c_counts):
+            fail(f"replayed launch counts differ under {flag}: {e_counts} against {c_counts}")
+        captured_counts.update(c_counts)
+        out[flag] = {"seconds": {"eager": e_s, "captured": c_s},
+                     "bits": same_bits(f"routed pipeline under {flag}", e_img, c_img),
+                     "launches_a_request": {k: v for k, v in c_counts.items() if v}}
+    emit({"phase": "graphs_variants", **out})
+    return out, captured_counts
+
+
+def graph_serving(pipe, mpnet, server, requests, warm, twins, eager_busy_share, device):
+    """Phase 19, cell sd21-256-graphs (run after phase 12, on its server and
+    the graphs its warm-up captured, `warm`): the routed pipeline and the
+    expert server eager and through captured CUDA graphs in turns, and one
+    captured request under each fused flag. Returns the summary and the
+    launches of the captured calls (the graphs' replays) alone."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = True  # serving as phase 5 serves
+    t0 = time.perf_counter()
+    pipe_row, arch, counts = graph_pipeline_cell(pipe, mpnet, eager_busy_share, device)
+    parts = {"pipeline": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    server_row, server_counts = graph_server_cell(server, requests, warm)
+    parts["server"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    variants, variant_counts = graph_variants_cell(pipe, mpnet, twins, arch, device)
+    parts["variants"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = counts + server_counts + variant_counts
+    server.base_pipeline._denoise_cache.clear()  # the gated graphs; later phases run eager
+    torch.backends.cudnn.allow_tf32 = False
+    summary = {"phase": "graphs_summary", "seconds_by_part": parts,
+               "pipeline_img_per_sec": pipe_row["img_per_sec"],
+               "server_img_per_sec": server_row["img_per_sec"],
+               "warmup_seconds_phase12": warm["seconds"], "graphs": server_row["graphs"],
+               "busy_share": {"captured": pipe_row["captured_request_profile"][
+                   "device_busy_share"], "eager_phase6": eager_busy_share},
+               "all_bit_equal": all(b["bit_equal"] for b in (
+                   *pipe_row["bits"], *server_row["bits"]["experts"],
+                   *server_row["bits"]["hybrid"], *(v["bits"] for v in variants.values()))),
+               "captured_launches": {k: v for k, v in counts.items() if v}}
+    emit(summary)
+    return summary, counts
+
+
+def convergence_cell(device):
+    """Phase 19, cell sd21-256-convergence: `cli.convergence_run` at SD-2.1
+    width on the JAX docstring's smoke schedule, in this process; C1-C5
+    are readings. Returns the row and its launches."""
+    import torch
+    from diffusion_pruning_tpu_torch.cli import convergence_run
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = convergence_run.run([*CONVERGENCE_ARGS, "--run_dir", CONVERGENCE_DIR])
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    torch.cuda.empty_cache()
+    for name in ("CONVERGENCE_SUMMARY.json", "metrics.jsonl"):
+        if not os.path.exists(os.path.join(CONVERGENCE_DIR, name)):
+            fail(f"the convergence run wrote no {name}")
+    steps, vals = metrics_lines(CONVERGENCE_DIR)
+    losses = [r["loss"] for r in steps] + [r["val_loss"] for r in vals]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"the convergence run logged no loss or a non-finite one: {losses}")
+    training = ("gated_flash_fwd_lse", "gated_flash_bwd_fused", "gated_flash_bwd_dq",
+                "gated_flash_bwd_dkv")
+    if not all(counts[k] > 0 for k in training):
+        fail(f"the convergence run launched no training kernel: {counts}")
+    row = {"phase": "convergence_run", "args": list(CONVERGENCE_ARGS), "seconds": seconds,
+           "criteria": {k: v["pass"] for k, v in summary["checks"].items()},
+           "all_pass": summary["all_pass"], "p_actual": summary["p_actual"],
+           "resource_ratio": summary["checks"]["C1_resource_ratio_converges"],
+           "pool_assignment": summary["pool_assignment"],
+           "stage1_samples_per_sec": summary["samples_per_sec"],
+           "expert_finetune": summary["checks"]["C5_expert_finetune_distill_decreases"],
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(row)
+    return row, counts
+
+
+def replay_cell(stage1):
+    """Phase 19, cell sd21-256-replay: `cli.replay_chain` on phase 13's
+    SD-2.1-width folders and phase 15's tokenizer files, each link a
+    subprocess of the port's entry points on the card: every link exits 0
+    and the metric values are finite. Returns the row."""
+    weights = stage1["weights"]
+    out_json = os.path.join(REPLAY_DIR, "REPLAY_RESULTS.json")
+    cmd = [sys.executable, "-m", "diffusion_pruning_tpu_torch.cli.replay_chain",
+           "--workspace", REPLAY_DIR, *REPLAY_ARGS, "--device", "cuda",
+           "--pretrained_model_name_or_path", weights,
+           "--prompt_encoder_model_name_or_path", os.path.join(weights, "mpnet"),
+           "--out_json", out_json]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=REPLAY_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the replay chain exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-6000:]}")
+    with open(out_json) as f:
+        results = json.load(f)
+    values = [r.get(k) for r in results["per_expert"].values()
+              for k in ("fid_stub", "clip_score_tiny", "cmmd_tiny")]
+    if not values or not all(isinstance(v, float) and math.isfinite(v) for v in values):
+        fail(f"the replay chain's metric values are not finite: {results['per_expert']}")
+    row = {"phase": "replay_chain", "args": list(REPLAY_ARGS), "seconds": seconds,
+           "links": len(results["chain"]),
+           "seconds_by_link": {t["step"]: t["seconds"] for t in results["chain"]},
+           "train_counts": results["train_counts"], "val_counts": results["val_counts"],
+           "per_expert": results["per_expert"]}
+    emit(row)
+    return row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6546,12 +6960,13 @@ def main() -> None:
     check_forward_build(build, sass)
     check_backward_build(build, sass)
     check_fused_build(build, sass)
+    took("phase 2", t0)
 
     # 3. kernel vs plain version
     t0 = time.perf_counter()
     rows, worst = check_attention_kernel(device)
     emit({"phase": "kernel_check_summary", "limit": REL_L2, **worst})
-    log(f"phase 3 took {time.perf_counter() - t0:.1f}s")
+    took("phase 3", t0)
 
     # 4. U-Net at full width, kernel vs plain attention
     from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
@@ -6559,7 +6974,7 @@ def main() -> None:
     gen = torch.Generator(device=device).manual_seed(SEED)
     unet = build_unet(UNetConfig.sd21(256), device, gen)
     check_unet(unet, device)
-    log(f"phase 4 took {time.perf_counter() - t0:.1f}s")
+    took("phase 4", t0)
 
     # 5. routed serving (TF32 back to PyTorch's defaults)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6569,13 +6984,15 @@ def main() -> None:
     pipe, mpnet = build_pipeline(unet, device, gen)
     calls, serve_counts = serve(pipe, mpnet, device)
     launches = serve_counts["gated_flash_fwd"]
-    log(f"phase 5 took {time.perf_counter() - t0:.1f}s")
+    took("phase 5", t0)
     s256 = sorted(c["seconds"] for c in calls[1:4])
     emit({"phase": "serving_summary", "img_per_sec_256px_median": 8 / s256[1],
           "seconds_256px_min_median_max": s256, "seconds_512px": calls[5]["seconds"]})
 
     # 6. one more call under the profiler
-    profile_call(pipe, mpnet, device)
+    t0 = time.perf_counter()
+    eager_profile = profile_call(pipe, mpnet, device)
+    took("phase 6", t0)
 
     # 7. training kernels vs their plain versions (TF32 off for the references)
     torch.backends.cudnn.allow_tf32 = False
@@ -6584,7 +7001,7 @@ def main() -> None:
     emit({"phase": "training_kernel_check_summary", **train_check})
     emit(backward_summary(train_rows))
     emit(small_forward_summary(train_rows))
-    log(f"phase 7 took {time.perf_counter() - t0:.1f}s")
+    took("phase 7", t0)
 
     # 8. the stage-1 train step at full width
     t0 = time.perf_counter()
@@ -6593,7 +7010,7 @@ def main() -> None:
     batch, train_summary = train(mods, cfg, opt, device)
     check_train_grads(mods, cfg, batch, device)
     profile_train_step(mods, cfg, opt, batch, device)
-    log(f"phase 8 took {time.perf_counter() - t0:.1f}s")
+    took("phase 8", t0)
 
     # 9. fused-norm kernels vs their plain versions (TF32 stays off for matmuls
     # and cuDNN: the f32 references of phases 9-10 run in full f32)
@@ -6603,12 +7020,12 @@ def main() -> None:
     fused_checks = check_fused_kernels(unet, device)
     check_expert_channels(device)
     check_poisoned_workspaces(device)
-    log(f"phase 9 took {time.perf_counter() - t0:.1f}s")
+    took("phase 9", t0)
 
     # 10. the U-Net under each fused flag
     t0 = time.perf_counter()
     twins, _ = check_fused_unet(unet, device)
-    log(f"phase 10 took {time.perf_counter() - t0:.1f}s")
+    took("phase 10", t0)
 
     # 11. serving and two train steps under the fused flags; the VAE and CLIP,
     # which phase 8 turned to bf16, serve in f32 again as in phase 5
@@ -6619,15 +7036,26 @@ def main() -> None:
     fused_serving, counts_gn, counts_nc = serve_fused(pipe, mpnet, twins, device)
     torch.backends.cudnn.allow_tf32 = False
     fused_train = train_fused(pipe, twins, device, gen)
-    log(f"phase 11 took {time.perf_counter() - t0:.1f}s")
+    took("phase 11", t0)
 
     # 12. expert serving: the VAE and CLIP, which phase 11's train steps turned
     # to bf16, serve in f32 again
     t0 = time.perf_counter()
     pipe.vae.float()
     pipe.text_encoder.float()
-    expert_serving, expert_counts, expert_check = serve_experts(pipe, mpnet, unet, device)
-    log(f"phase 12 took {time.perf_counter() - t0:.1f}s")
+    expert_serving, expert_counts, expert_check, server, requests = serve_experts(
+        pipe, mpnet, unet, device)
+    took("phase 12", t0)
+
+    # 19, cell sd21-256-graphs (here, on phase 12's server while it is held):
+    # the routed pipeline and the server eager and through CUDA graphs in turns
+    t0 = time.perf_counter()
+    graphs, graph_counts = graph_serving(pipe, mpnet, server, requests, expert_serving["warmup"],
+                                         twins, eager_profile["device_busy_share"], device)
+    del server, requests
+    torch.cuda.empty_cache()
+    graph_seconds = time.perf_counter() - t0
+    took("phase 19 (sd21-256-graphs)", t0)
 
     # 13. stage 1 as a program (the prune entry point twice, from checkpoint
     # folders at full width) and the rest of the pipeline
@@ -6635,38 +7063,49 @@ def main() -> None:
     try:
         t0 = time.perf_counter()
         stage1, cli_counts = stage1_program(pipe, mpnet, device)
-        log(f"phase 13 took {time.perf_counter() - t0:.1f}s")
+        took("phase 13", t0)
 
         # 14. stage 2 as a program: the finetune entry point twice at full
         # width from phase 13's stage-1 run, and the magnitude baseline
         t0 = time.perf_counter()
         stage2, ft_counts = check_finetune_runs(stage1["weights"], stage1["run_dir"], device)
-        log(f"phase 14 took {time.perf_counter() - t0:.1f}s")
+        took("phase 14", t0)
 
         # 15. the pipeline on a dataset folder: stage 1, routing, the latent
         # cache and stage 2 through the entry points on phase 13's weights
         t0 = time.perf_counter()
         data, data_counts = data_path(stage1["weights"], device)
-        log(f"phase 15 took {time.perf_counter() - t0:.1f}s")
+        took("phase 15", t0)
 
         # 16. data parallel: world 1 under NCCL, two ranks sharing the card
         # under gloo, the entry points at world 2, on phase 8's models and
         # phase 13's and 14's weights, run and expert
         t0 = time.perf_counter()
         dp, dp_counts = data_parallel(mods, cfg, initial, stage1, device)
-        log(f"phase 16 took {time.perf_counter() - t0:.1f}s")
+        took("phase 16", t0)
 
         # 17. evaluation and serving through the entry points: cli.serve in
         # turns, the generation CLIs, the metric CLIs on random towers
         t0 = time.perf_counter()
         evaluation, eval_counts = eval_and_serve(stage1, device)
-        log(f"phase 17 took {time.perf_counter() - t0:.1f}s")
+        took("phase 17", t0)
 
         # 18. tensor parallel: the sharded U-Net, pipeline and expert server on
         # a 1 × 2 mesh and cli.finetune on a 2 × 2 one, ranks sharing the card
         t0 = time.perf_counter()
         tensor_par, tp_counts = tensor_parallel(stage1, device)
-        log(f"phase 18 took {time.perf_counter() - t0:.1f}s")
+        took("phase 18", t0)
+
+        # 19, cells sd21-256-convergence and sd21-256-replay: the convergence
+        # run in this process, the replay chain's links as subprocesses
+        t0 = time.perf_counter()
+        convergence, convergence_counts = convergence_cell(device)
+        took("phase 19 (sd21-256-convergence)", t0)
+        t1 = time.perf_counter()
+        replay = replay_cell(stage1)
+        took("phase 19 (sd21-256-replay)", t1)
+        graph_seconds += time.perf_counter() - t0
+        log(f"phase 19 took {graph_seconds:.1f}s in all")
     finally:
         shutil.rmtree(STAGE1_DIR, ignore_errors=True)
 
@@ -6727,6 +7166,11 @@ def main() -> None:
              expert_check["fused_kernel_device_ms_mean"]["fused_norm_conv"], "conv_split_reduce"),
          "shapes": "the split conv sites of one SD-2.1 U-Net forward at 256px, B_eff 16"},
     ]
+    for k in kernels:  # phase 19: the graphs' replays, and the convergence run
+        key = f"kernel:{k['name']}" if k["name"].startswith("gated_flash_fwd_") else k["name"]
+        for path, counts in (("graphs", graph_counts), ("convergence", convergence_counts)):
+            k["launches_by_path"][path] = counts.get(key, 0)
+            k["launches"] += counts.get(key, 0)
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     if idle:
         fail(f"kernels of the path launched no time in its run: {idle}")
@@ -6757,7 +7201,12 @@ def main() -> None:
         f"{evaluation['generation_images_per_sec']}; tensor parallel (ranks sharing the card, "
         f"gloo) forward rel L2 "
         f"{max(r['forward_rel_l2'] for r in tensor_par['serve']['ranks']):.5f}, 2 × 2 finetune "
-        f"update min cosine {tensor_par['finetune']['update_cos_min']:.5f}")
+        f"update min cosine {tensor_par['finetune']['update_cos_min']:.5f}; CUDA graphs: "
+        f"pipeline img/s {graphs['pipeline_img_per_sec']}, server img/s "
+        f"{graphs['server_img_per_sec']}, {graphs['graphs']} graphs warmed in "
+        f"{graphs['warmup_seconds_phase12']:.1f} s, bit-equal {graphs['all_bit_equal']}; convergence "
+        f"criteria {convergence['criteria']}; replay chain {replay['links']} links in "
+        f"{replay['seconds']:.1f} s")
     # last line
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

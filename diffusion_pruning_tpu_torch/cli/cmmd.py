@@ -10,6 +10,9 @@ jax`: the CLIP ViT-L/14-336 vision tower of a local folder
 `.jpg` of each directory (16 at a time), each embedding scaled to unit
 length; a reference ending in `.npy` is taken as precomputed embeddings.
 CMMD (`metrics.cmmd`) is the RBF MMD² at `--sigma` times `--scale`.
+The tower's config is the folder's `config.json` `vision_config` where it
+has one (as `transformers`' `CLIPModel`, the JAX script's default backend,
+reads it), else ViT-L/14-336 (a vision-only folder of bare weights).
 `--backend torch` (transformers' `CLIPModel`) is not available here.
 `--device cpu` runs on the CPU; without it there must be a card.
 """
@@ -52,22 +55,36 @@ def embed_dir(path: str, towers, batch_size: int = EMBED_BATCH):
                            for i in range(0, len(files), batch_size)])
 
 
+def folder_vision_config(folder: str):
+    """The `CLIPVisionConfig` of a folder's `config.json` `vision_config`,
+    else ViT-L/14-336."""
+    import json
+
+    from diffusion_pruning_tpu_torch.metrics.towers import read_clip_config
+    from diffusion_pruning_tpu_torch.models.clip_vision import CLIPVisionConfig
+    path = os.path.join(folder, "config.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            if json.load(f).get("vision_config"):
+                return read_clip_config(folder)[1]
+    return CLIPVisionConfig.vit_l14_336()
+
+
 def main(argv=None, vision_cfg: Optional[object] = None) -> dict:
     """Print and return CMMD with both embedding sets. `vision_cfg` is the
-    tower's `CLIPVisionConfig` (default: ViT-L/14-336)."""
+    tower's `CLIPVisionConfig` (default: `folder_vision_config`)."""
     import numpy as np
 
     from diffusion_pruning_tpu_torch.cli.clip_score import check_backend
     from diffusion_pruning_tpu_torch.metrics import cmmd
     from diffusion_pruning_tpu_torch.metrics.towers import load_clip_towers
-    from diffusion_pruning_tpu_torch.models.clip_vision import CLIPVisionConfig
     from diffusion_pruning_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
     check_backend(args.backend)
     device = resolve_device(None if args.device == "cuda" else args.device)
     towers = load_clip_towers(args.clip_model, device, text=False,
-                              vision_cfg=vision_cfg or CLIPVisionConfig.vit_l14_336())
+                              vision_cfg=vision_cfg or folder_vision_config(args.clip_model))
     ref = embed_dir(args.ref, towers)
     gen = embed_dir(args.gen_dir, towers)
     if args.save_ref_embeddings:

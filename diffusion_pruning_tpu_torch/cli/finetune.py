@@ -48,8 +48,10 @@ model axis (`parallel.tp.shard_unet`); the step is
 `make_finetune_step_gspmd` with AdamW on the master shards and no ZeRO-1;
 checkpoints hold full tensors, as at M = 1.
 
-Not yet here, raising before anything is built: the Hub upload (ROADMAP
-A5).
+With `training.hf_hub.push_to_hub`, rank 0 of the expert entry point uploads
+the run directory once the loop has ended and the model card is written
+(`utils/hub.maybe_push_to_hub`, after the loop's final barrier); the
+baseline entry point uploads nothing, as the JAX one.
 """
 from __future__ import annotations
 
@@ -63,13 +65,6 @@ import torch
 from diffusion_pruning_tpu_torch.utils.launch import world_size
 
 EMA_DECAY = 0.9999  # diffusers' EMAModel default
-
-
-def check_supported(args, cfg) -> None:
-    """Raise for what the port does not run yet."""
-    if cfg.get_path("training.hf_hub.push_to_hub", False):
-        raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A5, "
-                                  "not ported yet")
 
 
 def finetune_config(cfg):
@@ -281,7 +276,6 @@ def data_parallel(args, cfg, zero1_default: bool = True, tensor_parallel: bool =
     from diffusion_pruning_tpu_torch.parallel.tp import dp_tp_mesh
 
     device, mesh = launch(args)
-    check_supported(args, cfg)
     world = world_size()
     optim = cfg.training.get("optim") or {}
     tp = int(optim.get("tensor_parallel", 1) or 1)
@@ -311,6 +305,7 @@ def main(argv=None):
         load_torch_artifact,
     )
     from diffusion_pruning_tpu_torch.utils.config import load_config
+    from diffusion_pruning_tpu_torch.utils.hub import maybe_push_to_hub
 
     args = parse_args(argv)
     if not args.pruning_ckpt_dir or args.expert_id is None:
@@ -327,6 +322,8 @@ def main(argv=None):
     arch_vector = embeddings[args.expert_id].float().numpy()
     loop = fine_tune(args, cfg, run_dir, device, lambda dense: arch_vector,
                      f"expert {args.expert_id}", expert_id=args.expert_id, mesh=mesh, zero1=zero1)
+    if loop.is_main:
+        maybe_push_to_hub(cfg, run_dir)
     print(f"done: {run_dir}")
     return loop
 

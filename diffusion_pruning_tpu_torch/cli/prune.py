@@ -36,8 +36,9 @@ where it can (`data/loader.py`), and each rank embeds its own rows with
 MPNet on its device. Rank 0 makes the run directory and writes every file;
 `--mesh_shape`, when given, must equal the world size.
 
-Not yet here: the Hub upload (ROADMAP A5), which raises before anything is
-built.
+With `training.hf_hub.push_to_hub`, rank 0 uploads the run directory once
+the loop has ended (`utils/hub.maybe_push_to_hub`, after the loop's final
+barrier).
 """
 from __future__ import annotations
 
@@ -110,6 +111,7 @@ def main(argv=None):
     from diffusion_pruning_tpu_torch.training.loop import LoopConfig, PrunerLoop
     from diffusion_pruning_tpu_torch.utils.arg_utils import parse_args
     from diffusion_pruning_tpu_torch.utils.config import load_config
+    from diffusion_pruning_tpu_torch.utils.hub import maybe_push_to_hub
     from diffusion_pruning_tpu_torch.utils.logging_utils import NullTracker, Tracker
 
     args = parse_args(argv)
@@ -117,9 +119,6 @@ def main(argv=None):
     world = world_size()
     cfg = load_config(args.base_config_path)
     cfg.update_flat(vars(args))
-    if cfg.get_path("training.hf_hub.push_to_hub", False):
-        raise NotImplementedError("training.hf_hub.push_to_hub: the Hub upload is ROADMAP A5, "
-                                  "not ported yet")
 
     logging_cfg = cfg.training.get("logging") or {}
     run_dir = start_run(mesh, cfg, args.base_config_path, args.wandb_run_name)
@@ -202,6 +201,8 @@ def main(argv=None):
         loop.image_logger = functools.partial(log_sample_images, data=data, run_dir=run_dir,
                                               steps=cfg.training.get("num_inference_steps", 50))
     loop.train(train_batches, val_batches)
+    if mesh is None or mesh.is_main:
+        maybe_push_to_hub(cfg, run_dir)
     print(f"done: {run_dir}")
     return loop
 

@@ -16,9 +16,11 @@ The counterpart of the JAX package's `scripts/other/serve.py`:
 - `--mode experts` or `hybrid`: every codebook row materialised as a
   physically pruned expert (`ExpertServer.from_codebook`, `--compute_dtype`),
   slot e of `--finetuning_ckpt_dirs` holding expert e's stage-2 masters
-  (an empty slot: the dense slices), then one warm-up forward of every
-  (expert, tier); `--mode routed`: no experts, the gated U-Net with each
-  prompt's arch;
+  (an empty slot: the dense slices), then `ExpertServer.warmup`: on the card
+  one CUDA graph of the denoise trajectory per (expert, tier), and under
+  `hybrid` per tier of the gated U-Net, which the waves replay
+  (`pipelines/aot.py`); `--mode routed`: no experts, the gated U-Net with
+  each prompt's arch, eagerly;
 - prompts from `--prompts_file` (one a line) or `--n_synthetic` synthetic
   ones, routed by MPNet sentence embeddings tokenized as stage 1 and
   `cli/filter_dataset.py` tokenize them (at min(128, the position table)),
@@ -31,9 +33,12 @@ The counterpart of the JAX package's `scripts/other/serve.py`:
 - each image as `img_{rid:05d}.npy` (uint8) under `--out_dir`; img/s and the
   warm-up's seconds on stderr.
 
-Not here: `--aot_dir` (persisted programs) and `--warmup_parallel` > 1 raise,
-naming ROADMAP A1b (CUDA graphs, the port's counterpart of AOT programs):
-eager warm-up has no compile to overlap, so the default width is 1.
+`--aot_dir` and `--warmup_parallel` > 1 raise. A CUDA graph holds this
+process's device addresses and cannot be saved, so there is nothing to
+persist: a restart keeps only the kernel libraries, cached in
+`build/torch_kernels/` by source hash. Capture is host Python under the GIL,
+so warm-up threads would have no compile wait to overlap (nvcc already
+builds the sources in parallel): the default width is 1.
 `--device cpu` runs on the CPU; without it there must be a card.
 """
 from __future__ import annotations
@@ -76,10 +81,11 @@ def parse_args(argv=None):
                    help="hybrid: sub-tier remainders pool into one gated batch; routed: "
                         "no materialised experts, the gated U-Net with per-prompt archs.")
     p.add_argument("--aot_dir", type=str, default=None,
-                   help="Persisted programs: not ported (ROADMAP A1b); raises.")
+                   help="Persisted programs: raises (a CUDA graph cannot be saved).")
     p.add_argument("--no_warmup", action="store_true")
     p.add_argument("--warmup_parallel", type=int, default=1,
-                   help="Warm-up width; > 1 is not ported (ROADMAP A1b) and raises.")
+                   help="Warm-up width; > 1 raises (capture is host Python under the "
+                        "GIL, with nothing to overlap).")
     p.add_argument("--out_dir", type=str, default="runs/served")
     p.add_argument("--seed", type=int, default=43)
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
@@ -96,11 +102,14 @@ def log(m: str) -> None:
 
 
 def check_supported(args) -> None:
-    from diffusion_pruning_tpu_torch.pipelines.expert_server import NOT_PORTED
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import (
+        AOT_DIR_REFUSED,
+        PARALLEL_REFUSED,
+    )
     if args.aot_dir is not None:
-        raise NotImplementedError(f"--aot_dir {NOT_PORTED}")
+        raise NotImplementedError(f"--aot_dir: {AOT_DIR_REFUSED}")
     if args.warmup_parallel > 1:
-        raise NotImplementedError(f"--warmup_parallel > 1 {NOT_PORTED}")
+        raise NotImplementedError(f"--warmup_parallel > 1: {PARALLEL_REFUSED}")
 
 
 def build_server(args, device: torch.device):

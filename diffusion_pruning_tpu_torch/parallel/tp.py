@@ -43,7 +43,6 @@ seconds spent inside both.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import time
 import warnings
@@ -453,7 +452,6 @@ def shard_pipeline(pipe, mesh: DpTpMesh):
     this one's, replicated on every rank (each rank builds them alike, as
     from one seed or one checkpoint). Batches are cut on the data axis and
     the images gathered (`PruningPipeline._data_shard`)."""
-    out = copy.copy(pipe)
-    out.unet = shard_unet(pipe.unet, mesh)
+    out = pipe.with_unet(shard_unet(pipe.unet, mesh))
     out.mesh = mesh
     return out

@@ -19,6 +19,11 @@ shard_pipeline`), every expert is cut from the gathered dense weights and
 sharded on the mesh's model axis by the same rules at its kept widths, and
 the expert pipelines inherit the mesh.
 
+`warmup` prepares the serving programs before traffic arrives: on the card
+one CUDA graph of the denoise trajectory per (expert, tier), and under
+`hybrid` per tier of the gated U-Net (`pipelines/aot.py`), dispatched by
+operand signature from each expert pipe's own denoise cache.
+
 Randomness: routing takes the quantizer's gumbel noise (`route_noise`, as
 `PruningPipeline.route` does), and initial latents are either given per
 prompt row or drawn from one `torch.Generator`, tier by tier in dispatch
@@ -46,8 +51,13 @@ from diffusion_pruning_tpu_torch.models.unet.pruned import (
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.pipelines.pruning_pipeline import PruningPipeline
 
-NOT_PORTED = ("is not ported: the port's counterpart of the JAX package's AOT programs "
-              "is captured CUDA graphs (ROADMAP A1b)")
+# the two warm-up options of the JAX server the port refuses, and why
+AOT_DIR_REFUSED = ("a CUDA graph holds this process's device addresses and cannot be saved to "
+                   "disk; what a restart keeps is the kernel libraries, cached in "
+                   "build/torch_kernels/ by source hash")
+PARALLEL_REFUSED = ("capture is host Python under the GIL, so warm-up threads have no compile "
+                    "wait to overlap; nvcc already builds the kernel sources in parallel, one "
+                    "process each")
 
 # (tier size, padded rows) -> the tier's initial latents
 LatentSource = Callable[[int, np.ndarray], torch.Tensor]
@@ -71,6 +81,8 @@ class ExpertServer:
     expert_models: List[GatedUNet]
     expert_ratios: List[float]
     batch_size: int = 4
+    # expert -> its pipes' denoise cache (the JAX server's `_expert_caches`)
+    _expert_caches: Dict[int, dict] = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_codebook(cls, pipeline: PruningPipeline, spec: StructureSpec, cfg: UNetConfig,
@@ -134,8 +146,11 @@ class ExpertServer:
         return plan
 
     def expert_pipe(self, e: int) -> PruningPipeline:
-        """The base pipeline with expert e's U-Net in place of the gated one."""
-        return self.base_pipeline.with_unet(self.expert_models[e])
+        """The base pipeline with expert e's U-Net in place of the gated one,
+        with expert e's denoise cache (its prepared programs)."""
+        pipe = self.base_pipeline.with_unet(self.expert_models[e])
+        pipe._denoise_cache = self._expert_caches.setdefault(int(e), {})
+        return pipe
 
     def _latent_shape(self) -> Tuple[int, int, int]:
         cfg = self.base_pipeline.unet.cfg
@@ -145,36 +160,46 @@ class ExpertServer:
     def warmup(self, num_inference_steps: int = 25, guidance_scale: float = 7.5,
                hybrid: bool = False, aot_dir: Optional[str] = None, decode: bool = True,
                parallel: int = 1) -> dict:
-        """Run one U-Net forward of every (expert, tier) — and of the gated
-        U-Net per tier under `hybrid` — and one VAE decode per tier, before
-        traffic arrives: that builds the kernels and packs the fused ops'
-        weights. `num_inference_steps` does not change what is run. Returns
-        {"loaded": 0, "built": n}, n the (U-Net, tier) pairs run."""
+        """Prepare every (expert, tier) denoise program, and under `hybrid`
+        the gated U-Net's program per tier (code 0's row as the warm-up arch;
+        each call copies its rows' archs in as operands), then run one VAE
+        decode per tier, before traffic arrives
+        (`PruningPipeline.prepare_denoise`: one eager CFG U-Net forward at
+        each program's operands first). On the card each program is a CUDA
+        graph of the whole trajectory, all of them in one memory pool with
+        replays serialised on one lock; on the CPU, and on a pipeline with a
+        tensor-parallel mesh (whose gloo reductions stage through host
+        memory, which a graph cannot hold), the eager loop is installed in
+        the same dispatch table. Requests of other shapes run the eager
+        loop. Returns {"loaded": 0, "built": n}, n the (U-Net program,
+        tier) pairs.
+
+        `aot_dir` raises (`AOT_DIR_REFUSED`): a graph cannot be saved, and
+        a restart keeps only the built kernel libraries. `parallel` > 1
+        raises (`PARALLEL_REFUSED`): capture is host Python under the GIL,
+        with no compile wait for threads to overlap."""
         if aot_dir is not None:
-            raise NotImplementedError(f"warmup(aot_dir=...) {NOT_PORTED}")
+            raise NotImplementedError(f"warmup(aot_dir=...): {AOT_DIR_REFUSED}")
         if parallel > 1:
-            raise NotImplementedError(f"warmup(parallel > 1) {NOT_PORTED}")
+            raise NotImplementedError(f"warmup(parallel > 1): {PARALLEL_REFUSED}")
         base = self.base_pipeline
-        cfg = base.unet.cfg
-        device = base.device
-        factor = 2 if guidance_scale > 1.0 else 1
-        unets = [(m, None) for m in self.expert_models]
+        graphs = base.device.type == "cuda" and base.mesh is None
+        pool = torch.cuda.graph_pool_handle() if graphs else None
+        lock = threading.Lock()
+        tiers = self.batch_shapes
+        built = 0
+        for e in range(len(self.expert_models)):
+            built += self.expert_pipe(e).prepare_denoise(
+                num_inference_steps, guidance_scale, tiers, pool=pool, lock=lock)
         if hybrid:
             codes = hard_concrete(base.quantizer.embedding_gs.float())
-            unets.append((base.unet, codes[:1]))
-        built = 0
-        for t in self.batch_shapes:
-            x = torch.zeros((factor * t, *self._latent_shape()), device=device)
-            steps = torch.full((factor * t,), 1, dtype=torch.long, device=device)
-            ehs = torch.zeros((factor * t, cfg.max_text_len, cfg.cross_attention_dim),
-                              device=device)
-            for unet, arch in unets:
-                unet(x, steps, ehs, arch=None if arch is None else arch.expand(t, -1))
-                built += 1
-            if decode:
-                base.decode(torch.zeros((t, *self._latent_shape()), device=device))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            built += base.prepare_denoise(num_inference_steps, guidance_scale, tiers,
+                                          arch=codes[:1], pool=pool, lock=lock)
+        if decode:
+            for t in tiers:
+                base.decode(torch.zeros((t, *self._latent_shape()), device=base.device))
+        if base.device.type == "cuda":
+            torch.cuda.synchronize(base.device)
         return {"loaded": 0, "built": built}
 
     def route(self, input_ids: torch.Tensor, hyper_net_input: Optional[torch.Tensor] = None,

@@ -16,6 +16,14 @@ With a `safety_checker` (`models/safety.SafetyChecker`), `__call__` screens
 the decoded images: flagged ones come back black, and the flags are a fourth
 return value.
 
+The CFG trajectory of each (steps, guidance scale, gated, sampler) is one
+cached program `run(unet, ehs, arch, latents)` (`_denoise_fn`, the JAX
+pipeline's `_denoise_cache`): the eager sampler loop, or, once
+`prepare_denoise` (or `ExpertServer.warmup`) has prepared it, an
+`aot.ShapeDispatch` of captured CUDA graphs by operand signature. `denoise`
+draws the initial latents outside the program, so a generator's stream is
+the same either way.
+
 With a `mesh` (a `parallel.tp.DpTpMesh`, set by `parallel.tp.shard_pipeline`
 with the U-Net sharded on its model axis), encoding and routing run whole on
 every rank; the denoise and the decode take this rank's rows on the data
@@ -26,6 +34,7 @@ every rank returns the full batch.
 from __future__ import annotations
 
 import copy
+import threading
 from typing import Optional, Sequence, Union
 
 import torch
@@ -40,6 +49,7 @@ from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL
 from diffusion_pruning_tpu_torch.ops.gates import match_batch
 from diffusion_pruning_tpu_torch.parallel.mesh import all_gather, rank_slice
+from diffusion_pruning_tpu_torch.pipelines import aot
 from diffusion_pruning_tpu_torch.schedulers import (
     DDIMSampler,
     DiffusionSchedule,
@@ -50,6 +60,28 @@ from diffusion_pruning_tpu_torch.utils.device import resolve_device
 
 
 SAMPLERS = {"ddim": DDIMSampler, "pndm": PNDMSampler, "dpm++": DPMSolverPPSampler}
+
+
+def cfg_model_fn(unet: GatedUNet, ehs: torch.Tensor, arch: Optional[torch.Tensor],
+                 guidance_scale: float):
+    """The CFG U-Net call model_fn(x, t) of one trajectory; `ehs` holds the
+    negative rows, then the prompt rows, when guidance_scale > 1."""
+    do_cfg = guidance_scale > 1.0
+
+    def model_fn(x, t):
+        if do_cfg:
+            out = unet(torch.cat([x, x]), torch.cat([t, t]), ehs, arch=arch)
+            uncond, cond = out.chunk(2)
+            return uncond + guidance_scale * (cond - uncond)
+        return unet(x, t, ehs, arch=arch)
+
+    return model_fn
+
+
+def cfg_states(prompt_embeds: torch.Tensor, neg_embeds: torch.Tensor,
+               guidance_scale: float) -> torch.Tensor:
+    """The U-Net's text states of a CFG batch: [negative, prompt] rows."""
+    return torch.cat([neg_embeds, prompt_embeds]) if guidance_scale > 1.0 else prompt_embeds
 
 
 class PruningPipeline:
@@ -71,6 +103,8 @@ class PruningPipeline:
         self.sampler = sampler
         self.safety_checker = self._place(safety_checker)
         self.mesh = None  # a `parallel.tp.DpTpMesh` once `shard_pipeline` sets one
+        # (steps, guidance scale, gated, sampler) -> run(unet, ehs, arch, latents)
+        self._denoise_cache = {}
 
     def _place(self, module: Optional[nn.Module]) -> Optional[nn.Module]:
         return None if module is None else module.to(self.device).eval()
@@ -81,9 +115,11 @@ class PruningPipeline:
 
     def with_unet(self, unet: GatedUNet) -> "PruningPipeline":
         """A pipeline that shares this one's text encoder, VAE, router,
-        schedule and sampler and denoises with `unet` (an expert U-Net)."""
+        schedule and sampler and denoises with `unet` (an expert U-Net), with
+        a denoise cache of its own."""
         pipe = copy.copy(self)
         pipe.unet = self._place(unet)
+        pipe._denoise_cache = {}
         return pipe
 
     def _splits(self, n: int) -> bool:
@@ -130,19 +166,67 @@ class PruningPipeline:
                                   device=generator.device)
         return latents.to(self.device, torch.float32)
 
-    def _model_fn(self, prompt_embeds, neg_embeds, arch, guidance_scale: float):
-        """The CFG U-Net call model_fn(x, t) of one trajectory."""
-        do_cfg = guidance_scale > 1.0
-        ehs = torch.cat([neg_embeds, prompt_embeds]) if do_cfg else prompt_embeds
+    def _denoise_fn(self, num_inference_steps: int, guidance_scale: float, gated: bool):
+        """The CFG trajectory run(unet, ehs, arch, latents) of `self.sampler`,
+        cached per (steps, scale, gated, sampler): the eager loop, or the
+        `aot.ShapeDispatch` that `prepare_denoise` installed."""
+        key = (num_inference_steps, guidance_scale, gated, self.sampler)
+        if key not in self._denoise_cache:
+            sampler = self._sampler()
 
-        def model_fn(x, t):
-            if do_cfg:
-                out = self.unet(torch.cat([x, x]), torch.cat([t, t]), ehs, arch=arch)
-                uncond, cond = out.chunk(2)
-                return uncond + guidance_scale * (cond - uncond)
-            return self.unet(x, t, ehs, arch=arch)
+            def run(unet, ehs, arch, latents):
+                return sampler.sample(cfg_model_fn(unet, ehs, arch, guidance_scale), latents,
+                                      num_inference_steps)
 
-        return model_fn
+            self._denoise_cache[key] = run
+        return self._denoise_cache[key]
+
+    @torch.inference_mode()
+    def prepare_denoise(self, num_inference_steps: int, guidance_scale: float,
+                        batch_sizes: Sequence[int], arch: Optional[torch.Tensor] = None,
+                        pool=None, lock: Optional[threading.Lock] = None) -> int:
+        """Prepare the trajectory of (steps, scale, gated = arch given,
+        sampler) for each batch size in `batch_sizes` and install an
+        `aot.ShapeDispatch` of them in the denoise cache: a CUDA graph each
+        (`aot.capture`, sharing `pool` and `lock` where given); the eager
+        loop on the CPU or under a mesh (its gloo reductions stage through
+        host memory, which a graph cannot hold).
+        Either way one CFG U-Net forward at the operands runs first (it
+        builds the kernels and packs the fused ops' weights; a graph is
+        captured after it). `arch`: one row (1, vq_dim), tiled to each batch;
+        the graphs take each call's arch rows as operands. Other batches,
+        shapes and dtypes run the eager loop. Returns the programs prepared."""
+        run = self._denoise_fn(num_inference_steps, guidance_scale, arch is not None)
+        if not isinstance(run, aot.ShapeDispatch):
+            run = aot.ShapeDispatch(run)
+            key = (num_inference_steps, guidance_scale, arch is not None, self.sampler)
+            self._denoise_cache[key] = run
+        graphs = self.device.type == "cuda" and self.mesh is None
+        cfg, dev = self.unet.cfg, self.device
+        factor = 2 if guidance_scale > 1.0 else 1
+        ids = torch.zeros((1, cfg.max_text_len), dtype=torch.long, device=dev)
+        text_dtype = self.encode_prompt(ids).dtype
+        for b in batch_sizes:
+            ehs = torch.zeros((factor * b, cfg.max_text_len, cfg.cross_attention_dim),
+                              dtype=text_dtype, device=dev)
+            rows = None if arch is None else arch.to(dev).float().repeat(b, 1)
+            latents = torch.zeros((b, cfg.sample_size, cfg.sample_size, cfg.in_channels),
+                                  device=dev)
+            args = (self.unet, ehs, rows, latents)
+            t = torch.ones((b,), dtype=torch.long, device=dev)
+
+            def one_step(unet, ehs, arch, latents):
+                return cfg_model_fn(unet, ehs, arch, guidance_scale)(latents, t)
+
+            if graphs:
+                program = aot.capture(run.fallback, args, pool=pool, lock=lock, warm=one_step)
+            else:
+                one_step(*args)
+                program = run.fallback
+            run.add(args, program)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return len(batch_sizes)
 
     @torch.inference_mode()
     def denoise(self, generator: Optional[torch.Generator], prompt_embeds: torch.Tensor,
@@ -150,14 +234,16 @@ class PruningPipeline:
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
                 height: Optional[int] = None, width: Optional[int] = None,
                 latents: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """CFG trajectory of `self.sampler`. Initial latents are `latents` if
-        given, else standard normals from `generator` (f32, NHWC). Under a
-        mesh, of this rank's rows, gathered."""
+        """CFG trajectory of `self.sampler` through the cached program
+        (`_denoise_fn`). Initial latents are `latents` if given, else standard
+        normals from `generator` (f32, NHWC), drawn here, outside the
+        program. Under a mesh, of this rank's rows, gathered."""
         n = prompt_embeds.shape[0]
         latents = self._initial_latents(generator, n, latents, height, width)
-        shard = [self._data_shard(x, n) for x in (prompt_embeds, neg_embeds, arch, latents)]
-        model_fn = self._model_fn(*shard[:3], guidance_scale)
-        out = self._sampler().sample(model_fn, shard[3], num_inference_steps)
+        pe, ne, arch, latents = (self._data_shard(x, n)
+                                 for x in (prompt_embeds, neg_embeds, arch, latents))
+        run = self._denoise_fn(num_inference_steps, guidance_scale, arch is not None)
+        out = run(self.unet, cfg_states(pe, ne, guidance_scale), arch, latents)
         return self._data_gather(out, n)
 
     @torch.inference_mode()
@@ -224,7 +310,8 @@ class PruningPipeline:
         neg_embeds = self.encode_prompt(neg_input_ids)
         arch, indices = self.route(prompt_embeds, hyper_net_input, route_noise)
         x = self._initial_latents(generator, prompt_embeds.shape[0], latents)
-        model_fn = self._model_fn(prompt_embeds, neg_embeds, arch, guidance_scale)
+        model_fn = cfg_model_fn(self.unet, cfg_states(prompt_embeds, neg_embeds, guidance_scale),
+                                arch, guidance_scale)
         sampler = DDIMSampler(self.schedule)
         ts = sampler.timesteps(num_inference_steps).tolist()
         snaps = []

@@ -8,6 +8,7 @@ so that it runs on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 Without a card every test here skips."""
+import collections
 import functools
 
 import pytest
@@ -827,3 +828,87 @@ def test_cuda_fused_norm_conv_student_follows_its_updates():
                 assert torch.equal(out, fresh(x, t, ehs).float())
     rel = float((outs[True] - outs[False]).norm() / outs[False].norm())
     assert rel <= 2e-2, rel
+
+
+def test_cuda_captured_serving_equals_eager_bit_for_bit():
+    """`ExpertServer.warmup` captures one CUDA graph per (expert, tier) and
+    per gated tier of a narrow U-Net with heads of 64; the images, routes and
+    kernel launches served through the graphs equal the eager server's, each
+    program replays as often as the tier plans run it (so no tier falls back
+    to the eager loop), and a CPU tensor is refused by `aot.capture`."""
+    import numpy as np
+
+    from diffusion_pruning_tpu_torch.models.hypernet import HyperStructure
+    from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
+    from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from diffusion_pruning_tpu_torch.pipelines import PruningPipeline, aot
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import ExpertServer
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+
+    cfg = UNetConfig.tiny(block_out_channels=(64, 128), attention_head_dim=(1, 2),
+                          use_flash_attention=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("cuda"):
+        unet, vae = GatedUNet(cfg), AutoencoderKL(VAEConfig.tiny())
+        text = CLIPTextEncoder(CLIPTextConfig.tiny())
+        hypernet = HyperStructure(unet.spec, input_dim=32)
+        quantizer = StructureQuantizer(unet.spec, n_e=3, base=0.0)
+    for module in (unet, vae, text, hypernet):
+        random_init_(module, gen)
+    quantizer.init_params(gen)
+    quantizer.init_state()
+    spec = unet.spec
+    rng = np.random.default_rng(21)
+    codes = (rng.random((3, spec.vq_dim)) < 0.6).astype(np.float32)
+    codes[:, spec.num_width:] = 1.0
+    with torch.no_grad():
+        quantizer.embedding_gs.copy_(torch.from_numpy(np.where(codes >= 0.5, 0.8, 0.2)))
+    pipe = PruningPipeline(unet.to(torch.bfloat16), vae, text, hypernet, quantizer)
+    eager = ExpertServer.from_codebook(pipe, spec, cfg, batch_size=2, param_dtype=torch.bfloat16)
+    graph = ExpertServer.from_codebook(pipe, spec, cfg, batch_size=2, param_dtype=torch.bfloat16)
+    ids = torch.randint(0, 128, (5, 77), device="cuda", generator=gen)
+    noise = torch.randn(5, spec.vq_dim, device="cuda", generator=gen) * 3
+    latents = torch.randn(5, 8, 8, 4, device="cuda", generator=gen)
+    neg = torch.zeros(1, 77, dtype=torch.long, device="cuda")
+
+    def served(server, hybrid):
+        before = aot.launch_counts()
+        images, idx = server.generate(ids, neg, num_inference_steps=3, hybrid=hybrid,
+                                      route_noise=noise, latents=latents)
+        return images, idx, {k: v - before[k] for k, v in aot.launch_counts().items()}
+
+    def tier_replays(indices, hybrid):
+        """{(owner, tier): replays} that serving `indices` runs: each expert's
+        tier plan (under hybrid its full largest tiers) and under hybrid the
+        pooled remainders' plan through the gated U-Net."""
+        counts = np.bincount(indices.numpy(), minlength=3)
+        size, plan = graph.batch_size, graph.plan_batches
+        full = [n // size * size if hybrid else n for n in counts]
+        want = collections.Counter((str(e), t) for e, n in enumerate(full)
+                                   for t, _ in plan(n, graph.batch_shapes))
+        if hybrid:
+            want.update(("pooled", t) for t, _ in plan(int(sum(counts % size)),
+                                                        graph.batch_shapes))
+        return dict(want)
+
+    want = {h: served(eager, h) for h in (False, True)}
+    assert graph.warmup(3, 7.5, hybrid=True) == {"loaded": 0, "built": 4 * 2}
+    caches = {**{str(e): c for e, c in graph._expert_caches.items()},
+              "pooled": pipe._denoise_cache}
+    programs = {(owner, t): p for owner, c in caches.items() for d in c.values()
+                if isinstance(d, aot.ShapeDispatch) for t, p in zip(graph.batch_shapes, d.programs)}
+    assert all(isinstance(p, aot.CapturedProgram) for p in programs.values())
+    assert len(programs) == 8
+    for hybrid in (False, True):
+        played = {k: p.replays for k, p in programs.items()}
+        got = served(graph, hybrid)
+        assert torch.equal(got[1], want[hybrid][1])
+        assert torch.equal(got[0], want[hybrid][0]), float((got[0] - want[hybrid][0]).abs().max())
+        assert got[2] == want[hybrid][2]
+        ran = {k: p.replays - played[k] for k, p in programs.items() if p.replays != played[k]}
+        assert ran == tier_replays(got[1], hybrid)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        aot.capture(lambda x: x + 1, (torch.zeros(2),))

@@ -501,7 +501,8 @@ def _cli_job(tmp):
     prune_yaml = os.path.join(REPO, "configs", "pruning", "tiny_smoke.yaml")
     ft_yaml = os.path.join(REPO, "configs", "finetuning", "tiny_smoke.yaml")
     common = {"training.logging.logging_dir": str(runs),
-              "training.logging.checkpoints_total_limit": 2}
+              "training.logging.checkpoints_total_limit": 2,
+              "training.hf_hub": {"push_to_hub": True}}
     stage1 = {"training.hypernet_pretraining_steps": 1, "training.validation_steps": 3}
     resume = {"training.logging.resume_from_checkpoint": "latest"}
     return {"root": str(runs),
@@ -795,11 +796,20 @@ def test_entry_points_at_world_2(started):
     folder, rank 0 writes the run directories and checkpoints, the ranks'
     trainables and masters are equal bit for bit, each resume restores the
     saved state bit for bit, and the ZeRO-1 resume gives each rank its row
-    of the saved moments."""
+    of the saved moments. With `training.hf_hub.push_to_hub`, rank 0 alone
+    uploads each prune and finetune run directory once its loop has ended
+    (a fake `huggingface_hub`); the baseline entry point uploads nothing."""
     runs = os.path.join(os.path.dirname(started["cli"][1]), "runs")
     a, b = results(started["cli"])
     a, b = a["cli"], b["cli"]
-    assert b["writes"] == []
+    assert b["writes"] == [] and b["hub"] == []
+    uploads = [c for c in a["hub"] if c[0] == "upload"]
+    assert [c[1] for c in a["hub"] if c[0] == "create"] == ["dp", "dp", "dp-expert0",
+                                                            "dp-expert0"]
+    assert [c[2] for c in uploads] == [a["prune"]["run_dir"]] * 2 + [a["finetune"]["run_dir"]] * 2
+    assert [max(f for f in c[3] if f.startswith("checkpoint-")) for c in uploads] == [
+        "checkpoint-3", "checkpoint-4", "checkpoint-2", "checkpoint-3"]
+    assert "README.md" in uploads[2][3]
     assert a["prune"]["run_dir"] == b["prune"]["run_dir"] == os.path.join(runs, "p", "dp")
     # prune
     ckpt = CheckpointManager(a["prune"]["run_dir"], create=False)

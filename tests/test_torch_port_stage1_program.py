@@ -658,17 +658,15 @@ def test_prune_cli_runs_tiny_smoke_on_the_cpu_and_resumes(tmp_path, monkeypatch)
 
 
 def test_prune_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """No card without `--device cpu`, the Hub upload (A5), and a
-    `--mesh_shape` other than the launch's world size (1 here) raise before
-    the run directory is made; a `data_dir` that exists is trained on."""
+    """No card without `--device cpu` and a `--mesh_shape` other than the
+    launch's world size (1 here) raise before the run directory is made; a
+    `data_dir` that exists is trained on. (The Hub upload runs at the end:
+    tests/test_torch_port_hub.py.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--pretrained_model_name_or_path", "", "--wandb_run_name", "r"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prune.main(["--base_config_path", _yaml(tmp_path)] + base)
     assert not (tmp_path / "runs").exists()
-    with pytest.raises(NotImplementedError, match="A5"):
-        prune.main(["--base_config_path", _yaml(tmp_path, "h.yaml", **{
-            "training.hf_hub": {"push_to_hub": True}}), "--device", "cpu"] + base)
     with pytest.raises(ValueError, match="--mesh_shape 2 differs from the world size 1"):
         prune.main(["--base_config_path", _yaml(tmp_path), "--device", "cpu",
                     "--mesh_shape", "2"] + base)

@@ -156,11 +156,10 @@ def test_finetune_baseline_cli_runs_every_pruning_type(stage1, tmp_path, pruning
 
 
 def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monkeypatch):
-    """No card without `--device cpu`; the Hub upload (A5);
-    `optim.tensor_parallel` 2 at world size 1 (the finetune entry point's
-    mesh needs a world it divides; the baseline one runs data parallel
-    only); a `--mesh_shape`
-    other than the launch's world size (1 here); `optim.zero1` in the
+    """No card without `--device cpu`; `optim.tensor_parallel` 2 at world
+    size 1 (the finetune entry point's mesh needs a world it divides; the
+    baseline one runs data parallel only); a `--mesh_shape` other than the
+    launch's world size (1 here); `optim.zero1` in the
     baseline entry point, which runs without ZeRO-1; a missing `--expert_id`.
     Each raises before the run directory is made. An existing data_dir is
     trained on by both entry points."""
@@ -172,8 +171,6 @@ def test_finetune_entry_points_refuse_what_is_not_ported(stage1, tmp_path, monke
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
         cases = (
-            (NotImplementedError, "A5", _yaml(FINETUNE_YAML, tmp_path, "h.yaml",
-                                              **{"training.hf_hub.push_to_hub": True}), []),
             (ValueError, "--mesh_shape 2 differs from the world size 1", base,
              ["--mesh_shape", "2"]),
             (ValueError, ("optim.tensor_parallel 2 does not divide the world size 1"

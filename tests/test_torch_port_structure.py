@@ -98,11 +98,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "transformers", "regex",
-                                            "yaml", "PIL", "safetensors", "wandb", "dpt_native")
+                                            "yaml", "PIL", "safetensors", "wandb", "dpt_native",
+                                            "huggingface_hub")
                      or m == "diffusion_pruning_tpu"
                      or m.startswith("diffusion_pruning_tpu."))
         serving_modules = {"diffusion_pruning_tpu_torch.models.unet.pruned",
                    "diffusion_pruning_tpu_torch.pipelines.expert_server",
+                   "diffusion_pruning_tpu_torch.pipelines.aot",
                    "diffusion_pruning_tpu_torch.schedulers.pndm",
                    "diffusion_pruning_tpu_torch.schedulers.dpm",
                    "diffusion_pruning_tpu_torch.cli.prune",
@@ -114,7 +116,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                        "clip_features", "clip_score", "cmmd", "fid", "generate_fid_images",
                        "generate_images", "save_captions", "sample_coco_30k",
                        "resize_and_save_images", "serve", "calculate_pruning_ratio",
-                       "depth_analysis")),
+                       "depth_analysis", "convergence_run", "replay_chain")),
                    "diffusion_pruning_tpu_torch.metrics",
                    "diffusion_pruning_tpu_torch.metrics.metrics",
                    "diffusion_pruning_tpu_torch.metrics.towers",
@@ -128,7 +130,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "diffusion_pruning_tpu_torch.models.safety",
                    *("diffusion_pruning_tpu_torch.utils." + m for m in (
                        "config", "arg_utils", "logging_utils", "checkpoint", "export",
-                       "model_card", "launch")),
+                       "model_card", "launch", "hub", "profiling", "synthetic")),
                    "diffusion_pruning_tpu_torch.parallel.mesh",
                    "diffusion_pruning_tpu_torch.parallel.zero1",
                    "diffusion_pruning_tpu_torch.parallel.tp"}

@@ -12,6 +12,7 @@ OUT_DIR/rank{r}.pt. It imports torch and the port, never JAX.
 """
 import os
 import sys
+import types
 
 import numpy as np
 import torch
@@ -269,7 +270,15 @@ def cli(mesh, job):
                 resumed.append({"step": self.global_step, "state": _host(self.state_dict()),
                                 "local": [_host(st) for st in self.optimizer.state.values()]})
         cls.maybe_resume = resume
-    out = {}
+    hub = []  # a fake huggingface_hub's calls: (create, repo id), (upload, id, folder, files)
+    fake = types.ModuleType("huggingface_hub")
+    fake.create_repo = lambda repo_id, exist_ok=False, token=None: (
+        hub.append(("create", repo_id)) or types.SimpleNamespace(repo_id=repo_id))
+    fake.upload_folder = lambda repo_id, folder_path, commit_message=None, \
+        ignore_patterns=None, token=None: hub.append(
+            ("upload", repo_id, folder_path, sorted(os.listdir(folder_path))))
+    sys.modules["huggingface_hub"] = fake
+    out = {"hub": hub}
     base = ["--device", "cpu", "--pretrained_model_name_or_path", "", "--seed", "0"]
     p1 = prune.main(["--base_config_path", c["prune"], "--wandb_run_name", "dp", *base])
     out["prune"] = {"step": p1.global_step, "trainables": stage1_trainables(p1.mods),
