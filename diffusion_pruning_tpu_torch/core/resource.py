@@ -17,6 +17,7 @@ import torch
 
 from diffusion_pruning_tpu_torch.core.estimators import hard_concrete
 from diffusion_pruning_tpu_torch.core.structure import StructureSpec
+from diffusion_pruning_tpu_torch.utils.profiling import host_sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +41,11 @@ class ResourceModel:
     def cur_prunable_macs(self, arch: torch.Tensor) -> torch.Tensor:
         """Per-sample MACs under the gates. arch: (B, vq_dim) -> (B,)."""
         spec = self.spec
-        w_coeff, w_depth_idx, d_nonprunable = (
-            torch.as_tensor(t, device=arch.device) for t in self._tables())
+        tables = []
+        for t in self._tables():
+            with host_sync(arch.device):   # a copy from the host's memory waits for the stream
+                tables.append(torch.as_tensor(t, device=arch.device))
+        w_coeff, w_depth_idx, d_nonprunable = tables
         arch = arch.float()
         w = hard_concrete(arch[:, : spec.num_width])
         if spec.num_depth > 0:

@@ -151,11 +151,14 @@ class ShapeDispatch:
     signature; fall back to `fallback` for any other. Drop-in replacement for
     a pipeline's cached denoise function (the calling convention
     `(model, *operands)`). Keys hash only the operands (`args[1:]`): the
-    leading model is constant for a pipeline."""
+    leading model is constant for a pipeline. `hits` counts the calls that
+    ran a prepared program and `misses` those that fell back."""
 
     def __init__(self, fallback: Callable):
         self.fallback = fallback
         self._by_sig: Dict[str, Callable] = {}
+        self.hits = 0
+        self.misses = 0
 
     def add(self, args, fn: Callable) -> None:
         self._by_sig[signature(args[1:])] = fn
@@ -163,7 +166,9 @@ class ShapeDispatch:
     def __call__(self, *args):
         fn = self._by_sig.get(signature(args[1:]))
         if fn is not None:
+            self.hits += 1
             return fn(*args)
+        self.misses += 1
         return self.fallback(*args)
 
     @property

@@ -28,10 +28,36 @@ Randomness: routing takes the quantizer's gumbel noise (`route_noise`, as
 `PruningPipeline.route` does), and initial latents are either given per
 prompt row or drawn from one `torch.Generator`, tier by tier in dispatch
 order.
+
+Spans (`utils/profiling.span`, recorded only while a recording is on):
+
+- `submit`: one `ServingQueue.submit`, on the caller's thread. Its
+  children, in `encode_route` (also under `generate`): `encode_prompt`
+  (CLIP text of the prompts), `encode_negative` (CLIP text of the negative
+  prompt), `route` (hypernet and quantizer, launched) and `route_to_host`
+  (the expert indices copied to the host: the host waits for the stream).
+- `flush` (`flush`: the queue's flush index; `rids`: the requests it
+  answers, which ties each request to the flush that served it): one
+  flush, on the thread that runs it. Its children: `flush_lock` (the wait
+  for the previous flush to leave the device), `join` (the pending
+  submits' embeddings and latents concatenated, the rows grouped by
+  expert), then for each expert `expert_pipe` (its pipeline built with its
+  U-Net, `with_unet`) and one `tier` per tier batch (`expert`: its index,
+  or `gated` for the pooled batch; `tier`; `rows`: the real rows, so that
+  a tier's padding and its own time read together), then `to_host`
+  (`_materialise`: each tier's images copied to the host, which waits for
+  the device's work).
+- each `tier`'s children: `latents` (the tier's rows gathered: initial
+  latents and both embeddings), `denoise` (the trajectory; stream time
+  between CUDA events) and `decode` (the VAE decode; stream time between
+  CUDA events, which the host's launches pace where they fall behind).
+  Whether a tier ran a prepared program is counted by `aot.ShapeDispatch`
+  (`hits`, `misses`).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -50,6 +76,7 @@ from diffusion_pruning_tpu_torch.models.unet.pruned import (
 )
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.pipelines.pruning_pipeline import PruningPipeline
+from diffusion_pruning_tpu_torch.utils.profiling import recording, span
 
 # the two warm-up options of the JAX server the port refuses, and why
 AOT_DIR_REFUSED = ("a CUDA graph holds this process's device addresses and cannot be saved to "
@@ -215,12 +242,17 @@ class ExpertServer:
         neg_embeds (N, 77, D), expert indices (N,) on the host). Tiers
         gather their rows out of these embeddings."""
         base = self.base_pipeline
-        pe = base.encode_prompt(input_ids)
-        ne = base.encode_prompt(neg_input_ids)
-        if ne.shape[0] == 1:
-            ne = ne.expand(pe.shape[0], -1, -1)
-        _, indices = base.route(pe, hyper_net_input, route_noise)
-        return pe, ne, indices.cpu().numpy()
+        with span("encode_prompt"):
+            pe = base.encode_prompt(input_ids)
+        with span("encode_negative"):
+            ne = base.encode_prompt(neg_input_ids)
+            if ne.shape[0] == 1:
+                ne = ne.expand(pe.shape[0], -1, -1)
+        with span("route"):
+            _, indices = base.route(pe, hyper_net_input, route_noise)
+        with span("route_to_host"):
+            indices = indices.cpu().numpy()
+        return pe, ne, indices
 
     def _latent_source(self, latents: Optional[torch.Tensor],
                        generator: Optional[torch.Generator]) -> LatentSource:
@@ -234,7 +266,7 @@ class ExpertServer:
         return lambda tier, rows: torch.randn((tier, *self._latent_shape()),
                                               generator=generator, device=generator.device)
 
-    def _run_tiers(self, pipe: PruningPipeline, rows: np.ndarray, pe, ne,
+    def _run_tiers(self, owner, pipe: PruningPipeline, rows: np.ndarray, pe, ne,
                    experts: Optional[np.ndarray], arch_table: Optional[torch.Tensor],
                    take: LatentSource, num_inference_steps: int, guidance_scale: float,
                    out_images: dict) -> int:
@@ -242,30 +274,38 @@ class ExpertServer:
         `experts` (each row's expert) the gated U-Net runs each row's arch,
         the expert's row of `arch_table`. Images stay on the device:
         out_images[row] = (tier images, index in the tier). Returns the
-        slots used."""
+        slots used. `owner` (the expert, or "gated") names the tier spans."""
         used = lo = 0
         for tier, real in self.plan_batches(len(rows), self.batch_shapes):
-            chunk = rows[lo: lo + real]
-            padded = np.concatenate([chunk, np.repeat(chunk[-1:], tier - real)])
-            sel = torch.as_tensor(padded, device=pe.device)
-            arch = None
-            if experts is not None:
-                echunk = experts[lo: lo + real]
-                epad = np.concatenate([echunk, np.repeat(echunk[-1:], tier - real)])
-                arch = arch_table[torch.as_tensor(epad, device=arch_table.device)]
-            lo += real
-            latents = pipe.denoise(None, pe[sel], ne[sel], arch, num_inference_steps,
-                                   guidance_scale, latents=take(tier, padded))
-            imgs = pipe.decode(latents)
-            for j, r in enumerate(chunk):
-                out_images[int(r)] = (imgs, j)
-            used += tier
+            ids = {"expert": owner, "tier": tier, "rows": real} if recording() else None
+            with span("tier", ids=ids):
+                with span("latents"):
+                    chunk = rows[lo: lo + real]
+                    padded = np.concatenate([chunk, np.repeat(chunk[-1:], tier - real)])
+                    sel = torch.as_tensor(padded, device=pe.device)
+                    arch = None
+                    if experts is not None:
+                        echunk = experts[lo: lo + real]
+                        epad = np.concatenate([echunk, np.repeat(echunk[-1:], tier - real)])
+                        arch = arch_table[torch.as_tensor(epad, device=arch_table.device)]
+                    tier_pe, tier_ne, initial = pe[sel], ne[sel], take(tier, padded)
+                lo += real
+                with span("denoise", device=True):
+                    latents = pipe.denoise(None, tier_pe, tier_ne, arch, num_inference_steps,
+                                           guidance_scale, latents=initial)
+                with span("decode", device=True):
+                    imgs = pipe.decode(latents)
+                for j, r in enumerate(chunk):
+                    out_images[int(r)] = (imgs, j)
+                used += tier
         return used
 
     def _run_expert(self, e: int, rows: np.ndarray, pe, ne, take: LatentSource,
                     num_inference_steps: int, guidance_scale: float, out_images: dict) -> int:
         """Generate `rows` through expert e in tier-planned batches."""
-        return self._run_tiers(self.expert_pipe(e), rows, pe, ne, None, None, take,
+        with span("expert_pipe"):
+            pipe = self.expert_pipe(e)
+        return self._run_tiers(int(e), pipe, rows, pe, ne, None, None, take,
                                num_inference_steps, guidance_scale, out_images)
 
     def _run_gated_leftovers(self, entries: List[Tuple[int, int]], pe, ne, take: LatentSource,
@@ -278,8 +318,8 @@ class ExpertServer:
         rows = np.asarray([r for r, _ in entries])
         experts = np.asarray([e for _, e in entries])
         codes = hard_concrete(base.quantizer.embedding_gs.float())
-        return self._run_tiers(base, rows, pe, ne, experts, codes, take, num_inference_steps,
-                               guidance_scale, out_images)
+        return self._run_tiers("gated", base, rows, pe, ne, experts, codes, take,
+                               num_inference_steps, guidance_scale, out_images)
 
     def _dispatch_groups(self, groups: Dict[int, np.ndarray], pe, ne, take: LatentSource,
                          num_inference_steps: int, guidance_scale: float, out_images: dict,
@@ -308,10 +348,11 @@ class ExpertServer:
         """Copy each tier's images to the host once, then index rows there."""
         fetched: Dict[int, torch.Tensor] = {}
         res: Dict[int, torch.Tensor] = {}
-        for r, (arr, j) in out_images.items():
-            if id(arr) not in fetched:
-                fetched[id(arr)] = arr.cpu()
-            res[r] = fetched[id(arr)][j]
+        with span("to_host"):
+            for r, (arr, j) in out_images.items():
+                if id(arr) not in fetched:
+                    fetched[id(arr)] = arr.cpu()
+                res[r] = fetched[id(arr)][j]
         return res
 
     def generate(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
@@ -360,6 +401,7 @@ class ServingQueue:
         self._next_id = 0
         self._next_batch = 0
         self.last_slots_used = 0
+        self._flush_index = itertools.count()    # the `flush` span's index
         self._lock = threading.Lock()            # guards _pending and _embeds
         self._dispatch_lock = threading.Lock()   # one flush on the device at a time
 
@@ -371,18 +413,19 @@ class ServingQueue:
         `latents`: their initial latents (N, h, w, C); a flush takes either
         every pending submit's latents or none (then its generator's)."""
         n = input_ids.shape[0]
-        pe, ne, experts = self.server.encode_route(input_ids, neg_input_ids, hyper_net_input,
-                                                   route_noise)
-        if latents is not None:
-            latents = latents.to(pe.device, torch.float32)
-        with self._lock:
-            bi = self._next_batch
-            self._next_batch += 1
-            self._embeds[bi] = (pe, ne, latents)
-            ids = list(range(self._next_id, self._next_id + n))
-            self._next_id += n
-            self._pending.extend((rid, bi, r, int(experts[r])) for r, rid in enumerate(ids))
-            self.routes.update((rid, int(experts[r])) for r, rid in enumerate(ids))
+        with span("submit"):
+            pe, ne, experts = self.server.encode_route(input_ids, neg_input_ids,
+                                                       hyper_net_input, route_noise)
+            if latents is not None:
+                latents = latents.to(pe.device, torch.float32)
+            with self._lock:
+                bi = self._next_batch
+                self._next_batch += 1
+                self._embeds[bi] = (pe, ne, latents)
+                ids = list(range(self._next_id, self._next_id + n))
+                self._next_id += n
+                self._pending.extend((rid, bi, r, int(experts[r])) for r, rid in enumerate(ids))
+                self.routes.update((rid, int(experts[r])) for r, rid in enumerate(ids))
         return ids
 
     def pending_per_expert(self) -> Dict[int, int]:
@@ -403,21 +446,22 @@ class ServingQueue:
         if not pending:
             self.last_slots_used = 0
             return {}
-        batches = sorted(embeds)
-        offset, off = {}, 0
-        for bi in batches:
-            offset[bi] = off
-            off += embeds[bi][0].shape[0]
-        pe = torch.cat([embeds[bi][0] for bi in batches])
-        ne = torch.cat([embeds[bi][1] for bi in batches])
-        given = [embeds[bi][2] is not None for bi in batches]
-        if any(given) and not all(given):
-            raise ValueError("a flush takes the initial latents of every pending submit or "
-                             "of none")
-        latents = torch.cat([embeds[bi][2] for bi in batches]) if all(given) else None
-        rows = np.asarray([offset[bi] + r for _, bi, r, _ in pending])
-        experts = np.asarray([e for _, _, _, e in pending])
-        groups = {int(e): rows[experts == e] for e in np.unique(experts)}
+        with span("join"):
+            batches = sorted(embeds)
+            offset, off = {}, 0
+            for bi in batches:
+                offset[bi] = off
+                off += embeds[bi][0].shape[0]
+            pe = torch.cat([embeds[bi][0] for bi in batches])
+            ne = torch.cat([embeds[bi][1] for bi in batches])
+            given = [embeds[bi][2] is not None for bi in batches]
+            if any(given) and not all(given):
+                raise ValueError("a flush takes the initial latents of every pending submit "
+                                 "or of none")
+            latents = torch.cat([embeds[bi][2] for bi in batches]) if all(given) else None
+            rows = np.asarray([offset[bi] + r for _, bi, r, _ in pending])
+            experts = np.asarray([e for _, _, _, e in pending])
+            groups = {int(e): rows[experts == e] for e in np.unique(experts)}
         out: dict = {}
         server = self.server
         self.last_slots_used = server._dispatch_groups(
@@ -426,25 +470,35 @@ class ServingQueue:
         res = server._materialise(out)
         return {pending[j][0]: res[int(rows[j])] for j in range(len(pending))}
 
+    def _flush(self, index: int, pending, embeds, generator) -> Dict[int, torch.Tensor]:
+        """One taken pending set on the device, once the flush before it has
+        left (`_dispatch_lock`)."""
+        ids = ({"flush": index, "rids": [rid for rid, _, _, _ in pending]} if recording()
+               else None)
+        with span("flush", ids=ids):
+            with span("flush_lock"):
+                self._dispatch_lock.acquire()
+            try:
+                return self._flush_entries(pending, embeds, generator)
+            finally:
+                self._dispatch_lock.release()
+
     def flush(self, generator: Optional[torch.Generator] = None) -> Dict[int, torch.Tensor]:
         """Run everything pending; returns {request_id: image} of this flush."""
-        pending, embeds = self._take_pending()
-        with self._dispatch_lock:
-            return self._flush_entries(pending, embeds, generator)
+        return self._flush(next(self._flush_index), *self._take_pending(), generator)
 
     def flush_async(self, generator: Optional[torch.Generator] = None) -> Future:
         """Run the pending set in a background thread; returns a Future of
         {request_id: image}. The caller may keep submitting meanwhile;
         flushes serialise on a lock."""
-        pending, embeds = self._take_pending()
+        taken = (next(self._flush_index), *self._take_pending())
         fut: Future = Future()
 
         def work():
-            with self._dispatch_lock:
-                try:
-                    fut.set_result(self._flush_entries(pending, embeds, generator))
-                except Exception as e:  # surfaced by fut.result()
-                    fut.set_exception(e)
+            try:
+                fut.set_result(self._flush(*taken, generator))
+            except Exception as e:  # surfaced by fut.result()
+                fut.set_exception(e)
 
         threading.Thread(target=work, daemon=True).start()
         return fut

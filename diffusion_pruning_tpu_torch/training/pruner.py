@@ -42,6 +42,17 @@ ends, in this order: "encode", "router", "teacher", "student", "losses",
 "backward", "optimizer". Recording a CUDA event there times the stages on
 the device's clock without synchronising.
 
+Spans (`utils/profiling.span`, recorded only while a recording is on):
+`step` holds one span a stage, each ending at its mark: `encode` (the VAE
+encode, CLIP text, the noised latents), `router`, `teacher`, `student`,
+`losses`, `backward` and `optimizer` (the gradients' mean and norm, the skip
+test, the clip and the update, the codebook snapshot). A `host_sync` span
+(`utils/profiling.host_sync`) wraps each read of a device value on the
+host: the skip test and, with `max_grad_norm`, each group's clip test, here;
+each of the resource model's tables copied to the device, in
+`core/resource.py`. The step function's `host_syncs` counts the syncs
+`host_sync` counted on the card during its calls.
+
 Data parallel (`mesh`, a `parallel.mesh.DataMesh`): the JAX step under a
 mesh, with torch DDP's semantics. Each rank takes its rows of the global
 batch and the trainables replicated. One `codebook_gumbel` draw is shared by
@@ -89,6 +100,7 @@ from diffusion_pruning_tpu_torch.parallel.mesh import (
     pmean_dict,
 )
 from diffusion_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+from diffusion_pruning_tpu_torch.utils.profiling import host_sync, host_syncs, span
 
 LOSS_TERMS = ("loss", "diffusion_loss", "distillation_loss", "block_loss",
               "contrastive_loss", "resource_loss", "resource_ratio")
@@ -295,62 +307,65 @@ def compute_losses(mods: PrunerModules, cfg: PrunerConfig, batch: Dict[str, torc
     differentiable in the hypernet and the codebook. `draws` must be
     complete (`complete_draws`)."""
     vae, sched, q = mods.vae, mods.schedule, mods.quantizer
-    with torch.no_grad():
+    with span("encode"), torch.no_grad():
         latents = encode_latents(vae, batch, draws["vae_eps"])
         ehs = mods.text_encoder(batch["input_ids"])
         noise, noisy = noisy_latents(sched, cfg, latents, draws)
         timesteps = draws["timesteps"]
     mark("encode")
 
-    # router
-    text_emb = batch["mpnet_embeddings"].float()
-    logits = mods.hypernet(text_emb)
-    z_q, indices, embedding_gs = q.forward_train(logits, draws["codebook_gumbel"],
-                                                 draws["gates_gumbel"], mesh=mesh)
-    gates = q.gumbel_sigmoid_trick(logits, draws["gumbel"])
-    if mods.hypernet.single_arch_param:  # one arch vector, tiled over the batch
-        gates = gates.expand(text_emb.shape[0], -1)
-    gates_norm = q.width_depth_normalize(gates)
-    if mesh is None:
-        text_all, arch_all = text_emb, gates_norm
-    else:
-        text_all, arch_all = all_gather(mesh, text_emb), gather_spliced(mesh, gates_norm)
-    c_loss, arch_sim = contrastive_loss(text_all, arch_all,
-                                        cfg.prompt_temperature, cfg.arch_temperature)
-    arch_used = gates if pretrain else z_q
+    with span("router"):
+        text_emb = batch["mpnet_embeddings"].float()
+        logits = mods.hypernet(text_emb)
+        z_q, indices, embedding_gs = q.forward_train(logits, draws["codebook_gumbel"],
+                                                     draws["gates_gumbel"], mesh=mesh)
+        gates = q.gumbel_sigmoid_trick(logits, draws["gumbel"])
+        if mods.hypernet.single_arch_param:  # one arch vector, tiled over the batch
+            gates = gates.expand(text_emb.shape[0], -1)
+        gates_norm = q.width_depth_normalize(gates)
+        if mesh is None:
+            text_all, arch_all = text_emb, gates_norm
+        else:
+            text_all, arch_all = all_gather(mesh, text_emb), gather_spliced(mesh, gates_norm)
+        c_loss, arch_sim = contrastive_loss(text_all, arch_all,
+                                            cfg.prompt_temperature, cfg.arch_temperature)
+        arch_used = gates if pretrain else z_q
     mark("router")
 
-    with torch.no_grad():
+    with span("teacher"), torch.no_grad():
         teacher_pred, teacher_feats = mods.unet(noisy, timesteps, ehs, arch=None,
                                                 return_features=True)
     mark("teacher")
-    student_pred, student_feats = mods.unet(noisy, timesteps, ehs, arch=arch_used,
-                                            return_features=True)
+    with span("student"):
+        student_pred, student_feats = mods.unet(noisy, timesteps, ehs, arch=arch_used,
+                                                return_features=True)
     mark("student")
 
-    target = teacher_pred if cfg.self_distill_target else sched.target(latents, noise, timesteps)
-    w = snr_weights(sched.alphas_cumprod_on(timesteps.device), timesteps, cfg.snr_gamma,
-                    sched.prediction_type)
-    d_loss = diffusion_loss(student_pred, target, w)
-    distill = (student_pred.float() - teacher_pred.float()).square().mean()
-    block = torch.stack([(student_feats[k].float() - teacher_feats[k].float()).square().mean()
-                         for k in sorted(student_feats)]).mean()
+    with span("losses"):
+        target = (teacher_pred if cfg.self_distill_target
+                  else sched.target(latents, noise, timesteps))
+        w = snr_weights(sched.alphas_cumprod_on(timesteps.device), timesteps, cfg.snr_gamma,
+                        sched.prediction_type)
+        d_loss = diffusion_loss(student_pred, target, w)
+        distill = (student_pred.float() - teacher_pred.float()).square().mean()
+        block = torch.stack([(student_feats[k].float() - teacher_feats[k].float()).square().mean()
+                             for k in sorted(student_feats)]).mean()
 
-    ratios = mods.resource_model.resource_ratio(arch_used)
-    mean_ratio = ratios.mean()
-    r_loss = resource_loss(mean_ratio, p_actual, cfg.resource_type)
-    max_loss = 1.0 - ratios.max()
-    # eps-guarded std: a batch routed to one expert has zero variance, where
-    # the plain std's gradient is NaN
-    std_loss = -torch.sqrt(ratios.var(unbiased=False) + 1e-12)
+        ratios = mods.resource_model.resource_ratio(arch_used)
+        mean_ratio = ratios.mean()
+        r_loss = resource_loss(mean_ratio, p_actual, cfg.resource_type)
+        max_loss = 1.0 - ratios.max()
+        # eps-guarded std: a batch routed to one expert has zero variance, where
+        # the plain std's gradient is NaN
+        std_loss = -torch.sqrt(ratios.var(unbiased=False) + 1e-12)
 
-    total = (cfg.diffusion_weight * d_loss
-             + cfg.resource_weight * r_loss
-             + cfg.contrastive_weight * c_loss
-             + cfg.distillation_weight * distill
-             + cfg.block_weight * block
-             + cfg.std_weight * std_loss
-             + cfg.max_weight * max_loss)
+        total = (cfg.diffusion_weight * d_loss
+                 + cfg.resource_weight * r_loss
+                 + cfg.contrastive_weight * c_loss
+                 + cfg.distillation_weight * distill
+                 + cfg.block_weight * block
+                 + cfg.std_weight * std_loss
+                 + cfg.max_weight * max_loss)
     mark("losses")
     aux = {
         "loss": total, "diffusion_loss": d_loss, "distillation_loss": distill,
@@ -404,48 +419,59 @@ def make_pruner_step(mods: PrunerModules, cfg: PrunerConfig, optimizer: torch.op
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(batch, draws=None, generator=None, mark=_no_mark, shared_generator=None):
-        optimizer.zero_grad(set_to_none=True)
-        auxes = []
-        for mb, mb_draws in _micro_batches(batch, draws, accum_steps):
-            _check_shared(mesh, mb_draws, shared_generator)
-            mb_draws = complete_draws(mods, cfg, mb, mb_draws, generator, shared_generator)
-            loss, aux = compute_losses(mods, cfg, mb, mb_draws, pretrain, p_actual, mark, mesh)
-            loss.backward()
-            mark("backward")
-            auxes.append(aux)
-        for p in params:  # a parameter the loss does not reach gets a zero update
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            elif accum_steps > 1:
-                p.grad.div_(accum_steps)
-        terms = {k: sum(a[k].detach() for a in auxes) / accum_steps if accum_steps > 1
-                 else auxes[0][k].detach() for k in LOSS_TERMS}
-        if mesh is not None:
-            pmean_(mesh, [p.grad for p in params])
-            terms = pmean_dict(mesh, terms)
-        gnorm = _global_norm([p.grad for p in params])
-        skipped = not bool(torch.isfinite(terms["loss"]) & torch.isfinite(gnorm))
-        if not skipped:
-            for group in optimizer.param_groups:
-                if cfg.max_grad_norm:
-                    norm = _global_norm([p.grad for p in group["params"]])
-                    if norm > cfg.max_grad_norm:
-                        for p in group["params"]:
-                            p.grad.mul_(cfg.max_grad_norm / norm)
-                group["lr"] = warmup_lr(cfg, group["peak_lr"], _applied_updates(optimizer, group))
-            optimizer.step()
-        with torch.no_grad():
-            mods.quantizer.embedding_gs.copy_(auxes[-1]["embedding_gs"])
-        mark("optimizer")
-        metrics = dict(terms, grad_norm=gnorm, skipped=skipped)
-        per_sample = {
-            "expert_indices": torch.cat([a["expert_indices"] for a in auxes]),
-            "batch_resource_ratios": torch.cat([a["batch_resource_ratios"].detach()
-                                                for a in auxes])}
-        if mesh is not None:  # the global batch on every rank
-            per_sample = {k: all_gather(mesh, v) for k, v in per_sample.items()}
+        syncs = host_syncs()
+        with span("step"):
+            optimizer.zero_grad(set_to_none=True)
+            auxes = []
+            for mb, mb_draws in _micro_batches(batch, draws, accum_steps):
+                _check_shared(mesh, mb_draws, shared_generator)
+                mb_draws = complete_draws(mods, cfg, mb, mb_draws, generator, shared_generator)
+                loss, aux = compute_losses(mods, cfg, mb, mb_draws, pretrain, p_actual, mark,
+                                           mesh)
+                with span("backward"):
+                    loss.backward()
+                mark("backward")
+                auxes.append(aux)
+            with span("optimizer"):
+                for p in params:  # a parameter the loss does not reach gets a zero update
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    elif accum_steps > 1:
+                        p.grad.div_(accum_steps)
+                terms = {k: sum(a[k].detach() for a in auxes) / accum_steps if accum_steps > 1
+                         else auxes[0][k].detach() for k in LOSS_TERMS}
+                if mesh is not None:
+                    pmean_(mesh, [p.grad for p in params])
+                    terms = pmean_dict(mesh, terms)
+                gnorm = _global_norm([p.grad for p in params])
+                with host_sync(gnorm.device):
+                    skipped = not bool(torch.isfinite(terms["loss"]) & torch.isfinite(gnorm))
+                if not skipped:
+                    for group in optimizer.param_groups:
+                        if cfg.max_grad_norm:
+                            norm = _global_norm([p.grad for p in group["params"]])
+                            with host_sync(norm.device):
+                                clip = bool(norm > cfg.max_grad_norm)
+                            if clip:
+                                for p in group["params"]:
+                                    p.grad.mul_(cfg.max_grad_norm / norm)
+                        group["lr"] = warmup_lr(cfg, group["peak_lr"],
+                                                _applied_updates(optimizer, group))
+                    optimizer.step()
+                with torch.no_grad():
+                    mods.quantizer.embedding_gs.copy_(auxes[-1]["embedding_gs"])
+            mark("optimizer")
+            metrics = dict(terms, grad_norm=gnorm, skipped=skipped)
+            per_sample = {
+                "expert_indices": torch.cat([a["expert_indices"] for a in auxes]),
+                "batch_resource_ratios": torch.cat([a["batch_resource_ratios"].detach()
+                                                    for a in auxes])}
+            if mesh is not None:  # the global batch on every rank
+                per_sample = {k: all_gather(mesh, v) for k, v in per_sample.items()}
+        step.host_syncs += host_syncs() - syncs
         return metrics, per_sample
 
+    step.host_syncs = 0
     return step
 
 

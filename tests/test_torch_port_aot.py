@@ -174,7 +174,8 @@ def test_warmed_server_serves_the_unwarmed_images_bit_for_bit(pipe, hybrid):
 
 def test_an_unprepared_tier_falls_back_to_the_eager_loop(pipe):
     """A request whose batch no tier prepared (3 here) runs the pipe's eager
-    trajectory; a prepared one runs its program."""
+    trajectory and counts a miss; a prepared one runs its program and counts
+    a hit."""
     pipe = pipe.with_unet(pipe.unet)
     assert pipe.prepare_denoise(STEPS, 7.5, (1, 2)) == 2
     disp = pipe._denoise_fn(STEPS, 7.5, False)
@@ -188,6 +189,7 @@ def test_an_unprepared_tier_falls_back_to_the_eager_loop(pipe):
     ne = pipe.encode_prompt(torch.zeros_like(ids))
     for n in (3, 2):
         pipe.denoise(None, pe[:n], ne[:n], None, STEPS, 7.5, latents=latents[:n])
+        assert (disp.hits, disp.misses) == ((0, 1) if n == 3 else (1, 1))
     assert calls == [3, ("program", 2)]
 
 

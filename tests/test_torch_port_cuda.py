@@ -912,3 +912,109 @@ def test_cuda_captured_serving_equals_eager_bit_for_bit():
         assert ran == tier_replays(got[1], hybrid)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         aot.capture(lambda x: x + 1, (torch.zeros(2),))
+
+
+# ---------------------------------------------------------------- spans and host syncs
+
+def _wide_tiny_modules(seed=0):
+    """The tiny models with the U-Net widened to heads of 64 (the kernels'
+    head size) in bf16, on the card, and a codebook snapshot of 3 codes."""
+    import numpy as np
+
+    from diffusion_pruning_tpu_torch.models.hypernet import HyperStructure
+    from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
+    from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+
+    cfg = UNetConfig.tiny(block_out_channels=(64, 128), attention_head_dim=(1, 2),
+                          use_flash_attention=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        unet, vae = GatedUNet(cfg), AutoencoderKL(VAEConfig.tiny())
+        text = CLIPTextEncoder(CLIPTextConfig.tiny())
+        hypernet = HyperStructure(unet.spec, input_dim=32)
+        quantizer = StructureQuantizer(unet.spec, n_e=3, base=0.0)
+    for module in (unet, vae, text, hypernet):
+        random_init_(module, gen)
+    quantizer.init_params(gen)
+    quantizer.init_state()
+    codes = (np.random.default_rng(21).random((3, unet.spec.vq_dim)) < 0.6).astype(np.float32)
+    codes[:, unet.spec.num_width:] = 1.0
+    with torch.no_grad():
+        quantizer.embedding_gs.copy_(torch.from_numpy(np.where(codes >= 0.5, 0.8, 0.2)))
+    return cfg, unet.to(torch.bfloat16), vae, text, hypernet, quantizer, gen
+
+
+def test_cuda_stage1_step_synchronises_exactly_host_syncs_times():
+    """Under `torch.cuda.set_sync_debug_mode("warn")` one stage-1 step
+    through the kernels (with `max_grad_norm`, so the clip tests run) warns
+    of exactly as many synchronising operations as `step.host_syncs` counts:
+    every host sync of the step is a counted `host_sync`."""
+    import warnings
+
+    from diffusion_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diffusion_pruning_tpu_torch.training.pruner import (
+        PrunerConfig, PrunerModules, complete_draws, make_optimizer, make_pruner_step)
+
+    _, unet, vae, text, hypernet, quantizer, gen = _wide_tiny_modules()
+    mods = PrunerModules(unet, vae, text, hypernet, quantizer, DiffusionSchedule())
+    cfg = PrunerConfig(max_grad_norm=1e-3)
+    step = make_pruner_step(mods, cfg, make_optimizer(cfg, mods, 2))
+    batch = {"input_ids": torch.randint(0, 128, (2, 77), device="cuda", generator=gen),
+             "mpnet_embeddings": torch.randn(2, 32, device="cuda", generator=gen),
+             "pixel_values": torch.rand(2, 16, 16, 3, device="cuda", generator=gen) * 2 - 1}
+    step(batch, generator=gen)   # builds the kernels and the optimizer's state
+    draws = complete_draws(mods, cfg, batch, None, gen)
+    torch.cuda.synchronize()
+    before = step.host_syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            metrics, _ = step(batch, draws)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not metrics["skipped"]
+    assert len(syncs) == step.host_syncs - before == 3 + 1 + 2, [str(w.message) for w in syncs]
+
+
+def test_cuda_served_flush_records_device_time_and_every_dispatch_hits():
+    """A warmed server's flush records device milliseconds for each tier's
+    `denoise` and `decode` (CUDA events read when the recording stops), and
+    every tier ran its prepared program: the dispatch tables count one hit a
+    tier and no miss."""
+    from diffusion_pruning_tpu_torch.pipelines import PruningPipeline, aot
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import ExpertServer, ServingQueue
+    from diffusion_pruning_tpu_torch.utils import profiling
+
+    cfg, unet, vae, text, hypernet, quantizer, gen = _wide_tiny_modules(seed=1)
+    pipe = PruningPipeline(unet, vae, text, hypernet, quantizer)
+    server = ExpertServer.from_codebook(pipe, unet.spec, cfg, batch_size=2,
+                                        param_dtype=torch.bfloat16)
+    server.warmup(3, 7.5)
+    tables = [d for c in server._expert_caches.values() for d in c.values()
+              if isinstance(d, aot.ShapeDispatch)]
+    queue = ServingQueue(server, num_inference_steps=3)
+    neg = torch.zeros(1, 77, dtype=torch.long, device="cuda")
+    for _ in range(5):
+        queue.submit(torch.randint(0, 128, (1, 77), device="cuda", generator=gen), neg,
+                     route_noise=torch.randn(1, unet.spec.vq_dim, device="cuda",
+                                             generator=gen) * 3,
+                     latents=torch.randn(1, 8, 8, 4, device="cuda", generator=gen))
+    hits, misses = sum(d.hits for d in tables), sum(d.misses for d in tables)
+    profiling.start()
+    try:
+        images = queue.flush()
+    finally:
+        spans = profiling.stop()
+    assert len(images) == 5
+    tiers = [s for s in spans if s.name == "tier"]
+    timed = [s for s in spans if s.name in ("denoise", "decode")]
+    assert tiers and len(timed) == 2 * len(tiers)
+    assert all(s.device_ms is not None and s.device_ms > 0 for s in timed), timed
+    assert sum(d.hits for d in tables) - hits == len(tiers)
+    assert sum(d.misses for d in tables) == misses == 0
