@@ -135,8 +135,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
                   zeroed, against the dense U-Net in f32 with plain attention
                   under the expert's code (<= UNET_REL_L2; the planted fault
                   `heads_from_the_front` above it), under each fused flag
-                  (<= FUSED_UNET_REL_L2), with its launches per forward (2 a
-                  kept transformer) and its kernels' device time over the
+                  (<= FUSED_UNET_REL_L2), with its launches per forward (2
+                  attention a kept transformer; served NHWC, 2 group_norm_silu
+                  a kept resnet, 1 a kept transformer and 1 the output head)
+                  and its kernels' device time over the
                   forward's sites; then 16 prompts at 256px, DDIM-25, CFG
                   7.5, in two submits of 8 through a `ServingQueue`: `flush`
                   (experts) and `flush_async` (hybrid) and the gated
@@ -2860,10 +2862,14 @@ def check_experts(server, unet, codes, device):
             bad = build_expert(cfg, faulty, slice_expert_params(zeroed, faulty))(x, t, ehs).float()
             kept_res = sum(1 for sb in plan.subblocks if sb.kind == "resnet" and not sb.dropped)
             kept_tf = sum(1 for sb in plan.subblocks if sb.kind == "transformer" and not sb.dropped)
-            want = {"gated_flash_fwd": 2 * kept_tf}
+            attn = {"gated_flash_fwd": 2 * kept_tf}
+            # a bf16 expert on the card is served NHWC (`build_expert`): every
+            # norm, the output head's too, runs group_norm_silu
+            nhwc = {"group_norm_silu": 2 * kept_res + kept_tf + 1}
+            want = {**attn, **nhwc}
             fused = {}
             timed = e < FUSED_TIMED_EXPERTS
-            for flag, want_flag in (("fused_norms", {"group_norm_silu": 2 * kept_res + kept_tf}),
+            for flag, want_flag in (("fused_norms", nhwc),
                                     ("fused_norm_conv", {"norm_conv3x3": 2 * kept_res + 1,
                                                          "norm_linear": kept_tf})):
                 twin = build_expert(dataclasses.replace(cfg, **{flag: True}), plan,
@@ -2875,7 +2881,7 @@ def check_experts(server, unet, codes, device):
                 if timed:
                     fused[flag].update(kernel_device_ms=f_ms,
                                        forward_ms=time_ms(lambda: twin(x, t, ehs), 5))
-                want_all = {**want_flag, **want}
+                want_all = {**want_flag, **attn}
                 if wrapper_counts(f_counts) != {k: want_all.get(k, 0) for k in kernel_wrappers()}:
                     fail(f"expert {e} under {flag}: expected {want_all} launches per forward, "
                          f"got {f_counts}")

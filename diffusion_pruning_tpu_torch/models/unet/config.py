@@ -72,7 +72,11 @@ class UNetConfig:
     # original APTP code's `gradient_checkpointing`
     remat: bool = False
     # route every resnet norm (+SiLU) and transformer norm through the
-    # one-pass GroupNorm kernel (ops/group_norm.py)
+    # one-pass GroupNorm kernel (ops/group_norm.py), on channels_last
+    # activations; `pipelines/expert_server.build_expert` sets it for served
+    # bf16 CUDA experts, whose conv weights it makes channels_last too (the
+    # NHWC route: no convolution converts a layout, and the output head's
+    # norm takes the kernel as well)
     fused_norms: bool = False
     # fold GroupNorm(+gate)+SiLU into the input read of the consumer product
     # (ops/norm_conv.py): the resnets' norm→conv3x3 pairs, conv_norm_out→

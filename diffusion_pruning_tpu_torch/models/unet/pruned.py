@@ -169,7 +169,12 @@ def slice_expert_params(state_dict: Dict[str, torch.Tensor], plan: ExpertPlan
     (`expert_cuts`) is a copy (`index_select`); every other entry is the
     dense tensor itself, so an expert loaded with
     `load_state_dict(..., assign=True)` shares those leaves' storage with the
-    dense U-Net and must never be written in place. The copies are made
+    dense U-Net and must never be written in place. On the NHWC route
+    (`pipelines/expert_server.build_expert`, served bf16 CUDA experts) every
+    4-D conv weight whose layout changes is copied once more, to
+    channels_last: the uncut 3×3 leaves (conv_in, conv_out, the resamplers)
+    then stop sharing; a 1×1 shortcut is channels_last as it is and, like
+    every leaf of fewer dimensions, still shares. The copies are made
     outside `torch.inference_mode` even when the caller is inside it, so they
     keep the version counter the fused conv's packed-weight cache reads."""
     dropped = tuple(module_name(sb.name) + "." for sb in plan.subblocks if sb.dropped)

@@ -7,6 +7,11 @@ layout — latents and features `(B, H, W, C)` — while the convolutions run
 on logical NCHW tensors inside: contiguous by default, converted once to
 `torch.channels_last` after `conv_in` under `fused_norms` or
 `fused_norm_conv`, whose kernels read that layout (every later op keeps it).
+A U-Net whose conv weights are channels_last (`layout` "nhwc": the route
+`pipelines/expert_server.build_expert` gives served bf16 CUDA experts) takes
+the latents' permuted view into `conv_in` as it is, already channels_last,
+and runs its output head's norm on `group_norm_silu` too, so that no
+convolution and no norm converts a layout.
 Module names follow diffusers' `UNet2DConditionModel` state dict, so a
 diffusers checkpoint loads without a key map.
 
@@ -209,6 +214,15 @@ class GatedUNet(nn.Module):
         self.conv_out = nn.Conv2d(ch, cfg.out_channels, 3, padding=1)
         self._packed_out = PackedWeight()
 
+    @property
+    def layout(self) -> str:
+        """"nhwc" where the conv weights are `torch.channels_last` (then the
+        activations keep that layout from `conv_in` to `conv_out`), else
+        "nchw"."""
+        w = self.conv_in.weight
+        nhwc = w.is_contiguous(memory_format=torch.channels_last) and not w.is_contiguous()
+        return "nhwc" if nhwc else "nchw"
+
     def _call(self, block: nn.Module, *args):
         """Run a subblock, recomputed in the backward pass under `remat`."""
         if self.cfg.remat and torch.is_grad_enabled():
@@ -246,9 +260,14 @@ class GatedUNet(nn.Module):
         temb = self.time_embedding(t_emb)
         ehs = encoder_hidden_states.to(dtype)
 
-        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2).contiguous())
-        if cfg.fused_norms or cfg.fused_norm_conv:
-            h = h.contiguous(memory_format=torch.channels_last)
+        nhwc = self.layout == "nhwc"
+        x = sample.to(dtype).permute(0, 3, 1, 2)
+        if nhwc:  # the NHWC latents' permuted view has channels_last strides
+            h = self.conv_in(x)
+        else:
+            h = self.conv_in(x.contiguous())
+            if cfg.fused_norms or cfg.fused_norm_conv:
+                h = h.contiguous(memory_format=torch.channels_last)
         res_stack = [h]
         for i, block in enumerate(self.down_blocks):
             cross = hasattr(block, "attentions")
@@ -290,8 +309,9 @@ class GatedUNet(nn.Module):
             features[f"u{i}"] = h
 
         # the output head's norm stays unfused under `fused_norms`, as in the
-        # JAX package
-        out = norm_silu_conv(h, self.conv_norm_out, self.conv_out, None, False,
+        # JAX package, except in the NHWC layout, where torch's GroupNorm
+        # would make its input contiguous
+        out = norm_silu_conv(h, self.conv_norm_out, self.conv_out, None, nhwc,
                              cfg.fused_norm_conv, self._packed_out).permute(0, 2, 3, 1)
         if return_features:
             return out, {name: f.permute(0, 2, 3, 1) for name, f in features.items()}

@@ -19,6 +19,13 @@ shard_pipeline`), every expert is cut from the gathered dense weights and
 sharded on the mesh's model axis by the same rules at its kept widths, and
 the expert pipelines inherit the mesh.
 
+Layout (`build_expert`, `nhwc_route`): an expert whose weights are all bf16
+on a CUDA card, with no mesh and no `fused_norm_conv`, is served NHWC: its
+conv weights channels_last, its activations channels_last from `conv_in` to
+`conv_out`, every GroupNorm (+SiLU) on the hand-written `group_norm_silu`,
+so that no convolution converts a layout. Any other expert keeps the
+layout its config gives.
+
 `warmup` prepares the serving programs before traffic arrives: on the card
 one CUDA graph of the denoise trajectory per (expert, tier), and under
 `hybrid` per tier of the gated U-Net (`pipelines/aot.py`), dispatched by
@@ -44,7 +51,8 @@ Spans (`utils/profiling.span`, recorded only while a recording is on):
   expert), then for each expert `expert_pipe` (its pipeline built with its
   U-Net, `with_unet`) and one `tier` per tier batch (`expert`: its index,
   or `gated` for the pooled batch; `tier`; `rows`: the real rows, so that
-  a tier's padding and its own time read together), then `to_host`
+  a tier's padding and its own time read together; `layout`: "nhwc" or
+  "nchw", the U-Net's `layout`), then `to_host`
   (`_materialise`: each tier's images copied to the host, which waits for
   the device's work).
 - each `tier`'s children: `latents` (the tier's rows gathered: initial
@@ -52,7 +60,8 @@ Spans (`utils/profiling.span`, recorded only while a recording is on):
   between CUDA events) and `decode` (the VAE decode; stream time between
   CUDA events, which the host's launches pace where they fall behind).
   Whether a tier ran a prepared program is counted by `aot.ShapeDispatch`
-  (`hits`, `misses`).
+  (`hits`, `misses`), and the tiers of each layout by
+  `utils.profiling.tiers_served`.
 """
 from __future__ import annotations
 
@@ -60,7 +69,7 @@ import dataclasses
 import itertools
 import threading
 from concurrent.futures import Future
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -76,7 +85,7 @@ from diffusion_pruning_tpu_torch.models.unet.pruned import (
 )
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.pipelines.pruning_pipeline import PruningPipeline
-from diffusion_pruning_tpu_torch.utils.profiling import recording, span
+from diffusion_pruning_tpu_torch.utils.profiling import count_tier, recording, span
 
 # the two warm-up options of the JAX server the port refuses, and why
 AOT_DIR_REFUSED = ("a CUDA graph holds this process's device addresses and cannot be saved to "
@@ -90,11 +99,39 @@ PARALLEL_REFUSED = ("capture is host Python under the GIL, so warm-up threads ha
 LatentSource = Callable[[int, np.ndarray], torch.Tensor]
 
 
-def build_expert(cfg: UNetConfig, plan: ExpertPlan, state_dict: Dict[str, torch.Tensor]
-                 ) -> GatedUNet:
-    """The expert U-Net of `plan` holding exactly the tensors of
-    `state_dict` (no copy, no random init: the modules are built on the meta
-    device and the tensors assigned), in eval mode."""
+def nhwc_route(cfg: UNetConfig, leaves: Set[Tuple[torch.dtype, str]], mesh=None) -> bool:
+    """Whether `build_expert` serves the expert NHWC. `leaves`: the (dtype,
+    device type) pairs of its state dict's floating tensors. The route is
+    taken where they are all bf16 on a CUDA device (what the hand-written
+    kernels take), there is no tensor-parallel `mesh`, and the config does
+    not set `fused_norm_conv` (whose kernels fold the norms, and which
+    wins)."""
+    return mesh is None and not cfg.fused_norm_conv and leaves == {(torch.bfloat16, "cuda")}
+
+
+def channels_last_convs(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`state_dict` with every 4-D (conv) weight in `torch.channels_last`:
+    a copy where the layout changes (made outside `torch.inference_mode`, so
+    it keeps a version counter), the tensor itself where it does not (a 1×1
+    weight) and for every other leaf."""
+    with torch.inference_mode(False):
+        return {k: v.contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
+                for k, v in state_dict.items()}
+
+
+def build_expert(cfg: UNetConfig, plan: ExpertPlan, state_dict: Dict[str, torch.Tensor],
+                 mesh=None) -> GatedUNet:
+    """The expert U-Net of `plan` holding the tensors of `state_dict` (no
+    random init: the modules are built on the meta device and the tensors
+    assigned), in eval mode. Where `nhwc_route` holds (served bf16 CUDA
+    experts; `mesh`: the mesh the expert will be sharded on) it runs
+    `fused_norms`'s channels_last path with channels_last conv weights
+    (`channels_last_convs`: the 3×3 ones are copies, every other leaf is
+    assigned as given); else every leaf is assigned as given."""
+    leaves = {(v.dtype, v.device.type) for v in state_dict.values() if v.is_floating_point()}
+    if nhwc_route(cfg, leaves, mesh):
+        cfg = dataclasses.replace(cfg, fused_norms=True)
+        state_dict = channels_last_convs(state_dict)
     with torch.device("meta"):
         model = GatedUNet(cfg, plan=plan)
     model.load_state_dict(state_dict, strict=True, assign=True)
@@ -125,7 +162,10 @@ class ExpertServer:
         leaf an expert does not cut shares the dense U-Net's storage when the
         dtype is unchanged. On a pipeline with a mesh, the dense weights are
         gathered from the model axis first (a collective) and each expert is
-        sharded on it (`parallel.tp.shard_unet`)."""
+        sharded on it (`parallel.tp.shard_unet`). Served bf16 CUDA experts
+        without a mesh take `build_expert`'s NHWC route: their 3×3 conv
+        weights are channels_last copies, also where uncut (conv_in,
+        conv_out, the resamplers); their other uncut leaves share."""
         from diffusion_pruning_tpu_torch.parallel.tp import gather_state, shard_unet
         codes = (pipeline.quantizer.embedding_gs.float() >= 0.5).float().cpu().numpy()
         mesh = pipeline.mesh
@@ -141,7 +181,7 @@ class ExpertServer:
                 sd = slice_expert_params(dense, plan)
             with torch.inference_mode(False):
                 sd = {k: v.to(pipeline.device, param_dtype) for k, v in sd.items()}
-            expert = build_expert(cfg, plan, sd)
+            expert = build_expert(cfg, plan, sd, mesh)
             models.append(expert if mesh is None else shard_unet(expert, mesh))
             ratios.append(expert_macs_ratio(spec, plan))
         return cls(pipeline, models, ratios, batch_size)
@@ -276,8 +316,11 @@ class ExpertServer:
         out_images[row] = (tier images, index in the tier). Returns the
         slots used. `owner` (the expert, or "gated") names the tier spans."""
         used = lo = 0
+        layout = pipe.unet.layout
         for tier, real in self.plan_batches(len(rows), self.batch_shapes):
-            ids = {"expert": owner, "tier": tier, "rows": real} if recording() else None
+            count_tier(layout)
+            ids = ({"expert": owner, "tier": tier, "rows": real, "layout": layout}
+                   if recording() else None)
             with span("tier", ids=ids):
                 with span("latents"):
                     chunk = rows[lo: lo + real]

@@ -24,12 +24,16 @@ The spans the port records:
   `encode_prompt`, `encode_negative`, `route`, `route_to_host`.
 - the same module, the flush's thread: `flush` (flush, rids) →
   `flush_lock`, `join`, for each expert `expert_pipe` and one `tier` per
-  tier batch (expert or `gated`, tier, rows) → {`latents`, `denoise`
-  (device), `decode` (device)}, then `to_host`.
+  tier batch (expert or `gated`, tier, rows, layout) → {`latents`,
+  `denoise` (device), `decode` (device)}, then `to_host`.
 - `training/pruner.py`: `step` → `encode`, `router`, `teacher`, `student`,
   `losses`, `backward`, `optimizer`, at the step's `mark` boundaries;
   `host_sync` at the step's skip and clip tests and, in `core/resource.py`,
   at each of the resource model's tables copied to the device.
+
+`count_tier(layout)` counts each served tier batch by the U-Net's layout
+("nhwc" or "nchw"), whether or not a recording is on; `tiers_served()`
+reads the counts.
 
 `trace` is a `torch.profiler` context in place of `jax.profiler`'s trace.
 """
@@ -40,7 +44,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -144,6 +148,24 @@ def host_sync(device: torch.device):
 def host_syncs() -> int:
     """The host syncs `host_sync` has counted on this thread."""
     return getattr(_local, "syncs", 0)
+
+
+_tiers: Dict[str, int] = {}
+_tiers_lock = threading.Lock()
+
+
+def count_tier(layout: str) -> None:
+    """Count one tier batch served by a U-Net of `layout` ("nhwc" or
+    "nchw")."""
+    with _tiers_lock:
+        _tiers[layout] = _tiers.get(layout, 0) + 1
+
+
+def tiers_served() -> Dict[str, int]:
+    """{layout: tier batches} that `count_tier` has counted in this
+    process."""
+    with _tiers_lock:
+        return dict(_tiers)
 
 
 def start() -> None:

@@ -9,6 +9,7 @@ so that it runs on a machine without JAX:
 
 Without a card every test here skips."""
 import collections
+import dataclasses
 import functools
 
 import pytest
@@ -827,7 +828,7 @@ def test_cuda_fused_norm_conv_student_follows_its_updates():
             with torch.no_grad():
                 assert torch.equal(out, fresh(x, t, ehs).float())
     rel = float((outs[True] - outs[False]).norm() / outs[False].norm())
-    assert rel <= 2e-2, rel
+    assert rel <= UNET_REL_L2, rel
 
 
 def test_cuda_captured_serving_equals_eager_bit_for_bit():
@@ -912,6 +913,104 @@ def test_cuda_captured_serving_equals_eager_bit_for_bit():
         assert ran == tier_replays(got[1], hybrid)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         aot.capture(lambda x: x + 1, (torch.zeros(2),))
+
+
+# a U-Net's output against another path's, relative L2 over the whole output
+# (chip_smoke's UNET_REL_L2 and FUSED_UNET_REL_L2): a sound bf16 path reads
+# 0.013-0.016 against the f32 U-Net
+UNET_REL_L2 = 2e-2
+
+
+def _nchw_expert(cfg, plan, state):
+    """The expert of `plan` on the layout its config gives, holding `state`
+    as given: what `build_expert` returned before the NHWC route."""
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    with torch.device("meta"):
+        model = GatedUNet(cfg, plan=plan)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.eval().requires_grad_(False)
+
+
+@pytest.mark.parametrize("resolution", [256, 512])
+def test_cuda_served_expert_runs_nhwc_without_layout_conversions(resolution):
+    """A bf16 expert of the SD-2.1 U-Net built by `build_expert` takes the
+    NHWC route: every 4-D parameter is channels_last, and one captured CFG
+    forward of a tier of 2 (B_eff 4) launches `group_norm_silu` once at each
+    kept norm site (2 a resnet, 1 a transformer, 1 the output head). A
+    profiled replay runs no cuDNN layout conversion (`nchwToNhwc`,
+    `nhwcToNchw`) and no torch GroupNorm, and an eager forward copies no conv
+    weight. The replay's output lies within UNET_REL_L2 of the same expert on
+    the NCHW route and of the f32 dense U-Net (plain attention, TF32 off)
+    under the expert's code, all from weights whose resnet norm2 biases are
+    zeroed (so that a closed group contributes 0 on both sides)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
+    from diffusion_pruning_tpu_torch.models.unet.pruned import (
+        make_expert_plan, slice_expert_params)
+    from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
+    from diffusion_pruning_tpu_torch.pipelines import aot
+    from diffusion_pruning_tpu_torch.pipelines.expert_server import build_expert
+    from diffusion_pruning_tpu_torch.utils.init_utils import random_init_
+
+    cfg = UNetConfig.sd21(resolution)
+    gen = torch.Generator(device="cuda").manual_seed(resolution)
+    with torch.device("cuda"):
+        dense = GatedUNet(dataclasses.replace(cfg, use_flash_attention=False))
+    random_init_(dense, gen)
+    with torch.no_grad():
+        for name, p in dense.named_parameters():
+            if name.endswith("norm2.bias") and ".resnets." in name:
+                p.zero_()
+            p.copy_(p.bfloat16().float())  # the f32 reference takes the served values
+    dense.eval()
+    spec = dense.spec
+    code = (torch.rand(spec.vq_dim, generator=torch.Generator().manual_seed(7)) < 0.6).float()
+    for sb in spec.subblocks:
+        for site in sb.sites:
+            code[site.start] = 1.0
+    code[spec.num_width:] = 1.0
+    code[spec.num_width + 1] = code[spec.num_width + 3] = 0.0  # two subblocks dropped
+    plan = make_expert_plan(spec, code.numpy())
+    state = {k: v.bfloat16() for k, v in slice_expert_params(dense.state_dict(), plan).items()}
+    expert = build_expert(cfg, plan, state)
+    nchw = _nchw_expert(cfg, plan, state)
+    assert expert.layout == "nhwc" and nchw.layout == "nchw" and expert.cfg.fused_norms
+    four_d = [(n, p) for n, p in expert.named_parameters() if p.dim() == 4]
+    assert four_d and all(p.is_contiguous(memory_format=torch.channels_last) for _, p in four_d)
+    kept_res = sum(1 for sb in plan.subblocks if sb.kind == "resnet" and not sb.dropped)
+    kept_tf = sum(1 for sb in plan.subblocks if sb.kind == "transformer" and not sb.dropped)
+    norms = 2 * kept_res + kept_tf + 1
+
+    side = resolution // 8
+    x = torch.randn(4, side, side, 4, device="cuda", generator=gen)
+    t = torch.tensor([999, 999, 500, 500], device="cuda")
+    ehs = torch.randn(4, 77, cfg.cross_attention_dim, device="cuda", generator=gen)
+    weight_shapes = {tuple(p.shape) for _, p in four_d}
+    with torch.inference_mode():
+        program = aot.capture(lambda *a: expert(*a), (x, t, ehs))
+        assert program.launches["group_norm_silu_forward"] == norms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as replayed:
+            out = program(x, t, ehs).float()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as eager:
+            expert(x, t, ehs)
+            torch.cuda.synchronize()
+        want_nchw = nchw(x, t, ehs).float()
+        with _no_tf32():
+            want = dense(x, t, ehs, arch=code[None].cuda()).float()
+    kernels = [e.name for e in replayed.events() if e.device_type.name == "CUDA"]
+    assert sum("group_norm_silu_kernel" in k for k in kernels) == norms, kernels
+    for banned in ("nchwToNhwc", "nhwcToNchw", "RowwiseMoments"):
+        assert not [k for k in kernels if banned in k], banned
+    copies = [(e.name, e.input_shapes) for e in eager.events()
+              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous", "aten::_to_copy")
+              and e.input_shapes and tuple(e.input_shapes[0]) in weight_shapes]
+    assert not copies, copies
+    assert torch.isfinite(out).all()
+    for ref in (want_nchw, want):
+        rel = float((out - ref).norm() / ref.norm())
+        assert rel <= UNET_REL_L2, rel
 
 
 # ---------------------------------------------------------------- spans and host syncs

@@ -39,10 +39,13 @@ from diffusion_pruning_tpu_torch.models.unet.pruned import (
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
 from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from diffusion_pruning_tpu_torch.pipelines import PruningPipeline
+from diffusion_pruning_tpu_torch.models.unet import blocks
 from diffusion_pruning_tpu_torch.pipelines.expert_server import (
     ExpertServer,
     ServingQueue,
     build_expert,
+    channels_last_convs,
+    nhwc_route,
 )
 
 from torch_port_common import numpy_params
@@ -445,14 +448,116 @@ def test_warmup_refuses_what_is_not_ported(servers):
         server.warmup(parallel=4)
 
 
-def test_build_expert_assigns_without_copying(dense):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_build_expert_assigns_without_copying(dense, dtype):
+    """A CPU expert, f32 or bf16, keeps the config's route: built with the
+    given config (layout "nchw", norms as the config says) and holding
+    every leaf as given."""
     _, port = dense
     plan, _ = _plans("drop")
-    state = slice_expert_params(port.state_dict(), plan)
+    state = {k: v.to(dtype) for k, v in slice_expert_params(port.state_dict(), plan).items()}
     expert = build_expert(UNetConfig.tiny(), plan, state)
     assert not expert.training
+    assert expert.layout == "nchw" and not expert.cfg.fused_norms
     for key, value in expert.state_dict().items():
         assert value.data_ptr() == state[key].data_ptr() and not value.requires_grad, key
+
+
+BF16_CUDA = (torch.bfloat16, "cuda")
+
+
+@pytest.mark.parametrize("leaves,mesh,flags,route", [
+    ({BF16_CUDA}, None, {}, True),
+    ({BF16_CUDA}, None, {"fused_norms": True}, True),
+    ({(torch.bfloat16, "cpu")}, None, {}, False),
+    ({(torch.float32, "cpu")}, None, {}, False),
+    ({(torch.float32, "cuda")}, None, {}, False),
+    ({BF16_CUDA, (torch.float32, "cuda")}, None, {}, False),
+    (set(), None, {}, False),
+    ({BF16_CUDA}, "mesh", {}, False),
+    ({BF16_CUDA}, None, {"fused_norm_conv": True}, False),
+])
+def test_nhwc_route_takes_only_bf16_cuda_experts_without_mesh_or_fused_conv(leaves, mesh, flags,
+                                                                             route):
+    """The route rule is a function of what `build_expert` observes: the
+    (dtype, device type) pairs of the floating leaves, the mesh and the
+    config. CPU tensors, f32 or mixed CUDA weights, a mesh and
+    `fused_norm_conv` keep the config's route."""
+    assert nhwc_route(UNetConfig.tiny(**flags), leaves, mesh) is route
+
+
+def test_nhwc_route_copies_only_conv_weights(dense):
+    """Which leaves are copies on the NHWC route (`channels_last_convs`, what
+    `build_expert` assigns where `nhwc_route` holds): the 4-D conv weights
+    whose layout changes, the 3×3 ones; a 1×1 shortcut is channels_last as
+    it is and shares, as does every leaf of fewer dimensions. The uncut 3×3
+    leaves (conv_in, conv_out, the resamplers) are among the copies."""
+    _, port = dense
+    assert nhwc_route(UNetConfig.tiny(), {BF16_CUDA})
+    dense_sd = port.state_dict()
+    for kind in ARCHS:
+        plan, _ = _plans(kind)
+        state = slice_expert_params(dense_sd, plan)
+        nhwc = channels_last_convs(state)
+        assert set(nhwc) == set(state)
+        copied = {k for k, v in nhwc.items() if v.data_ptr() != state[k].data_ptr()}
+        assert copied == {k for k, v in state.items() if v.dim() == 4 and v.shape[2:] == (3, 3)}
+        for key, value in nhwc.items():
+            assert torch.equal(value, state[key]), key
+            if value.dim() == 4:
+                assert value.is_contiguous(memory_format=torch.channels_last), key
+            else:
+                assert value is state[key], key
+        uncut = {"conv_in.weight", "conv_out.weight", "down_blocks.0.downsamplers.0.conv.weight",
+                 "up_blocks.0.upsamplers.0.conv.weight"}
+        assert uncut <= copied and not uncut & set(expert_cuts(plan))
+        assert all(state[k].data_ptr() == dense_sd[k].data_ptr() for k in uncut)
+        assert any(k.endswith("conv_shortcut.weight") for k in set(nhwc) - copied)
+
+
+@pytest.mark.parametrize("kind", ("keep", "drop", "least"))
+def test_nhwc_layout_expert_matches_jax_and_never_converts(dense, jax_expert_outputs,
+                                                           monkeypatch, kind):
+    """The NHWC route's U-Net, run on the CPU with the plain versions: the
+    leaves `channels_last_convs` gives under `fused_norms` make its layout
+    "nhwc"; every convolution and every norm, the output head's included, is
+    handed a channels_last activation (so none converts it); and its output
+    matches the JAX expert under `fused_norms`."""
+    _, port = dense
+    plan, _ = _plans(kind)
+    cfg = UNetConfig.tiny(fused_norms=True)
+    with torch.device("meta"):
+        expert = GatedUNet(cfg, plan=plan)
+    expert.load_state_dict(channels_last_convs(slice_expert_params(port.state_dict(), plan)),
+                           assign=True)
+    expert.eval()
+    assert expert.layout == "nhwc"
+    seen = []
+
+    def check(name, x):
+        seen.append(name)
+        assert x.is_contiguous(memory_format=torch.channels_last), name
+
+    for name, mod in expert.named_modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            mod.register_forward_pre_hook(lambda m, args, name=name: check(name, args[0]))
+    real = blocks.group_norm_silu
+
+    def watched(x, *args):
+        check("group_norm_silu", x)
+        return real(x, *args)
+
+    monkeypatch.setattr(blocks, "group_norm_silu", watched)
+    x, t, ehs = _unet_inputs()
+    with torch.no_grad():
+        got = expert(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ehs))
+    kept_res = sum(1 for sb in plan.subblocks if sb.kind == "resnet" and not sb.dropped)
+    kept_tf = sum(1 for sb in plan.subblocks if sb.kind == "transformer" and not sb.dropped)
+    assert seen.count("group_norm_silu") == 2 * kept_res + kept_tf + 1
+    assert "conv_in" in seen and "conv_out" in seen
+    assert got.shape == (4, 8, 8, 4) and got.is_contiguous()
+    want = jax_expert_outputs(kind, {"fused_norms": True}, x, t, ehs)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 def test_experts_cut_under_inference_mode_run_the_fused_ops(servers):

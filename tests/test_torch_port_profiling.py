@@ -185,9 +185,9 @@ def test_serving_queue_records_submit_and_flush_spans_on_their_threads(server):
     """Submits on the main thread while a flush runs on its own: each submit
     is `submit` → encode_prompt, encode_negative, route, route_to_host; each
     flush is `flush` (its index and the rids it answered) → flush_lock,
-    join, for each expert expert_pipe and one `tier` (expert, tier, rows)
-    per tier batch → latents, denoise, decode, then to_host, all on the
-    flush's thread."""
+    join, for each expert expert_pipe and one `tier` (expert, tier, rows,
+    layout: "nchw" for a CPU expert) per tier batch → latents, denoise,
+    decode, then to_host, all on the flush's thread."""
     queue = ServingQueue(server, num_inference_steps=STEPS)
     neg = torch.zeros(1, 77, dtype=torch.long)
     ids, noise, latents = _requests(server, 5, 6)
@@ -230,8 +230,9 @@ def test_serving_queue_records_submit_and_flush_spans_on_their_threads(server):
         assert len(pipes) + len(tiers) + 3 == len(kids)
         for i, j in zip(pipes, pipes[1:] + [len(kids) - 1]):   # each expert's tiers follow its pipe
             assert len({k.ids["expert"] for k in kids[i + 1: j]}) == 1 and j > i + 1
-        assert sorted((t.ids["expert"], t.ids["tier"], t.ids["rows"]) for t in tiers) == sorted(
-            (e, tier, rows) for e in set(routed)
+        assert sorted((t.ids["expert"], t.ids["tier"], t.ids["rows"], t.ids["layout"])
+                      for t in tiers) == sorted(
+            (e, tier, rows, "nchw") for e in set(routed)
             for tier, rows in server.plan_batches(routed.count(e), server.batch_shapes))
         for t in tiers:
             parts = _children(spans, t)
@@ -247,11 +248,19 @@ def test_serving_queue_records_submit_and_flush_spans_on_their_threads(server):
 
 
 def test_serving_with_recording_off_records_nothing(server):
+    """No span is kept, and the served tiers are still counted by layout."""
     queue = ServingQueue(server, num_inference_steps=STEPS)
     ids, noise, latents = _requests(server, 6, 2)
+    before = profiling.tiers_served()
     queue.submit(ids, torch.zeros(1, 77, dtype=torch.long), route_noise=noise, latents=latents)
     assert len(queue.flush()) == 2
     assert profiling.stop() == []
+    routed = list(queue.routes.values())
+    tiers = sum(len(server.plan_batches(routed.count(e), server.batch_shapes))
+                for e in set(routed))
+    after = profiling.tiers_served()
+    assert after.get("nchw", 0) - before.get("nchw", 0) == tiers
+    assert after.get("nhwc", 0) == before.get("nhwc", 0)
 
 
 # ---------------------------------------------------------------- the stage-1 step
