@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import json
 import sys
 import time
 from typing import Dict, List, Optional
@@ -18,21 +19,22 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench.harness import check, flops, named, serving, traffic
+from portbench.harness import check, family, named, serving, traffic
 from portbench.harness.trace import Tracer
-from portbench.reference import sd as ref
 
 
 @dataclasses.dataclass
 class Context:
     config: dict
     mix: dict
-    spec: object          # reference.sd.UNetSpec
-    layout: object        # reference.sd.Layout
+    spec: object          # the family reference's `unet_spec`
+    layout: object        # the family reference's `gate_layout`
     codes: torch.Tensor   # (K, vq_dim) hard codes, host
     window: serving.Window
     setup_s: float
     timeline: Optional[object] = None   # trace.Timeline of the traced run
+    program: list = dataclasses.field(default_factory=list)   # the program's spans, host clock
+    dispatch: Optional[tuple] = None    # (hits, misses) of the dispatch tables over the window
 
     @property
     def steps(self) -> int:
@@ -51,6 +53,41 @@ class Context:
             return []
         first, last, _ = self.window.traced
         return [f for f in self.window.flushes[first:last + 1] if f.end is not None]
+
+
+def dispatch_counts(prog):
+    """(hits, misses) summed over the server's dispatch tables, or None where
+    the program does not count them."""
+    tables = [d for c in getattr(prog.server, "_expert_caches", {}).values() for d in c.values()
+              if hasattr(d, "programs")]
+    if not tables or not hasattr(tables[0], "hits"):
+        return None
+    return sum(d.hits for d in tables), sum(d.misses for d in tables)
+
+
+def log_coverage(program, roots) -> None:
+    """Share of each root span's host time that its children cover."""
+    kids: Dict[int, list] = {}
+    for s in program:
+        kids.setdefault(s.parent, []).append(s)
+    for name in roots:
+        shares = []
+        for s in program:
+            if s.name != name or s.end_ns is None or s.end_ns == s.start_ns:
+                continue
+            ivs = sorted((c.start_ns, c.end_ns) for c in kids.get(s.id, []) if c.end_ns)
+            cov, hi = 0, s.start_ns
+            for a, b in ivs:
+                a = max(a, hi)
+                if b > a:
+                    cov += b - a
+                    hi = b
+            shares.append(cov / (s.end_ns - s.start_ns))
+        if shares:
+            shares.sort()
+            log("coverage " + json.dumps({"root": name, "n": len(shares), "min": shares[0],
+                                          "p10": shares[len(shares) // 10],
+                                          "median": shares[len(shares) // 2]}))
 
 
 def log(msg: str) -> None:
@@ -84,11 +121,12 @@ def warm_path(entry, prog, requests, config) -> None:
 class TrainContext:
     config: dict
     mix: dict
-    spec: object          # reference.sd.UNetSpec
-    layout: object        # reference.sd.Layout
+    spec: object          # the family reference's `unet_spec`
+    layout: object        # the family reference's `gate_layout`
     run: object           # training.Run
     setup_s: float
     timeline: Optional[object] = None
+    program: list = dataclasses.field(default_factory=list)
 
     def traced_steps(self) -> list:
         if self.run.traced is None:
@@ -127,8 +165,11 @@ def run_training(root, workload, metrics, config, mix, seed, seconds, trace, dev
         log(f"traced {len(r.steps) - r.traced[0]} steps in {timeline.window_s:.2f} s: "
             f"{len(timeline.ops)} device operations, busy {timeline.busy_s():.3f} s; "
             f"{aligned(timeline)}")
+    ref = family.reference(config)
     spec = ref.unet_spec(config)
-    ctx = TrainContext(config, mix, spec, ref.gate_layout(spec), r, setup_s, timeline)
+    ctx = TrainContext(config, mix, spec, ref.gate_layout(spec), r, setup_s, timeline,
+                       r.program)
+    log_coverage(ctx.program, ("step",))
     values = read_metrics(root, metrics, ctx)
     gc.collect()
     if device.type == "cuda":
@@ -162,7 +203,9 @@ def run_serving(root, workload, metrics, config, mix, seed, seconds, trace, devi
     setup_s = time.perf_counter() - t_process
 
     queue = entry.queue(prog, config)
+    d0 = dispatch_counts(prog)
     window = serving.Driver(prog, queue, requests, sched, seconds, tracer).run()
+    d1 = dispatch_counts(prog)
     window.routes = dict(queue.routes)
     lat = window.latencies()
     if len(lat):
@@ -175,12 +218,15 @@ def run_serving(root, workload, metrics, config, mix, seed, seconds, trace, devi
     timeline = tracer.reduce() if tracer is not None else None
 
     ctx = Context(config, mix, prog.spec, prog.layout, prog.codes.cpu(), window, setup_s,
-                  timeline)
+                  timeline, tracer.program if tracer is not None else [],
+                  None if d0 is None else (d1[0] - d0[0], d1[1] - d0[1]))
+    log_coverage(ctx.program, ("submit", "flush"))
     values = read_metrics(root, metrics, ctx)
     if timeline is not None:
         flushes = ctx.traced_flushes()
-        want = sum(ctx.steps * len(flops.attention_calls(ctx.spec, ctx.layout, ctx.codes[e],
-                                                         2 * tier))
+        counts = family.counts(config)
+        want = sum(ctx.steps * len(counts.attention_calls(ctx.spec, ctx.layout, ctx.codes[e],
+                                                          2 * tier))
                    for f in flushes for e, tier, _ in serving.flush_tiers(window, f,
                                                                           ctx.tier_sizes))
         log(f"traced {len(flushes)} flushes in {timeline.window_s:.2f} s: {len(timeline.ops)} "

@@ -1,12 +1,13 @@
 """What decides `correct` in a serving cell: every request due in the window
 answered, each request's route, and a sample of the served images against
-the plain reference (`portbench/reference/sd.py`).
+the plain reference of the configuration's model family
+(`portbench/reference/<family>.py`, found by `harness/family.py`).
 
 The reference rebuilds every weight from the seed (`weights.seeded_init_`,
 rounded through the dtype the program serves it in) and computes in float32
 with TF32 off, after the program's state is freed, in blocks of
 `REFERENCE_BLOCK` requests. `control=True` computes the same in the
-precision control (`reference.sd.to_fp8_`), which a limit has to fail.
+precision control (the family's `to_fp8_`), which a limit has to fail.
 """
 from __future__ import annotations
 
@@ -16,9 +17,9 @@ from typing import Dict, List
 
 import torch
 
+from portbench.harness import family
 from portbench.harness import weights as W
 from portbench.harness.program import default_dtype, dtype_of
-from portbench.reference import sd as ref
 
 REFERENCE_BLOCK = 4
 NO_READING = 1e9   # the reading of a comparison that found no served image to compare
@@ -29,18 +30,17 @@ def load_limits(root: str, workload: str) -> dict:
         return json.load(f)
 
 
-def reference_modules(config: dict, seed: int, device, control: bool = False):
-    """The reference U-Net, CLIP text and VAE with the program's weights."""
-    serving, te, vc = config["serving"], config["text_encoder"], config["vae"]
+def reference_modules(config: dict, seed: int, device, control: bool = False) -> list:
+    """The family's reference modules (`MODULES`: the U-Net, the text
+    encoders, the VAE) with the program's weights, in `MODULES` order."""
+    ref = family.reference(config)
     out = []
-    for tag, ctor, served in (("unet", lambda: ref.UNet(ref.unet_spec(config)),
-                               serving["unet_dtype"]),
-                              ("text_encoder", lambda: ref.CLIPText(te), te["torch_dtype"]),
-                              ("vae", lambda: ref.VAE(vc), vc["torch_dtype"])):
+    for tag, ctor, (group, key) in ref.MODULES:
         with torch.device("meta"), default_dtype(torch.float32):
-            m = ctor()
+            m = ctor(config)
         m = m.to_empty(device=device)
-        W.seeded_init_(m, W.module_seed(seed, tag), device, round_to=dtype_of(served))
+        W.seeded_init_(m, W.module_seed(seed, tag), device,
+                       round_to=dtype_of(config[group][key]))
         m.eval().requires_grad_(False)
         out.append(ref.to_fp8_(m) if control else m)
     return out
@@ -57,19 +57,20 @@ def reference_images(config: dict, seed: int, device, ids, neg, codes, latents,
     """Images (N, H, W, 3) on the host of the requests with CLIP ids
     (N, 77), one negative prompt, hard codes (N, vq_dim) and initial
     latents (N, h, w, C)."""
-    unet, clip, vae = reference_modules(config, seed, device, control)
+    ref = family.reference(config)
+    modules = reference_modules(config, seed, device, control)
     out = []
     with ref.float32_matmuls():
         for lo in range(0, ids.shape[0], REFERENCE_BLOCK):
             sl = slice(lo, lo + REFERENCE_BLOCK)
-            out.append(ref.serve(unet, clip, vae, ids[sl].to(device), neg.to(device),
+            out.append(ref.serve(*modules, ids[sl].to(device), neg.to(device),
                                  codes[sl].to(device), latents[sl].to(device), config).cpu())
-    del unet, clip, vae
+    del modules
     return torch.cat(out)
 
 
 def reference_routes(config: dict, codes: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-    rc = config["router"]
+    ref, rc = family.reference(config), config["router"]
     layout = ref.gate_layout(ref.unet_spec(config))
     return ref.route(noise, W.codebook_snapshot(codes.float()), layout, rc["quantizer_T"],
                      rc["quantizer_base"], rc["depth_order"])

@@ -2,7 +2,7 @@
 serving window or its traced slice holds (`cell.Context`)."""
 from __future__ import annotations
 
-from portbench.harness import flops
+from portbench.harness import family, flops
 from portbench.harness.serving import flush_tiers
 
 ATTENTION_FORWARD = ("gated_flash_fwd",)
@@ -17,19 +17,19 @@ def tier_fill(ctx):
 
 
 def served_flops(ctx, flushes) -> float:
-    """Model products of the real requests of `flushes`: CLIP text of the
-    prompt and the negative prompt, the CFG pair of U-Net forwards at the
-    routed expert's kept widths at every sampler step, the VAE decode;
-    padded tier rows are not counted."""
-    cfg, per_expert, total = ctx.config, {}, 0.0
+    """Model products of the real requests of `flushes`, each request's
+    counted by the configuration's family (`request_flops` of
+    `counts/<family>.py`) at the routed expert's kept widths; padded tier
+    rows are not counted."""
+    counts, per_expert, total = family.counts(ctx.config), {}, 0.0
     for f in flushes:
         for rid in f.rids:
             e = ctx.window.expert[rid]
             if e not in per_expert:
-                per_expert[e] = flops.unet_forward_flops(ctx.spec, ctx.layout, ctx.codes[e], 2)
-            total += ctx.steps * per_expert[e]
-            total += flops.clip_text_flops(cfg["text_encoder"], 2)
-            total += flops.vae_decode_flops(cfg["vae"], ctx.spec.sample_size, 1)
+                per_expert[e] = counts.request_flops(ctx.config, ctx.spec, ctx.layout,
+                                                     ctx.codes[e], ctx.steps)
+            for term in per_expert[e]:
+                total += term
     return total
 
 
@@ -46,10 +46,10 @@ def attention_forward_roofline(ctx):
     measured = tl.kernel_seconds(ATTENTION_FORWARD)
     if measured <= 0:
         return None
-    bound = 0.0
+    counts, bound = family.counts(ctx.config), 0.0
     for f in flushes:
         for e, tier, _ in flush_tiers(ctx.window, f, ctx.tier_sizes):
-            for call in flops.attention_calls(ctx.spec, ctx.layout, ctx.codes[e], 2 * tier):
+            for call in counts.attention_calls(ctx.spec, ctx.layout, ctx.codes[e], 2 * tier):
                 bound += ctx.steps * flops.attention_bound_s(*call)
     return 100.0 * bound / measured
 

@@ -131,6 +131,8 @@ class Driver:
 
         inflight = None   # (Flush, Future)
         done_at: Dict[int, float] = {}
+        if self.trace is not None:
+            self.trace.open_window()
         while True:
             t = now()
             for k, due in law.send(t):

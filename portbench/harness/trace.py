@@ -43,9 +43,63 @@ class Timeline:
     ops: List[Tuple[str, int, int]]            # device operations (name, start ns, end ns)
     spans: List[Tuple[str, int, int]]          # the harness's host spans, device clock
     offsets_ns: List[int] = dataclasses.field(default_factory=list)   # of the markers kept
+    program: list = dataclasses.field(default_factory=list)   # the program's spans, device clock
+
+    def program_names(self, times: List[int]) -> List[Optional[str]]:
+        """For each instant of `times` (ascending), the program's span that
+        names it: inside an open `flush` the innermost open span of that
+        flush's thread, else the innermost open span of any thread; as
+        `root/innermost` (or `root`); None where no program span is open."""
+        spans = sorted(self.program, key=lambda s: s.start_ns)
+        by_id = {s.id: s for s in spans}
+
+        def root(s):
+            while s.parent is not None and s.parent in by_id:
+                s = by_id[s.parent]
+            return s
+
+        out, active, i = [], [], 0
+        for t in times:
+            while i < len(spans) and spans[i].start_ns <= t:
+                active.append(spans[i])
+                i += 1
+            active = [s for s in active if s.end_ns is None or s.end_ns >= t]
+            if not active:
+                out.append(None)
+                continue
+            flushes = [s for s in active if s.name == "flush"]
+            pool = active
+            if flushes:
+                thread = flushes[-1].thread
+                pool = [s for s in active if s.thread == thread and root(s).name == "flush"]
+            inner = max(pool, key=lambda s: s.start_ns)
+            top = root(inner)
+            out.append(top.name if top is inner else f"{top.name}/{inner.name}")
+        return out
+
+    def idle_intervals(self):
+        busy = self.busy_intervals()
+        return [(a, b) for (_, a), (b, _) in zip(busy, busy[1:])]
+
+    def program_idle_gaps(self, n: int = 10) -> List[List]:
+        """Idle device time between operations, by the program span over each
+        gap's midpoint (`program_names`), else the harness's span, else
+        `no_span`."""
+        spans = sorted(self.spans, key=lambda s: s[1])
+        starts = [s for _, s, _ in spans]
+        by: Dict[str, float] = {}
+        gaps = self.idle_intervals()
+        names = self.program_names([(a + b) // 2 for a, b in gaps])
+        for (a, b), name in zip(gaps, names):
+            mid = (a + b) // 2
+            if name is None:
+                i = bisect.bisect_right(starts, mid) - 1
+                name = spans[i][0] if i >= 0 and spans[i][2] >= mid else "no_span"
+            by[name] = by.get(name, 0.0) + (b - a) / 1e9
+        return [[k, v] for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:n]]
 
     @classmethod
-    def from_profile(cls, prof, window_s: float, spans=(), marks=()) -> "Timeline":
+    def from_profile(cls, prof, window_s: float, spans=(), marks=(), program=()) -> "Timeline":
         """`spans` (name, start, end) and `marks` (the markers' launch
         times) in host Unix-clock nanoseconds."""
         ops, markers = [], []
@@ -59,7 +113,12 @@ class Timeline:
             else:
                 ops.append((name, start, start + _ns(e, "duration")))
         ops.sort(key=lambda o: o[1])
-        return cls(window_s, ops, *align(sorted(markers), list(marks), list(spans)))
+        on_device, offsets = align(sorted(markers), list(marks), list(spans))
+        off = offsets[0] if offsets else 0
+        shifted = [dataclasses.replace(s, start_ns=s.start_ns + off,
+                                       end_ns=None if s.end_ns is None else s.end_ns + off)
+                   for s in program]
+        return cls(window_s, ops, on_device, offsets, shifted)
 
     def busy_intervals(self) -> List[Tuple[int, int]]:
         merged: List[List[int]] = []
@@ -127,6 +186,7 @@ class Tracer:
         self.spans: List[tuple] = []
         self.marks: List[int] = []
         self._raw = None        # (profile, slice seconds) until `reduce` reads it
+        self.program: list = []  # the program's spans over the window
         self.timeline: Optional[Timeline] = None
 
     @staticmethod
@@ -164,6 +224,15 @@ class Tracer:
         finally:
             self.spans.append((name, a, time.time_ns()))
 
+    def open_window(self) -> None:
+        """Turn the program's span recorder on for the whole window."""
+        from diffusion_pruning_tpu_torch.utils import profiling
+        profiling.start()
+
+    def close_window(self) -> None:
+        from diffusion_pruning_tpu_torch.utils import profiling
+        self.program = profiling.stop()
+
     def begin(self, index: int, t: float, device) -> None:
         """Before unit `index` (a flush, a step) starts at `t` seconds into
         the window: start profiling at the first unit at or after
@@ -178,6 +247,7 @@ class Tracer:
     def finish(self, holder, last: int, device) -> None:
         """After the run's last unit, `last`, has completed: stop, and note
         (first unit, last unit, seconds) of the slice in `holder.traced`."""
+        self.close_window()
         if not self.active:
             return
         window_s = time.perf_counter() - self.t0
@@ -191,6 +261,7 @@ class Tracer:
         """The slice's timeline, read after the window has closed."""
         if self.timeline is None and self._raw is not None:
             prof, window_s = self._raw
-            self.timeline = Timeline.from_profile(prof, window_s, self.spans, self.marks)
+            self.timeline = Timeline.from_profile(prof, window_s, self.spans, self.marks,
+                                                  self.program)
             self._raw = None
         return self.timeline

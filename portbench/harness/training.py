@@ -20,9 +20,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from portbench.harness import program, traffic
+from portbench.harness import family, program, traffic
 from portbench.harness import weights as W
-from portbench.reference import sd as ref
 
 
 @dataclasses.dataclass
@@ -30,6 +29,7 @@ class StepRecord:
     start: float
     end: float
     stage_ms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    host_syncs: int = 0   # the program's host syncs in the step (`step.host_syncs`)
 
 
 @dataclasses.dataclass
@@ -42,6 +42,7 @@ class Run:
     elapsed: float = 0.0
     setup_end: float = 0.0            # perf_counter at the window's start
     traced: Optional[tuple] = None    # (first step, last step, seconds) of the profiled slice
+    program: list = dataclasses.field(default_factory=list)   # the program's spans, traced
     # the program's readings for the comparison (host copies)
     losses: List[float] = dataclasses.field(default_factory=list)
     params0: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
@@ -62,6 +63,7 @@ def batch_and_draws(config: dict, mix: dict, seed: int, index: int, device):
     device."""
     tc = config["training"]
     b, res = tc["train_batch_size"], config["serving"]["resolution"]
+    ref = family.reference(config)
     spec = ref.unet_spec(config)
     layout = ref.gate_layout(spec)
     side = spec.sample_size
@@ -111,7 +113,7 @@ class Trainer:
     def __init__(self, config: dict, mix: dict, seed: int, device):
         from diffusion_pruning_tpu_torch.training.pruner import (
             PrunerModules, make_optimizer, make_pruner_step)
-        _, unet, clip, vae = program.frozen_models(config, seed, device)
+        _, unet, clip, vae = family.program(config).frozen_models(config, seed, device)
         hypernet, quantizer = program.router_modules(config, unet.spec, seed, device)
         self.mods = PrunerModules(unet=unet, vae=vae, text_encoder=clip, hypernet=hypernet,
                                   quantizer=quantizer, schedule=program.schedule(config))
@@ -160,6 +162,7 @@ def host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def run(config: dict, mix: dict, seed: int, seconds: float, device, tracer=None,
         log=lambda msg: None):
     """Set-up with the first steps, then the window."""
+    family.stage1(config)   # a family without a stage-1 reference stops here
     t_start = time.perf_counter()
     tr = Trainer(config, mix, seed, device)
     t_models = time.perf_counter()
@@ -185,30 +188,34 @@ def run(config: dict, mix: dict, seed: int, seconds: float, device, tracer=None,
 
     t_origin = r.setup_end = time.perf_counter()
     traced = tracer is not None
+    if traced:
+        tracer.open_window()
     while True:
         t0 = time.perf_counter() - t_origin
         if t0 >= seconds:
             break
         if traced:
             tracer.begin(len(r.steps), t0, device)
+        syncs = tr.step_fn.host_syncs
         metrics, stages = tr.step(record_stages=traced)
         r.skipped += int(bool(metrics["skipped"]))
-        r.steps.append(StepRecord(t0, time.perf_counter() - t_origin, stages))
+        r.steps.append(StepRecord(t0, time.perf_counter() - t_origin, stages,
+                                  tr.step_fn.host_syncs - syncs))
     r.elapsed = r.steps[-1].end if r.steps else seconds
     if traced:
         tracer.finish(r, len(r.steps) - 1, device)
+        r.program = tracer.program
     del tr
     return r
 
 
-def gaps(got: dict, want: dict) -> dict:
+def gaps(got: dict, want: dict, stage1) -> dict:
     """The numbers compared between two runs of the first steps (`got` the
     one judged, `want` the reference): the largest relative gap of a step's
     loss; the first gradient's norm and the trainables' change, each by the
-    worst leaf (`reference.train.leaf_gaps`). A leaf whose reference
-    gradient is under a thousandth of the median leaf's is left out of the
-    change: it moves by round-off alone."""
-    from portbench.reference import train as rt
+    worst leaf (`leaf_gaps` of `stage1`, the stage-1 reference). A leaf
+    whose reference gradient is under a thousandth of the median leaf's is
+    left out of the change: it moves by round-off alone."""
     loss = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got["losses"], want["losses"]))
     g_got = {n: float(torch.linalg.vector_norm(g)) for n, g in got["first_grad"].items()}
     g_want = {n: float(torch.linalg.vector_norm(g)) for n, g in want["first_grad"].items()}
@@ -218,9 +225,9 @@ def gaps(got: dict, want: dict) -> dict:
     def change(run, n):
         return float(torch.linalg.vector_norm(run["params_after"][n] - run["params0"][n]))
 
-    grad = rt.leaf_gaps(g_got, g_want)
-    moves = rt.leaf_gaps({n: change(got, n) for n in moved}, {n: change(want, n) for n in moved},
-                         moved)
+    grad = stage1.leaf_gaps(g_got, g_want)
+    moves = stage1.leaf_gaps({n: change(got, n) for n in moved},
+                             {n: change(want, n) for n in moved}, moved)
     worst_g, worst_c = max(grad, key=grad.get), max(moves, key=moves.get)
     return {"loss_gap": loss, "first_grad_norm_gap": grad[worst_g],
             "change_norm_gap": moves[worst_c], "_worst": [worst_g, worst_c],
@@ -233,10 +240,11 @@ def train_checks(r: Run, config: dict, seed: int, device, limits: dict, control:
     and the steps skipped; `control` adds the gaps against the reference of
     the precision control (`_control`) and of the reference with half of
     each batch left out (`_fault_half_batch`)."""
+    rt = family.stage1(config)
     want = reference_run(config, mix, seed, device, len(r.losses))
     mine = {"losses": r.losses, "first_grad": r.first_grad, "params0": r.params0,
             "params_after": r.params_after}
-    g = gaps(mine, want)
+    g = gaps(mine, want, rt)
     checks = {"skipped_steps": {"value": r.skipped, "limit": 0}}
     for k in ("loss_gap", "first_grad_norm_gap", "change_norm_gap"):
         checks[k] = {"value": g[k], "limit": limits[k]}
@@ -245,7 +253,7 @@ def train_checks(r: Run, config: dict, seed: int, device, limits: dict, control:
     if control:
         for key, kw in (("_control", {"control": True}), ("_fault_half_batch",
                                                          {"fault": half_batch})):
-            c = gaps(reference_run(config, mix, seed, device, len(r.losses), **kw), want)
+            c = gaps(reference_run(config, mix, seed, device, len(r.losses), **kw), want, rt)
             checks[key] = {k: v for k, v in c.items() if not k.startswith("_")}
     return checks
 
@@ -265,9 +273,9 @@ def reference_run(config: dict, mix: dict, seed: int, device, steps: int,
     `fault(batch, draws)`: a fault planted in the reference put in the
     program's place."""
     from portbench.harness.check import reference_modules
-    from portbench.reference import train as rt
-    unet, clip, vae = reference_modules(config, seed, device, control)
-    layout, rc = unet.layout, config["router"]
+    ref, rt = family.reference(config), family.stage1(config)
+    modules = reference_modules(config, seed, device, control)
+    layout, rc = ref.gate_layout(ref.unet_spec(config)), config["router"]
     hyper, book = [], []
     for ctor, tag, out in ((lambda: rt.Hypernet(layout, rc["hypernet_input_dim"]), "hypernet",
                             hyper),
@@ -277,7 +285,7 @@ def reference_run(config: dict, mix: dict, seed: int, device, steps: int,
             m = ctor()
         m = m.to_empty(device=device)
         out.append(W.seeded_init_(m, W.module_seed(seed, tag), device))
-    st = rt.Stage1.build(unet, vae, clip, hyper[0], book[0], config, device)
+    st = rt.Stage1.build(modules, hyper[0], book[0], config, device)
     params = st.params()
     out = {"params0": host(params), "losses": []}
     with ref.float32_matmuls():

@@ -19,6 +19,11 @@ APTP gates added:
 * depth gate: out = (1 - m) * identity + m * block_out, the identity of an
   up-block resnet being the hidden state before the skip concat.
 
+The model family `sd` (`harness/family.py`): the harness reaches it through
+`unet_spec`, `gate_layout`, `route`, `MODULES`, `serve`, `float32_matmuls`,
+`to_fp8_` and `STAGE1` alone; its counts are `counts/sd.py` and its program
+`programs/sd.py`.
+
 Everything runs in float32 with TF32 off (`float32_matmuls`). `to_fp8_` turns
 a module into the precision control: every linear and convolution reads
 float8 (e4m3) inputs and weights, scaled per tensor and per output channel,
@@ -737,3 +742,17 @@ def to_fp8_(module: nn.Module) -> nn.Module:
             m.weight.copy_(fake_fp8(m.weight, 0))
             m.register_forward_pre_hook(lambda mod, args: (fake_fp8(args[0]),) + args[1:])
     return module
+
+
+# ---------------------------------------------------------------- the family
+
+# The reference modules of the family `sd`, in the order `serve` takes them:
+# (seed tag, constructor from the configuration, the configuration's keys of
+# the dtype the program serves the module in).
+MODULES = (("unet", lambda config: UNet(unet_spec(config)), ("serving", "unet_dtype")),
+           ("text_encoder", lambda config: CLIPText(config["text_encoder"]),
+            ("text_encoder", "torch_dtype")),
+           ("vae", lambda config: VAE(config["vae"]), ("vae", "torch_dtype")))
+
+# The stage-1 codebook step's reference, `reference/train.py`.
+STAGE1 = "train"

@@ -253,7 +253,10 @@ class Stage1:
     optimizer: torch.optim.Optimizer = None
 
     @classmethod
-    def build(cls, unet, vae, clip, hypernet, codebook, config, device) -> "Stage1":
+    def build(cls, modules, hypernet, codebook, config, device) -> "Stage1":
+        """The step over the reference modules in the order `sd.MODULES`
+        lists them (U-Net, CLIP text, VAE)."""
+        unet, clip, vae = modules
         rc = config["router"]
         layout = unet.layout
         router = Router(layout, rc["quantizer_T"], rc["quantizer_base"], rc["depth_order"],

@@ -116,7 +116,8 @@ def main(argv=None) -> int:
         result["device"]["busy_s"] = timeline.busy_s()
         result["device"]["window_s"] = timeline.window_s
         result["breakdown"] = {"device_ops": timeline.top_ops(10),
-                               "idle_gaps": timeline.idle_gaps(10)}
+                               "idle_gaps": timeline.idle_gaps(10),
+                               "program_idle_gaps": timeline.program_idle_gaps(10)}
     result["checks"] = checks
     for name, c in checks.items():
         print(f"check {name}: {c['value']} (limit {c['limit']})", file=sys.stderr)

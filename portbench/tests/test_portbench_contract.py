@@ -55,6 +55,16 @@ def test_names_units_and_keys():
         assert layer and all(m["moves"] in mine for m in layer)
 
 
+def test_every_configuration_names_a_family_whose_three_files_exist():
+    for c in bench()["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            name = json.load(f)["family"]
+        assert NAME.match(name), c["name"]
+        for folder in ("reference", "counts", "programs"):
+            assert os.path.exists(os.path.join(ROOT, "portbench", folder, f"{name}.py")), \
+                (c["name"], folder)
+
+
 def test_forbidden_modules_compare_whole_top_level_names():
     assert forbidden_modules(["diffusion_pruning_tpu_torch", "diffusion_pruning_tpu_torch.ops",
                               "jaxtyping", "flaxen", "numpy"]) == []

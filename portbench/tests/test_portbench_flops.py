@@ -5,7 +5,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench.harness import flops
+from portbench.harness import family, flops
 from portbench.harness import weights as W
 from portbench.reference import sd as ref
 from portbench.tests.tiny import tiny_config
@@ -35,7 +35,7 @@ def test_dense_unet_forward_matches_the_counted_model(config):
         t = torch.zeros(b, dtype=torch.long)
         ehs = torch.zeros(b, spec.max_text_len, spec.cross_attention_dim)
         got = counted(lambda: unet(x, t, ehs))
-    assert flops.unet_forward_flops(spec, unet.layout, None, b) == got
+    assert family.counts(config).unet_forward_flops(spec, unet.layout, None, b) == got
 
 
 @pytest.mark.parametrize("config", configs(), ids=["tiny", "wider-128px"])
@@ -44,11 +44,10 @@ def test_expert_unet_forward_matches_the_programs_expert(config):
     physically pruned expert U-Net, for every code of the seeded codebook."""
     from diffusion_pruning_tpu_torch.models.unet.pruned import make_expert_plan
     from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
-    from portbench.harness.program import unet_config
     spec = ref.unet_spec(config)
     layout = ref.gate_layout(spec)
     codes = W.expert_codes(layout, 4, config["codebook"])
-    ucfg = unet_config(config)
+    ucfg = family.program(config).unet_config(config)
     ucfg = type(ucfg)(**{**ucfg.__dict__, "use_flash_attention": False})
     port_spec = GatedUNet(ucfg).spec
     assert (codes[1::2, layout.num_width:] == 0).any(), "no code closes a depth gate"
@@ -60,7 +59,7 @@ def test_expert_unet_forward_matches_the_programs_expert(config):
             t = torch.zeros(b, dtype=torch.long)
             ehs = torch.zeros(b, spec.max_text_len, spec.cross_attention_dim)
             got = counted(lambda: expert(x, t, ehs))
-        assert flops.unet_forward_flops(spec, layout, code, b) == got
+        assert family.counts(config).unet_forward_flops(spec, layout, code, b) == got
 
 
 @pytest.mark.parametrize("config", configs(), ids=["tiny", "wider-128px"])
@@ -92,12 +91,12 @@ def test_attention_calls_follow_the_kept_heads():
     spec = ref.unet_spec(config)
     layout = ref.gate_layout(spec)
     code = torch.ones(layout.vq_dim)
-    calls = flops.attention_calls(spec, layout, code, 4)
+    calls = family.counts(config).attention_calls(spec, layout, code, 4)
     sites = [sb for sb in layout.subblocks if sb.kind == "transformer"]
     assert len(calls) == 2 * len(sites)
     first = sites[0]
     code[first.sites[0].start] = 0.0        # one head of the first self-attention off
-    calls2 = flops.attention_calls(spec, layout, code, 4)
+    calls2 = family.counts(config).attention_calls(spec, layout, code, 4)
     assert calls2[0][1] == calls[0][1] - 1 and calls2[1:] == calls[1:]
 
 

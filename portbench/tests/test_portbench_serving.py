@@ -49,7 +49,8 @@ def test_traced_run_reads_its_spans_and_counters_on_the_cpu():
     left out, and `correct` is decided as in any run."""
     fields, checks = run_once("open", trace=True)
     assert check.correct(checks), checks
-    device = {"attn_fwd_roofline.poisson", "device_idle_share.poisson"}
+    device = {"attn_fwd_roofline.poisson", "device_idle_share.poisson",
+              "decode_stream_share.poisson", "flush_idle_share.poisson"}
     want = {m["name"] for m in bench_metrics("per_layer")} - device
     assert want <= set(fields["metrics"]) and not device & set(fields["metrics"])
     assert fields["timeline"] is not None and fields["timeline"].offsets_ns == []
@@ -63,14 +64,15 @@ def test_weights_match_leaf_for_leaf_at_full_size():
     from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
     from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
     from diffusion_pruning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-    from portbench.harness.program import unet_config
+    from portbench.harness import family
     for name in ("aptp-sd21-256", "sd21-base-512"):
         with open(os.path.join(ROOT, "portbench", "configs", f"{name}.json")) as f:
             config = json.load(f)
         te, vc = config["text_encoder"], config["vae"]
         with torch.device("meta"):
             pairs = [
-                (GatedUNet(unet_config(config)), ref.UNet(ref.unet_spec(config))),
+                (GatedUNet(family.program(config).unet_config(config)),
+                 ref.UNet(ref.unet_spec(config))),
                 (CLIPTextEncoder(CLIPTextConfig(
                     vocab_size=te["vocab_size"], hidden_size=te["hidden_size"],
                     num_layers=te["num_hidden_layers"], num_heads=te["num_attention_heads"],

@@ -30,7 +30,7 @@ def test_reference_follows_the_programs_first_steps():
 def test_resource_model_matches_the_programs():
     from diffusion_pruning_tpu_torch.core.resource import ResourceModel
     from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
-    from portbench.harness.program import unet_config
+    from portbench.harness import family
     from portbench.reference import sd as ref
     from portbench.reference import train as rt
     import json
@@ -41,7 +41,7 @@ def test_resource_model_matches_the_programs():
         spec = ref.unet_spec(config)
         layout = ref.gate_layout(spec)
         with torch.device("meta"):
-            port = GatedUNet(unet_config(config)).spec
+            port = GatedUNet(family.program(config).unet_config(config)).spec
         mine = rt.Resource(spec, layout, "cpu")
         theirs = ResourceModel(port)
         arch = torch.rand(5, layout.vq_dim, generator=torch.Generator().manual_seed(3))
