@@ -8,7 +8,9 @@ forward hooks; here both are computed **once, in Python, at config time**:
 * `StructureSpec` pins the exact flat architecture-vector layout
   ``[width logits (subblock order: per block, resnets then attentions),
   depth logits (order of appearance)]`` — 1606 width + 14 depth logits for
-  SD-2.1.
+  SD-2.1. A `Transformer2D` that stacks N transformer layers (SDXL's
+  `transformer_layers_per_block`) holds N (attn1, attn2, ff) groups of
+  sites, layer by layer, under its one depth gate (`layer_sites`).
 * Each gate site carries its prunable-MAC coefficient (ptflops conventions,
   including their quirks: attention score MACs use the query length squared
   even for cross-attention; linear bias MACs are not scaled by token count),
@@ -20,7 +22,7 @@ Everything in this file is plain Python floats — no tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 from diffusion_pruning_tpu_torch.models.unet.config import UNetConfig
 
@@ -107,6 +109,18 @@ class StructureSpec:
         return tuple(sb for sb in self.subblocks if sb.name.startswith(prefix))
 
 
+def layer_sites(sites) -> List[Dict[str, object]]:
+    """The sites of a subblock (of a `SubBlock`, or of an expert plan's
+    `SubBlockPlan`), one {kind: site} per stacked transformer layer: each
+    layer's group starts at its `attn1` (a resnet's one site is one group)."""
+    layers: List[Dict[str, object]] = []
+    for site in sites:
+        if site.kind == "attn1" or not layers:
+            layers.append({})
+        layers[-1][site.kind] = site
+    return layers
+
+
 # ---------------------------------------------------------------------------
 # MAC primitives (ptflops conventions — op_counter.py:37-180)
 # ---------------------------------------------------------------------------
@@ -181,7 +195,10 @@ class _Builder:
             SubBlock(name, "resnet", (site,), d, nonprunable, cin, cout)
         )
 
-    def add_transformer(self, name: str, channels: int, heads: int, h: int, depth: bool):
+    def add_transformer(self, name: str, channels: int, heads: int, h: int, depth: bool,
+                        layers: int = 1):
+        """A `Transformer2D` of `layers` stacked transformer layers, each with
+        its own attn1, attn2 and ff sites, under one depth gate."""
         cfg = self.cfg
         c = channels
         seq = h * h
@@ -204,18 +221,18 @@ class _Builder:
             nonprunable += 2 * _linear_macs(seq, c, c, bias=True)  # proj_in/out
         else:
             nonprunable += 2 * _conv_macs(1, c, c, h, h)
-        nonprunable += 3 * _ln_macs(seq * c)  # norm1/2/3
+        nonprunable += layers * 3 * _ln_macs(seq * c)  # norm1/2/3 of each layer
         if not cfg.gated_ff:
             # Reference quirk: an ungated FF is absent from block calc_macs
             # entirely (blocks.py:906-909); keep totals consistent with it.
             ff = 0.0
 
-        sites = [
-            self._site("attn1", heads, c, attn1),
-            self._site("attn2", heads, c, attn2),
-        ]
-        if cfg.gated_ff:
-            sites.append(self._site("ff", cfg.ff_gate_width, inner, ff))
+        sites = []
+        for _ in range(layers):
+            sites.append(self._site("attn1", heads, c, attn1))
+            sites.append(self._site("attn2", heads, c, attn2))
+            if cfg.gated_ff:
+                sites.append(self._site("ff", cfg.ff_gate_width, inner, ff))
         d = self.depth_cursor if depth else -1
         if depth:
             self.depth_cursor += 1
@@ -255,6 +272,10 @@ def build_structure(cfg: UNetConfig) -> StructureSpec:
     b.other_macs += _linear_macs(1, cfg.block_out_channels[0], temb)
     b.other_macs += _silu_macs(temb)
     b.other_macs += _linear_macs(1, temb, temb)
+    if cfg.addition_embed_type == "text_time":  # add_embedding, as the time embedding
+        b.other_macs += _linear_macs(1, cfg.projection_class_embeddings_input_dim, temb)
+        b.other_macs += _silu_macs(temb)
+        b.other_macs += _linear_macs(1, temb, temb)
 
     # --- down blocks ---
     out_ch = cfg.block_out_channels[0]
@@ -275,9 +296,11 @@ def build_structure(cfg: UNetConfig) -> StructureSpec:
         if cross:
             for j in range(cfg.layers_per_block):
                 if gated:
-                    b.add_transformer(f"down.{i}.attn.{j}", out_ch, cfg.heads_at(i), h, flags[j])
+                    b.add_transformer(f"down.{i}.attn.{j}", out_ch, cfg.heads_at(i), h, flags[j],
+                                      cfg.transformer_layers_at(i))
                 else:
-                    b.other_macs += _transformer_total(cfg, out_ch, cfg.heads_at(i), h)
+                    b.other_macs += _transformer_total(cfg, out_ch, cfg.heads_at(i), h,
+                                                       cfg.transformer_layers_at(i))
         if not is_final:  # downsampler
             b.other_macs += _conv_macs(3, out_ch, out_ch, h // 2, h // 2)
 
@@ -288,10 +311,12 @@ def build_structure(cfg: UNetConfig) -> StructureSpec:
     if "Gated" in cfg.mid_block_type:
         b.add_resnet("mid.resnet.0", mid_ch, mid_ch, hm, False)
         b.add_resnet("mid.resnet.1", mid_ch, mid_ch, hm, False)
-        b.add_transformer("mid.attn.0", mid_ch, mid_heads, hm, False)
+        b.add_transformer("mid.attn.0", mid_ch, mid_heads, hm, False,
+                          cfg.transformer_layers_at(L - 1))
     else:
         b.other_macs += 2 * _resnet_total(cfg, mid_ch, mid_ch, hm)
-        b.other_macs += _transformer_total(cfg, mid_ch, mid_heads, hm)
+        b.other_macs += _transformer_total(cfg, mid_ch, mid_heads, hm,
+                                           cfg.transformer_layers_at(L - 1))
 
     # --- up blocks ---
     rev = list(reversed(cfg.block_out_channels))
@@ -318,9 +343,11 @@ def build_structure(cfg: UNetConfig) -> StructureSpec:
         if cross:
             for j in range(n_up_layers):
                 if gated:
-                    b.add_transformer(f"up.{i}.attn.{j}", out_ch, heads, h, flags[j])
+                    b.add_transformer(f"up.{i}.attn.{j}", out_ch, heads, h, flags[j],
+                                      cfg.transformer_layers_at(level))
                 else:
-                    b.other_macs += _transformer_total(cfg, out_ch, heads, h)
+                    b.other_macs += _transformer_total(cfg, out_ch, heads, h,
+                                                       cfg.transformer_layers_at(level))
         if not is_final:  # upsampler (conv after nearest-2x)
             b.other_macs += _conv_macs(3, out_ch, out_ch, 2 * h, 2 * h)
 
@@ -351,14 +378,19 @@ def _resnet_total(cfg: UNetConfig, cin: int, cout: int, h: int) -> float:
     return total
 
 
-def _transformer_total(cfg: UNetConfig, c: int, heads: int, h: int) -> float:
+def _transformer_total(cfg: UNetConfig, c: int, heads: int, h: int, layers: int = 1) -> float:
     seq = h * h
-    head_dim = c // heads
-    total = _gn_macs(seq * c) + 3 * _ln_macs(seq * c)
+    total = _gn_macs(seq * c)
     if cfg.use_linear_projection:
         total += 2 * _linear_macs(seq, c, c)
     else:
         total += 2 * _conv_macs(1, c, c, h, h)
+    return total + layers * _transformer_layer_total(cfg, c, heads, seq)
+
+
+def _transformer_layer_total(cfg: UNetConfig, c: int, heads: int, seq: int) -> float:
+    head_dim = c // heads
+    total = 3 * _ln_macs(seq * c)
     total += 3 * _linear_macs(seq, c, c, bias=False) + _linear_macs(seq, c, c)
     total += _attn_core_macs(seq, heads, head_dim)
     total += _linear_macs(seq, c, c, bias=False)

@@ -1,6 +1,7 @@
 """Frozen text encoders as plain `nn.Module`s: CLIP text (the conditioning of
-SD-2.1, and with `clip_pooled_text_features` the text side of CLIP-score)
-and MPNet (the router's input, mean-pooled).
+SD-2.1, and with `clip_pooled_text_features` the text side of CLIP-score;
+SDXL's two towers through `penultimate` and `penultimate_and_pooled`) and
+MPNet (the router's input, mean-pooled).
 
 Attribute names follow the Hugging Face state dicts (`text_model.encoder.
 layers.0.self_attn.q_proj`, `encoder.layer.0.attention.attn.q`, ...), so the
@@ -34,10 +35,27 @@ class CLIPTextConfig:
     # SD-2.1's OpenCLIP text tower uses exact GELU; OpenAI's CLIP checkpoints
     # (the CLIP-score towers) name quick_gelu, x·σ(1.702x), in their config
     hidden_act: str = "gelu"
+    # width of `text_projection` (HF's CLIPTextModelWithProjection: SDXL's
+    # OpenCLIP ViT-bigG/14 tower), or None: no projection
+    projection_dim: Optional[int] = None
 
     @classmethod
     def sd21(cls) -> "CLIPTextConfig":
         return cls()
+
+    @classmethod
+    def sdxl_l(cls) -> "CLIPTextConfig":
+        """SDXL's first tower, OpenAI's CLIP ViT-L/14 text model
+        (`text_encoder/config.json`)."""
+        return cls(hidden_size=768, num_layers=12, num_heads=12, intermediate_size=3072,
+                   hidden_act="quick_gelu")
+
+    @classmethod
+    def sdxl_bigg(cls) -> "CLIPTextConfig":
+        """SDXL's second tower, OpenCLIP ViT-bigG/14's text model with its
+        projection (`text_encoder_2/config.json`)."""
+        return cls(hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+                   hidden_act="gelu", projection_dim=1280)
 
     @classmethod
     def tiny(cls) -> "CLIPTextConfig":
@@ -94,20 +112,47 @@ class _CLIPTextTransformer(nn.Module):
 
 class CLIPTextEncoder(nn.Module):
     """Causal pre-LN transformer with learned positions and exact GELU (or
-    the config's `hidden_act`); returns the final-LN hidden states (B, S, D)."""
+    the config's `hidden_act`); returns the final-LN hidden states (B, S, D).
+    With `projection_dim` it also holds `text_projection` (no bias), the
+    pooled feature's projection."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.cfg = cfg
         self.text_model = _CLIPTextTransformer(cfg)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        cfg, tm = self.cfg, self.text_model
-        b, s = input_ids.shape
+        layers = self.text_model.encoder.layers
+        return self.text_model.final_layer_norm(self._run(self._embed(input_ids), layers))
+
+    def penultimate(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The hidden states (B, S, D) the last layer takes, without the final
+        LN (HF's `hidden_states[-2]`, what SDXL conditions on); the last layer
+        is not run."""
+        return self._run(self._embed(input_ids), self.text_model.encoder.layers[:-1])
+
+    def penultimate_and_pooled(self, input_ids: torch.Tensor):
+        """(`penultimate` states (B, S, D), the pooled feature (B, proj)): the
+        final-LN state at each row's EOS (the argmax of the ids: EOS is the
+        largest id) through `text_projection`, HF's `text_embeds`."""
+        tm = self.text_model
+        h = self._run(self._embed(input_ids), tm.encoder.layers[:-1])
+        last = tm.final_layer_norm(self._run(h, tm.encoder.layers[-1:]))
+        return h, self.text_projection(clip_pooled_text_features(last, input_ids))
+
+    def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        emb = self.text_model.embeddings
+        return emb.token_embedding(input_ids) + emb.position_embedding.weight[:input_ids.shape[1]]
+
+    def _run(self, h: torch.Tensor, layers) -> torch.Tensor:
+        """The residual stream after `layers` (causal self-attention, MLP)."""
+        cfg = self.cfg
+        b, s, _ = h.shape
         nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
-        h = tm.embeddings.token_embedding(input_ids) + tm.embeddings.position_embedding.weight[:s]
         causal = torch.full((s, s), float("-inf"), device=h.device).triu(1)
-        for layer in tm.encoder.layers:
+        for layer in layers:
             x = layer.layer_norm1(h)
             at = layer.self_attn
             o = plain_attention(at.q_proj(x).view(b, s, nh, hd), at.k_proj(x).view(b, s, nh, hd),
@@ -115,7 +160,7 @@ class CLIPTextEncoder(nn.Module):
             h = h + at.out_proj(o.reshape(b, s, -1))
             x = layer.layer_norm2(h)
             h = h + layer.mlp.fc2(self._act(layer.mlp.fc1(x)))
-        return tm.final_layer_norm(h)
+        return h
 
     def _act(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.hidden_act == "quick_gelu":

@@ -9,7 +9,7 @@ Gate placement follows the JAX package's `models/unet/blocks.py`:
   * depth gate: out = (1-m)·identity + m·block_out, with the identity given
     explicitly (for up-blocks it is the hidden state before the skip concat).
 Attribute names follow diffusers (`norm1`, `conv1`, `time_emb_proj`,
-`proj_in`, `transformer_blocks.0`, ...). The fused paths (`fused_norms`,
+`proj_in`, `transformer_blocks.{k}`, ...). The fused paths (`fused_norms`,
 `fused_norm_conv`) read the same `nn.GroupNorm`/`nn.Conv2d`/`nn.Linear`
 parameters, so the state dict does not depend on the flags. A physically
 pruned expert's blocks take their kept widths (`hidden_channels` of a
@@ -23,7 +23,7 @@ partial product is summed over the model axis with its bias added once.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -133,17 +133,19 @@ class GatedResnetBlock(nn.Module):
 
 
 class GatedTransformer2D(nn.Module):
-    """Spatial transformer: GroupNorm(eps 1e-6) → proj_in → one transformer
-    block → proj_out → +residual; the depth gate's identity is the input.
-    proj_in and proj_out are linear (`use_linear_projection`, SD-2.x) or 1×1
-    convs (SD-1.x, weights (C, C, 1, 1)); only the linear proj_in folds its
-    norm in under `fused_norm_conv`."""
+    """Spatial transformer: GroupNorm(eps 1e-6) → proj_in → `num_layers`
+    transformer blocks (SDXL stacks up to 10; SD-2.x has one) → proj_out →
+    +residual; the depth gate's identity is the input. proj_in and proj_out
+    are linear (`use_linear_projection`, SD-2.x and SDXL) or 1×1 convs
+    (SD-1.x, weights (C, C, 1, 1)); only the linear proj_in folds its norm
+    in under `fused_norm_conv`. `active` builds an expert's layers: per
+    layer (kept attn1 heads, kept attn2 heads, kept GEGLU inner channels)."""
 
     def __init__(self, channels: int, heads: int, context_dim: int, groups: int = 32,
                  use_flash: bool = False, fused_norms: bool = False,
-                 fused_norm_conv: bool = False, active_heads1: Optional[int] = None,
-                 active_heads2: Optional[int] = None, active_ff_inner: Optional[int] = None,
-                 use_linear_projection: bool = True):
+                 fused_norm_conv: bool = False,
+                 active: Optional[Sequence[Tuple[Optional[int], ...]]] = None,
+                 use_linear_projection: bool = True, num_layers: int = 1):
         super().__init__()
         self.fused_norms, self.fused_norm_conv = fused_norms, fused_norm_conv
         self.use_linear_projection = use_linear_projection
@@ -151,13 +153,16 @@ class GatedTransformer2D(nn.Module):
         proj = nn.Linear if use_linear_projection else functools.partial(nn.Conv2d,
                                                                          kernel_size=1)
         self.proj_in = proj(channels, channels)
+        active = active or [(None, None, None)] * num_layers
+        if len(active) != num_layers:
+            raise ValueError(f"{len(active)} kept widths for {num_layers} transformer layers")
         self.transformer_blocks = nn.ModuleList([
-            GatedTransformerBlock(channels, heads, context_dim, use_flash, active_heads1,
-                                  active_heads2, active_ff_inner)])
+            GatedTransformerBlock(channels, heads, context_dim, use_flash, *widths)
+            for widths in active])
         self.proj_out = proj(channels, channels)
 
     def forward(self, x, context, gates: Optional[Tuple] = None, depth_gate=None):
-        """gates: ((attn1, attn2, ff),) gate slices of the one layer (each
+        """gates: one (attn1, attn2, ff) tuple of gate slices per layer (each
         possibly None), or None."""
         b, c, hh, ww = x.shape
         residual = x
@@ -174,8 +179,8 @@ class GatedTransformer2D(nn.Module):
                 y = self.proj_in(y.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
             else:
                 y = self.proj_in(y).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
-        g1, g2, gf = gates[0] if gates is not None else (None, None, None)
-        y = self.transformer_blocks[0](y, context, g1, g2, gf)
+        for k, block in enumerate(self.transformer_blocks):
+            y = block(y, context, *(gates[k] if gates is not None else (None, None, None)))
         if self.use_linear_projection:
             y = self.proj_out(y).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         else:

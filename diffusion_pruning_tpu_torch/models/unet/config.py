@@ -6,11 +6,19 @@ lists, channel plan, head counts), as a frozen dataclass: the gate layout
 
 Following the diffusers naming quirk, `attention_head_dim` holds the *number
 of heads* per level (5/10/20/20 for SD-2.1, head size 64).
+
+SDXL's U-Net adds two keys of diffusers' `UNet2DConditionModel`:
+`transformer_layers_per_block`, the transformer layers stacked in each
+`Transformer2D` of a level (1, 2, 10 for SDXL; the mid block takes the last
+level's count, the up blocks the reversed counts), and `addition_embed_type`
+"text_time", a pooled text embedding and six sinusoidal size and crop ids
+fed through `add_embedding` into the time embedding. With every count 1 and
+no added embedding the U-Net is SD-2.x's, state dict and gate layout alike.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 DOWN_BLOCK_TYPES = (
     "CrossAttnDownBlock2D",
@@ -84,6 +92,21 @@ class UNetConfig:
     # a 1×1 conv proj_in keeps its norm unfused); wins over `fused_norms`
     # wherever it applies. Both flags keep the unfused state dict
     fused_norm_conv: bool = False
+    # transformer layers per `Transformer2D`, per level (None: one each)
+    transformer_layers_per_block: Optional[Tuple[int, ...]] = None
+    # None, or "text_time" (SDXL): `add_embedding` of [pooled text embedding,
+    # sinusoidal features of the six time ids] added to the time embedding
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
+
+    def __post_init__(self):
+        if self.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"addition_embed_type {self.addition_embed_type!r}: the U-Net "
+                             "takes None or 'text_time'")
+        layers = self.transformer_layers_per_block
+        if layers is not None and len(layers) != len(self.block_out_channels):
+            raise ValueError("transformer_layers_per_block needs one count per level")
 
     @property
     def num_levels(self) -> int:
@@ -95,6 +118,13 @@ class UNetConfig:
 
     def heads_at(self, level: int) -> int:
         return self.attention_head_dim[level]
+
+    def transformer_layers_at(self, level: int) -> int:
+        """Transformer layers stacked in each `Transformer2D` of `level` (an up
+        block at level L-1-i takes level L-1-i's count, the mid block the
+        last level's)."""
+        layers = self.transformer_layers_per_block
+        return 1 if layers is None else layers[level]
 
     @classmethod
     def sd21(cls, resolution: int = 256, **overrides) -> "UNetConfig":
@@ -116,6 +146,27 @@ class UNetConfig:
             ff_gate_width=4,
             down_block_types=("CrossAttnDownBlock2DHalfGated", "DownBlock2DHalfGated"),
             up_block_types=("UpBlock2DHalfGated", "CrossAttnUpBlock2DHalfGated"),
+        )
+        defaults.update(overrides)
+        return cls(**defaults)
+
+    @classmethod
+    def sdxl(cls, resolution: int = 1024, **overrides) -> "UNetConfig":
+        """Stable Diffusion XL base 1.0's U-Net (`unet/config.json`) with the
+        APTP gated block types, at a given pixel resolution, with the gated
+        flash attention kernel on."""
+        defaults = dict(
+            sample_size=resolution // 8,
+            down_block_types=("DownBlock2DHalfGated", "CrossAttnDownBlock2DHalfGated",
+                              "CrossAttnDownBlock2DHalfGated"),
+            up_block_types=("CrossAttnUpBlock2DHalfGated", "CrossAttnUpBlock2DHalfGated",
+                            "UpBlock2DHalfGated"),
+            block_out_channels=(320, 640, 1280),
+            attention_head_dim=(5, 10, 20),
+            cross_attention_dim=2048,
+            transformer_layers_per_block=(1, 2, 10),
+            addition_embed_type="text_time",
+            use_flash_attention=True,
         )
         defaults.update(overrides)
         return cls(**defaults)

@@ -18,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from diffusion_pruning_tpu_torch.core.structure import StructureSpec
+from diffusion_pruning_tpu_torch.core.structure import StructureSpec, layer_sites
 from diffusion_pruning_tpu_torch.models.unet.pruned import module_name
 
 
@@ -71,17 +71,17 @@ def magnitude_arch_vector(spec: StructureSpec, dense_state_dict: Dict[str, torch
     scores = np.zeros(spec.num_width)
     for sb in spec.subblocks:
         prefix = module_name(sb.name)
-        for site in sb.sites:
+        for k, site in ((k, site) for k, layer in enumerate(layer_sites(sb.sites))
+                        for site in layer.values()):
+            tb = f"{prefix}.transformer_blocks.{k}"
             if random:
                 s = rng.rand(site.width)
             elif site.kind == "resnet":
                 s = unit_scores_resnet(dense_state_dict, prefix, site.width)
             elif site.kind in ("attn1", "attn2"):
-                s = unit_scores_attn(dense_state_dict,
-                                     f"{prefix}.transformer_blocks.0.{site.kind}", site.width)
+                s = unit_scores_attn(dense_state_dict, f"{tb}.{site.kind}", site.width)
             else:
-                s = unit_scores_ff(dense_state_dict, f"{prefix}.transformer_blocks.0.ff",
-                                   site.width)
+                s = unit_scores_ff(dense_state_dict, f"{tb}.ff", site.width)
             scores[site.start: site.start + site.width] = s
 
     n_keep = int(round(target_ratio * spec.num_width))

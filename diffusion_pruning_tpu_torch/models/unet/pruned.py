@@ -7,7 +7,8 @@ gate dropped it. `GatedUNet(cfg, plan=plan)` builds the expert with the kept
 widths only (kept groups of a resnet's hidden channels, kept heads, kept
 GEGLU units; a dropped subblock is elided), and `slice_expert_params` gathers
 its weights out of the dense U-Net's state dict, so an expert starts from the
-dense weights and runs with no masking at all.
+dense weights and runs with no masking at all. Each stacked transformer
+layer of a `Transformer2D` (SDXL's) is cut at its own kept heads and units.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from diffusion_pruning_tpu_torch.core.structure import StructureSpec
+from diffusion_pruning_tpu_torch.core.structure import StructureSpec, layer_sites
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,20 +133,21 @@ def _subblock_cuts(sb: SubBlockPlan, prefix: str, device
                 f"{prefix}.time_emb_proj.bias": (0, ch),
                 f"{prefix}.norm2.weight": (0, ch), f"{prefix}.norm2.bias": (0, ch),
                 f"{prefix}.conv2.weight": (1, ch)}
-    tb = f"{prefix}.transformer_blocks.0"
     out = {}
-    for kind in ("attn1", "attn2"):
-        ch = _kept_index(sb.site(kind), device)
-        for proj in ("to_q", "to_k", "to_v"):
-            out[f"{tb}.{kind}.{proj}.weight"] = (0, ch)
-        out[f"{tb}.{kind}.to_out.0.weight"] = (1, ch)
-    ff = sb.site("ff")
-    if ff is not None:
-        ch = _kept_index(ff, device)
-        both = torch.cat([ch, ff.channels + ch])  # both GEGLU halves
-        out[f"{tb}.ff.net.0.proj.weight"] = (0, both)
-        out[f"{tb}.ff.net.0.proj.bias"] = (0, both)
-        out[f"{tb}.ff.net.2.weight"] = (1, ch)
+    for k, sites in enumerate(layer_sites(sb.sites)):  # each stacked layer at its own widths
+        tb = f"{prefix}.transformer_blocks.{k}"
+        for kind in ("attn1", "attn2"):
+            ch = _kept_index(sites[kind], device)
+            for proj in ("to_q", "to_k", "to_v"):
+                out[f"{tb}.{kind}.{proj}.weight"] = (0, ch)
+            out[f"{tb}.{kind}.to_out.0.weight"] = (1, ch)
+        ff = sites.get("ff")
+        if ff is not None:
+            ch = _kept_index(ff, device)
+            both = torch.cat([ch, ff.channels + ch])  # both GEGLU halves
+            out[f"{tb}.ff.net.0.proj.weight"] = (0, both)
+            out[f"{tb}.ff.net.0.proj.bias"] = (0, both)
+            out[f"{tb}.ff.net.2.weight"] = (1, ch)
     return out
 
 
@@ -154,7 +156,8 @@ def expert_cuts(plan: ExpertPlan, device=None) -> Dict[str, Tuple[int, torch.Ten
     tensor the expert keeps only a slice of: a resnet's conv1 and
     time_emb_proj outputs, norm2 and conv2's inputs; an attention's q/k/v
     outputs and to_out's inputs per kept head; both GEGLU halves and the
-    feed-forward's output projection inputs per kept unit."""
+    feed-forward's output projection inputs per kept unit, for each stacked
+    transformer layer."""
     out = {}
     for sb in plan.subblocks:
         if not sb.dropped:

@@ -30,14 +30,19 @@ returns the same tensors on every rank of the model axis.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from diffusion_pruning_tpu_torch.core.structure import StructureSpec, SubBlock, build_structure
+from diffusion_pruning_tpu_torch.core.structure import (
+    StructureSpec,
+    SubBlock,
+    build_structure,
+    layer_sites,
+)
 from diffusion_pruning_tpu_torch.models.unet.blocks import (
     Downsample,
     GatedResnetBlock,
@@ -80,14 +85,16 @@ class _GateReader:
         return self.arch[:, site.start: site.start + site.width], self._depth(sb)
 
     def transformer(self, name: str):
-        """((attn1, attn2, ff),) gates for the one layer + depth gate."""
+        """(one (attn1, attn2, ff) gate tuple per stacked layer, depth gate);
+        an ungated ff's gate is None."""
         sb = self.subs.get(name)
         if sb is None or self.arch is None:
             return None, None
-        gs = [self.arch[:, site.start: site.start + site.width] for site in sb.sites]
-        if len(gs) == 2:
-            gs.append(None)  # ungated ff
-        return (tuple(gs),), self._depth(sb)
+        gates = tuple(tuple(None if layer.get(kind) is None else
+                            self.arch[:, layer[kind].start: layer[kind].start + layer[kind].width]
+                            for kind in ("attn1", "attn2", "ff"))
+                      for layer in layer_sites(sb.sites))
+        return gates, self._depth(sb)
 
     def _depth(self, sb: SubBlock):
         if sb.depth_index < 0:
@@ -148,22 +155,26 @@ class GatedUNet(nn.Module):
                 block.tp = shard.split(name, "resnet")
             return block
 
-        def transformer(c, heads, name):
+        def transformer(c, heads, name, layers):
             p = kept.get(name)
             if p is not None and p.dropped:
                 return None
-            active = (None, None, None)
+            active = None
             if p is not None:
-                ff = p.site("ff")
-                active = (len(p.site("attn1").kept), len(p.site("attn2").kept),
-                          ff and ff.kept_channels)
+                active = [(len(s["attn1"].kept), len(s["attn2"].kept),
+                           s["ff"].kept_channels if "ff" in s else None)
+                          for s in layer_sites(p.sites)]
             if shard is not None:
-                active = (shard.local_units(name, "attn1"), shard.local_units(name, "attn2"),
-                          shard.local_channels(name, "ff"))
+                if layers != 1:
+                    raise NotImplementedError("a tensor-parallel U-Net shards one transformer "
+                                              "layer per Transformer2D")
+                active = [(shard.local_units(name, "attn1"), shard.local_units(name, "attn2"),
+                           shard.local_channels(name, "ff"))]
             block = GatedTransformer2D(c, heads, cfg.cross_attention_dim, g,
                                        cfg.use_flash_attention, cfg.fused_norms,
-                                       cfg.fused_norm_conv, *active,
-                                       use_linear_projection=cfg.use_linear_projection)
+                                       cfg.fused_norm_conv, active,
+                                       use_linear_projection=cfg.use_linear_projection,
+                                       num_layers=layers)
             if split:
                 tb = block.transformer_blocks[0]
                 tb.attn1.tp, tb.attn2.tp = shard.split(name, "attn1"), shard.split(name, "attn2")
@@ -172,6 +183,8 @@ class GatedUNet(nn.Module):
 
         self.conv_in = nn.Conv2d(cfg.in_channels, b0, 3, padding=1)
         self.time_embedding = _TimeEmbedding(b0, temb)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = _TimeEmbedding(cfg.projection_class_embeddings_input_dim, temb)
 
         ch = b0
         skips = [b0]
@@ -184,7 +197,8 @@ class GatedUNet(nn.Module):
                 resnets.append(resnet(ch, out, f"down.{i}.resnet.{j}"))
                 ch = out
                 if cross:
-                    attns.append(transformer(out, cfg.heads_at(i), f"down.{i}.attn.{j}"))
+                    attns.append(transformer(out, cfg.heads_at(i), f"down.{i}.attn.{j}",
+                                             cfg.transformer_layers_at(i)))
                 skips.append(ch)
             down = Downsample(ch) if i < L - 1 else None
             if down is not None:
@@ -194,7 +208,8 @@ class GatedUNet(nn.Module):
         mid = cfg.block_out_channels[-1]
         self.mid_block = _Block([resnet(mid, mid, "mid.resnet.0"),
                                  resnet(mid, mid, "mid.resnet.1")],
-                                [transformer(mid, cfg.heads_at(L - 1), "mid.attn.0")])
+                                [transformer(mid, cfg.heads_at(L - 1), "mid.attn.0",
+                                             cfg.transformer_layers_at(L - 1))])
 
         rev = list(reversed(cfg.block_out_channels))
         self.up_blocks = nn.ModuleList()
@@ -206,7 +221,8 @@ class GatedUNet(nn.Module):
                 resnets.append(resnet(ch + skips.pop(), out, f"up.{i}.resnet.{j}"))
                 ch = out
                 if cross:
-                    attns.append(transformer(out, cfg.heads_at(L - 1 - i), f"up.{i}.attn.{j}"))
+                    attns.append(transformer(out, cfg.heads_at(L - 1 - i), f"up.{i}.attn.{j}",
+                                             cfg.transformer_layers_at(L - 1 - i)))
             up = Upsample(ch) if i < L - 1 else None
             self.up_blocks.append(_Block(resnets, attns if cross else None, upsample=up))
 
@@ -223,6 +239,19 @@ class GatedUNet(nn.Module):
         nhwc = w.is_contiguous(memory_format=torch.channels_last) and not w.is_contiguous()
         return "nhwc" if nhwc else "nchw"
 
+    def _text_time(self, added_cond, dtype) -> torch.Tensor:
+        """`add_embedding`'s input: the pooled text embedding, then the
+        sinusoidal features of each of the six time ids, in float32, cast to
+        `dtype` (diffusers' "text_time")."""
+        if added_cond is None:
+            raise ValueError('a "text_time" U-Net takes added_cond=(text_embeds, time_ids)')
+        text_embeds, time_ids = added_cond
+        cfg = self.cfg
+        feats = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                   cfg.flip_sin_to_cos, cfg.freq_shift)
+        feats = feats.reshape(time_ids.shape[0], -1)
+        return torch.cat([text_embeds.float(), feats], dim=-1).to(dtype)
+
     def _call(self, block: nn.Module, *args):
         """Run a subblock, recomputed in the backward pass under `remat`."""
         if self.cfg.remat and torch.is_grad_enabled():
@@ -231,11 +260,13 @@ class GatedUNet(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor,
-                arch: Optional[torch.Tensor] = None, return_features: bool = False):
+                arch: Optional[torch.Tensor] = None, return_features: bool = False,
+                added_cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """sample: (B, H, W, C_in) latents; timesteps: (B,); encoder_hidden_states:
         (B, 77, cross_dim); arch: (B or B/2 under CFG, vq_dim) or None
         (always None for an expert, whose kept widths do not fit the dense
-        gate layout).
+        gate layout); added_cond: a "text_time" U-Net's (text_embeds (B,
+        pooled dim), time_ids (B, 6)), diffusers' `added_cond_kwargs`.
         Returns (B, H, W, C_out) in the weights' dtype; with `return_features`
         also the block-distillation features {"d0".., "m", "u0"..}, NHWC: the
         hidden state after each down level, after the mid block and after
@@ -258,6 +289,8 @@ class GatedUNet(nn.Module):
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                    cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
         temb = self.time_embedding(t_emb)
+        if cfg.addition_embed_type == "text_time":
+            temb = temb + self.add_embedding(self._text_time(added_cond, dtype))
         ehs = encoder_hidden_states.to(dtype)
 
         nhwc = self.layout == "nhwc"

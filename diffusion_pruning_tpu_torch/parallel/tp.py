@@ -151,6 +151,9 @@ def tp_plan(unet) -> Tuple[SiteSplit, ...]:
             unit = m.conv2.out_channels // cfg.norm_num_groups
             out.append(SiteSplit(name, "resnet", prefix, m.conv1.out_channels // unit, unit))
             continue
+        if len(m.transformer_blocks) != 1:
+            raise NotImplementedError("a tensor-parallel U-Net shards one transformer layer "
+                                      "per Transformer2D")
         tb, p = m.transformer_blocks[0], f"{prefix}.transformer_blocks.0"
         ff_unit = tb.ff.net[2].out_features * cfg.ff_mult // cfg.ff_gate_width
         out += [SiteSplit(name, kind, f"{p}.{kind}", a.heads, a.head_dim)

@@ -12,7 +12,8 @@ one padded tail tier, so padding stays below the smallest tier that covers
 the tail. `ServingQueue` adds continuous batching across `submit()` calls:
 pending prompts accumulate per expert and `flush()` drains them at the tier
 shapes. Hybrid dispatch sends only full largest-tier batches through experts
-and pools every remainder into one gated batch with per-prompt archs.
+and pools every remainder into one gated batch with per-prompt archs; a
+server with no experts (the routed baseline) pools every prompt into it.
 
 On a pipeline that carries a tensor-parallel mesh (`parallel.tp.
 shard_pipeline`), every expert is cut from the gathered dense weights and
@@ -40,8 +41,10 @@ Spans (`utils/profiling.span`, recorded only while a recording is on):
 
 - `submit`: one `ServingQueue.submit`, on the caller's thread. Its
   children, in `encode_route` (also under `generate`): `encode_prompt`
-  (CLIP text of the prompts), `encode_negative` (CLIP text of the negative
-  prompt), `route` (hypernet and quantizer, launched) and `route_to_host`
+  (CLIP text of the prompts; SDXL's two towers each in a `clip_l` and a
+  `clip_bigg` span, with their stream time), `encode_negative` (CLIP text
+  of the negative prompt; SDXL's empty negative is zeros and opens no tower
+  span), `route` (hypernet and quantizer, launched) and `route_to_host`
   (the expert indices copied to the host: the host waits for the stream).
 - `flush` (`flush`: the queue's flush index; `rids`: the requests it
   answers, which ties each request to the flush that served it): one
@@ -84,7 +87,11 @@ from diffusion_pruning_tpu_torch.models.unet.pruned import (
     slice_expert_params,
 )
 from diffusion_pruning_tpu_torch.models.unet.unet import GatedUNet
-from diffusion_pruning_tpu_torch.pipelines.pruning_pipeline import PruningPipeline
+from diffusion_pruning_tpu_torch.pipelines.pruning_pipeline import (
+    PruningPipeline,
+    cond_rows,
+    map_cond,
+)
 from diffusion_pruning_tpu_torch.utils.profiling import count_tier, recording, span
 
 # the two warm-up options of the JAX server the port refuses, and why
@@ -279,15 +286,17 @@ class ExpertServer:
                      hyper_net_input: Optional[torch.Tensor] = None,
                      route_noise: Optional[torch.Tensor] = None):
         """Encode the prompts once and route them: (prompt_embeds (N, 77, D),
-        neg_embeds (N, 77, D), expert indices (N,) on the host). Tiers
-        gather their rows out of these embeddings."""
+        neg_embeds (N, 77, D), expert indices (N,) on the host); under SDXL
+        each embedding is a `TextTimeConditioning`. Tiers gather their rows
+        out of these embeddings."""
         base = self.base_pipeline
         with span("encode_prompt"):
             pe = base.encode_prompt(input_ids)
         with span("encode_negative"):
-            ne = base.encode_prompt(neg_input_ids)
-            if ne.shape[0] == 1:
-                ne = ne.expand(pe.shape[0], -1, -1)
+            ne = base.encode_negative(neg_input_ids)
+            if cond_rows(ne) == 1:
+                n = cond_rows(pe)
+                ne = map_cond(lambda x: x.expand(n, *x.shape[1:]), ne)
         with span("route"):
             _, indices = base.route(pe, hyper_net_input, route_noise)
         with span("route_to_host"):
@@ -325,13 +334,14 @@ class ExpertServer:
                 with span("latents"):
                     chunk = rows[lo: lo + real]
                     padded = np.concatenate([chunk, np.repeat(chunk[-1:], tier - real)])
-                    sel = torch.as_tensor(padded, device=pe.device)
+                    sel = torch.as_tensor(padded, device=pipe.device)
                     arch = None
                     if experts is not None:
                         echunk = experts[lo: lo + real]
                         epad = np.concatenate([echunk, np.repeat(echunk[-1:], tier - real)])
                         arch = arch_table[torch.as_tensor(epad, device=arch_table.device)]
-                    tier_pe, tier_ne, initial = pe[sel], ne[sel], take(tier, padded)
+                    tier_pe, tier_ne = (map_cond(lambda x: x[sel], c) for c in (pe, ne))
+                    initial = take(tier, padded)
                 lo += real
                 with span("denoise", device=True):
                     latents = pipe.denoise(None, tier_pe, tier_ne, arch, num_inference_steps,
@@ -369,13 +379,16 @@ class ExpertServer:
                          hybrid: bool) -> int:
         """groups: {expert: rows}. hybrid=True sends only full largest-tier
         batches through the experts; every remainder joins one pooled gated
-        batch. Returns the slots used."""
+        batch. A server with no experts (the routed baseline, `cli/serve.py
+        --mode routed`) pools every row into the gated batch. Returns the
+        slots used."""
         slots = 0
         leftovers: List[Tuple[int, int]] = []
+        routed = not self.expert_models
         for e, rows in groups.items():
             full_rows = rows
-            if hybrid:
-                n_full = (len(rows) // self.batch_size) * self.batch_size
+            if hybrid or routed:
+                n_full = 0 if routed else (len(rows) // self.batch_size) * self.batch_size
                 full_rows = rows[:n_full]
                 leftovers.extend((int(r), int(e)) for r in rows[n_full:])
             if len(full_rows):
@@ -460,7 +473,7 @@ class ServingQueue:
             pe, ne, experts = self.server.encode_route(input_ids, neg_input_ids,
                                                        hyper_net_input, route_noise)
             if latents is not None:
-                latents = latents.to(pe.device, torch.float32)
+                latents = latents.to(self.server.base_pipeline.device, torch.float32)
             with self._lock:
                 bi = self._next_batch
                 self._next_batch += 1
@@ -494,9 +507,9 @@ class ServingQueue:
             offset, off = {}, 0
             for bi in batches:
                 offset[bi] = off
-                off += embeds[bi][0].shape[0]
-            pe = torch.cat([embeds[bi][0] for bi in batches])
-            ne = torch.cat([embeds[bi][1] for bi in batches])
+                off += cond_rows(embeds[bi][0])
+            pe, ne = (map_cond(lambda *xs: torch.cat(xs), *[embeds[bi][k] for bi in batches])
+                      for k in (0, 1))
             given = [embeds[bi][2] is not None for bi in batches]
             if any(given) and not all(given):
                 raise ValueError("a flush takes the initial latents of every pending submit "

@@ -1,7 +1,8 @@
 """Routed text-to-image pipeline.
 
-encode prompt (CLIP) → route (hypernet → quantizer eval forward: cosine argmax
-against the frozen codebook snapshot + hard-concrete) → CFG sampling loop
+encode prompt (CLIP; SDXL: two CLIP towers and a pooled embedding) → route
+(hypernet → quantizer eval forward: cosine argmax against the frozen
+codebook snapshot + hard-concrete) → CFG sampling loop
 (`sampler`: "ddim", "pndm" or "dpm++") with the per-prompt arch fixed for the
 whole trajectory → VAE decode.
 
@@ -30,15 +31,30 @@ every rank; the denoise and the decode take this rank's rows on the data
 axis when the batch divides over it (else every row, as the JAX pipeline
 keeps a (1, 77) negative prompt whole), and the rows are gathered back, so
 every rank returns the full batch.
+
+SDXL (`text_encoder_2` given, a "text_time" U-Net): `encode_prompt` runs
+CLIP ViT-L/14 (ids re-padded with EOS, as SDXL's first tokenizer pads) and
+OpenCLIP ViT-bigG/14 on the same ids, each to its penultimate states,
+concatenated to (N, 77, 768 + 1280), and returns them as a
+`TextTimeConditioning` with bigG's pooled, projected EOS feature and the
+six time ids (original size, crop, target size: the serving resolution).
+Under `zero_negative` (diffusers' `force_zeros_for_empty_prompt` with an
+empty negative prompt) `encode_negative` gives zeros for the states and
+the pooled feature and runs no encoder. Every operation on a batch of text
+states (`map_cond`, `cond_rows`) treats the three tensors as one, so the
+conditioning rides through CFG, the tiers and the captured programs as the
+SD-2.x states do. Spans `clip_l` and `clip_bigg` (stream time between CUDA
+events) time the two towers while a recording is on.
 """
 from __future__ import annotations
 
 import copy
 import threading
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+from torch.utils import _pytree as pytree
 
 from diffusion_pruning_tpu_torch.core.estimators import hard_concrete
 from diffusion_pruning_tpu_torch.core.resource import ResourceModel
@@ -57,31 +73,67 @@ from diffusion_pruning_tpu_torch.schedulers import (
     PNDMSampler,
 )
 from diffusion_pruning_tpu_torch.utils.device import resolve_device
+from diffusion_pruning_tpu_torch.utils.profiling import span
 
 
 SAMPLERS = {"ddim": DDIMSampler, "pndm": PNDMSampler, "dpm++": DPMSolverPPSampler}
+CLIP_EOS = 49407   # CLIP's end-of-text id, the largest of its vocabulary
 
 
-def cfg_model_fn(unet: GatedUNet, ehs: torch.Tensor, arch: Optional[torch.Tensor],
-                 guidance_scale: float):
-    """The CFG U-Net call model_fn(x, t) of one trajectory; `ehs` holds the
-    negative rows, then the prompt rows, when guidance_scale > 1."""
+class TextTimeConditioning(NamedTuple):
+    """A "text_time" U-Net's conditioning of N rows: the text states (N, S,
+    D), the pooled text embedding (N, P) and the time ids (N, 6)."""
+    states: torch.Tensor
+    text_embeds: torch.Tensor
+    time_ids: torch.Tensor
+
+
+def map_cond(fn, cond, *rest):
+    """`fn` applied to each tensor of a text conditioning (a states tensor or
+    a `TextTimeConditioning`), with the matching tensors of `rest`."""
+    return pytree.tree_map(fn, cond, *rest)
+
+
+def cond_rows(cond) -> int:
+    """The rows of a text conditioning."""
+    return pytree.tree_leaves(cond)[0].shape[0]
+
+
+def eos_padded(ids: torch.Tensor, eos: int = CLIP_EOS) -> torch.Tensor:
+    """CLIP ids with every position from the first EOS on set to EOS, as
+    SDXL's first tokenizer pads."""
+    return torch.where(torch.cumsum(ids == eos, dim=1) > 0, torch.full_like(ids, eos), ids)
+
+
+def cfg_model_fn(unet: GatedUNet, ehs, arch: Optional[torch.Tensor], guidance_scale: float):
+    """The CFG U-Net call model_fn(x, t) of one trajectory; `ehs` (text
+    states or a `TextTimeConditioning`) holds the negative rows, then the
+    prompt rows, when guidance_scale > 1."""
     do_cfg = guidance_scale > 1.0
+    if isinstance(ehs, TextTimeConditioning):
+        states, added = ehs.states, (ehs.text_embeds, ehs.time_ids)
+    else:
+        states, added = ehs, None
+
+    def call(x, t):
+        if added is None:
+            return unet(x, t, states, arch=arch)
+        return unet(x, t, states, arch=arch, added_cond=added)
 
     def model_fn(x, t):
         if do_cfg:
-            out = unet(torch.cat([x, x]), torch.cat([t, t]), ehs, arch=arch)
-            uncond, cond = out.chunk(2)
+            uncond, cond = call(torch.cat([x, x]), torch.cat([t, t])).chunk(2)
             return uncond + guidance_scale * (cond - uncond)
-        return unet(x, t, ehs, arch=arch)
+        return call(x, t)
 
     return model_fn
 
 
-def cfg_states(prompt_embeds: torch.Tensor, neg_embeds: torch.Tensor,
-               guidance_scale: float) -> torch.Tensor:
-    """The U-Net's text states of a CFG batch: [negative, prompt] rows."""
-    return torch.cat([neg_embeds, prompt_embeds]) if guidance_scale > 1.0 else prompt_embeds
+def cfg_states(prompt_embeds, neg_embeds, guidance_scale: float):
+    """The U-Net's text conditioning of a CFG batch: [negative, prompt] rows."""
+    if guidance_scale <= 1.0:
+        return prompt_embeds
+    return map_cond(lambda n, p: torch.cat([n, p]), neg_embeds, prompt_embeds)
 
 
 class PruningPipeline:
@@ -90,13 +142,29 @@ class PruningPipeline:
                  quantizer: Optional[StructureQuantizer] = None,
                  schedule: Optional[DiffusionSchedule] = None,
                  device: Optional[Union[str, torch.device]] = None, sampler: str = "ddim",
-                 safety_checker=None):
+                 safety_checker=None, text_encoder_2: Optional[CLIPTextEncoder] = None,
+                 zero_negative: bool = False):
+        """`text_encoder_2` (SDXL's bigG tower, with `text_encoder` its CLIP-L):
+        the two-tower text conditioning of a "text_time" U-Net.
+        `zero_negative` (SDXL's `force_zeros_for_empty_prompt`): the negative
+        prompt is empty and encodes to zeros."""
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {sorted(SAMPLERS)}, got {sampler!r}")
         self.device = resolve_device(device)
         self.unet = self._place(unet)
         self.vae = self._place(vae)
         self.text_encoder = self._place(text_encoder)
+        self.text_encoder_2 = self._place(text_encoder_2)
+        self.zero_negative = zero_negative
+        if (text_encoder_2 is not None) != (unet.cfg.addition_embed_type == "text_time"):
+            raise ValueError('a second text encoder goes with a "text_time" U-Net, and only '
+                             'with one')
+        if zero_negative and text_encoder_2 is None:
+            raise ValueError("zero_negative is SDXL's: it needs text_encoder_2")
+        if text_encoder_2 is not None:  # made once: a copy from the host would wait for the stream
+            side = float(unet.cfg.sample_size * vae.cfg.spatial_scale)
+            self._time_ids = torch.tensor([[side, side, 0.0, 0.0, side, side]],
+                                          device=self.device)
         self.hypernet = self._place(hypernet)
         self.quantizer = self._place(quantizer)
         self.schedule = schedule or DiffusionSchedule()
@@ -138,9 +206,39 @@ class PruningPipeline:
 
     # ------------------------------------------------------------------
 
+    def time_ids(self, n: int) -> torch.Tensor:
+        """SDXL's time ids of n rows (f32): original size, crop top-left and
+        target size, all at the U-Net's sample size in pixels."""
+        return self._time_ids.expand(n, 6)
+
     @torch.inference_mode()
-    def encode_prompt(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.text_encoder(input_ids.to(self.device))
+    def encode_prompt(self, input_ids: torch.Tensor):
+        """Text states (N, S, D) of the prompts; with `text_encoder_2`, a
+        `TextTimeConditioning`."""
+        ids = input_ids.to(self.device)
+        if self.text_encoder_2 is None:
+            return self.text_encoder(ids)
+        with span("clip_l", device=True):
+            states_l = self.text_encoder.penultimate(eos_padded(ids))
+        with span("clip_bigg", device=True):
+            states_g, pooled = self.text_encoder_2.penultimate_and_pooled(ids)
+        return TextTimeConditioning(torch.cat([states_l, states_g], dim=-1), pooled,
+                                    self.time_ids(ids.shape[0]))
+
+    @torch.inference_mode()
+    def encode_negative(self, neg_input_ids: torch.Tensor):
+        """The negative prompt's conditioning: `encode_prompt`'s, or under
+        `zero_negative` zeros of its shape (the time ids kept), with no
+        encoder run."""
+        if not self.zero_negative:
+            return self.encode_prompt(neg_input_ids)
+        n, s = neg_input_ids.shape
+        clip_l, clip_g = self.text_encoder.cfg, self.text_encoder_2.cfg
+        dtype = self.text_encoder_2.text_projection.weight.dtype
+        states = torch.zeros((n, s, clip_l.hidden_size + clip_g.hidden_size), dtype=dtype,
+                             device=self.device)
+        pooled = torch.zeros((n, clip_g.projection_dim), dtype=dtype, device=self.device)
+        return TextTimeConditioning(states, pooled, self.time_ids(n))
 
     @torch.inference_mode()
     def route(self, prompt_embeds: torch.Tensor, hyper_net_input: Optional[torch.Tensor] = None,
@@ -148,8 +246,11 @@ class PruningPipeline:
         """Hypernet + quantizer eval routing → (arch (B, vq_dim) hard gates,
         expert indices (B,)). `noise`: the quantizer's gumbel noise (default:
         the fixed generator)."""
-        feats = hyper_net_input if hyper_net_input is not None else prompt_embeds.mean(dim=1)
-        logits = self.hypernet(feats.to(self.device).float())
+        if hyper_net_input is None:
+            states = (prompt_embeds.states if isinstance(prompt_embeds, TextTimeConditioning)
+                      else prompt_embeds)
+            hyper_net_input = states.mean(dim=1)
+        logits = self.hypernet(hyper_net_input.to(self.device).float())
         return self.quantizer.forward_eval(logits, noise)
 
     def _initial_latents(self, generator: Optional[torch.Generator], b: int,
@@ -205,10 +306,10 @@ class PruningPipeline:
         cfg, dev = self.unet.cfg, self.device
         factor = 2 if guidance_scale > 1.0 else 1
         ids = torch.zeros((1, cfg.max_text_len), dtype=torch.long, device=dev)
-        text_dtype = self.encode_prompt(ids).dtype
+        text = self.encode_prompt(ids)
         for b in batch_sizes:
-            ehs = torch.zeros((factor * b, cfg.max_text_len, cfg.cross_attention_dim),
-                              dtype=text_dtype, device=dev)
+            ehs = map_cond(lambda x: torch.zeros((factor * b, *x.shape[1:]), dtype=x.dtype,
+                                                 device=dev), text)
             rows = None if arch is None else arch.to(dev).float().repeat(b, 1)
             latents = torch.zeros((b, cfg.sample_size, cfg.sample_size, cfg.in_channels),
                                   device=dev)
@@ -229,8 +330,8 @@ class PruningPipeline:
         return len(batch_sizes)
 
     @torch.inference_mode()
-    def denoise(self, generator: Optional[torch.Generator], prompt_embeds: torch.Tensor,
-                neg_embeds: torch.Tensor, arch: Optional[torch.Tensor],
+    def denoise(self, generator: Optional[torch.Generator], prompt_embeds, neg_embeds,
+                arch: Optional[torch.Tensor],
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
                 height: Optional[int] = None, width: Optional[int] = None,
                 latents: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -238,10 +339,11 @@ class PruningPipeline:
         (`_denoise_fn`). Initial latents are `latents` if given, else standard
         normals from `generator` (f32, NHWC), drawn here, outside the
         program. Under a mesh, of this rank's rows, gathered."""
-        n = prompt_embeds.shape[0]
+        n = cond_rows(prompt_embeds)
         latents = self._initial_latents(generator, n, latents, height, width)
-        pe, ne, arch, latents = (self._data_shard(x, n)
-                                 for x in (prompt_embeds, neg_embeds, arch, latents))
+        pe, ne = (map_cond(lambda x: self._data_shard(x, n), c)
+                  for c in (prompt_embeds, neg_embeds))
+        arch, latents = (self._data_shard(x, n) for x in (arch, latents))
         run = self._denoise_fn(num_inference_steps, guidance_scale, arch is not None)
         out = run(self.unet, cfg_states(pe, ne, guidance_scale), arch, latents)
         return self._data_gather(out, n)
@@ -267,7 +369,7 @@ class PruningPipeline:
         the safety checker's flags (B,) fourth when one is set (flagged
         images black)."""
         prompt_embeds = self.encode_prompt(input_ids)
-        neg_embeds = self.encode_prompt(neg_input_ids)
+        neg_embeds = self.encode_negative(neg_input_ids)
         arch, indices = self.route(prompt_embeds, hyper_net_input, route_noise)
         out = self.denoise(generator, prompt_embeds, neg_embeds, arch, num_inference_steps,
                            guidance_scale, height, width, latents)
@@ -282,7 +384,7 @@ class PruningPipeline:
                          num_inference_steps=50, guidance_scale=7.5, latents=None):
         """Plain SD loop with a fixed (or absent) architecture."""
         prompt_embeds = self.encode_prompt(input_ids)
-        neg_embeds = self.encode_prompt(neg_input_ids)
+        neg_embeds = self.encode_negative(neg_input_ids)
         if arch is not None:
             arch = arch.to(self.device)
         out = self.denoise(generator, prompt_embeds, neg_embeds, arch, num_inference_steps,
@@ -307,9 +409,9 @@ class PruningPipeline:
         the last after the final step; expert indices). The trajectory is
         `__call__`'s under DDIM, run in chunks."""
         prompt_embeds = self.encode_prompt(input_ids)
-        neg_embeds = self.encode_prompt(neg_input_ids)
+        neg_embeds = self.encode_negative(neg_input_ids)
         arch, indices = self.route(prompt_embeds, hyper_net_input, route_noise)
-        x = self._initial_latents(generator, prompt_embeds.shape[0], latents)
+        x = self._initial_latents(generator, cond_rows(prompt_embeds), latents)
         model_fn = cfg_model_fn(self.unet, cfg_states(prompt_embeds, neg_embeds, guidance_scale),
                                 arch, guidance_scale)
         sampler = DDIMSampler(self.schedule)

@@ -21,7 +21,9 @@ records a `host_sync` span while one is on.
 The spans the port records:
 
 - `pipelines/expert_server.py`, the submitting thread: `submit` →
-  `encode_prompt`, `encode_negative`, `route`, `route_to_host`.
+  `encode_prompt`, `encode_negative`, `route`, `route_to_host`; under an
+  SDXL pipeline (`pipelines/pruning_pipeline.py`) each encode that runs the
+  towers → `clip_l`, `clip_bigg` (device).
 - the same module, the flush's thread: `flush` (flush, rids) →
   `flush_lock`, `join`, for each expert `expert_pipe` and one `tier` per
   tier batch (expert or `gated`, tier, rows, layout) → {`latents`,

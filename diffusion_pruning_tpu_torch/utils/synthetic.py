@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from diffusion_pruning_tpu_torch.core.structure import layer_sites
 from diffusion_pruning_tpu_torch.models.unet.pruned import module_name
 
 
@@ -65,7 +66,8 @@ def plant_redundancy(spec, state_dict: Dict[str, torch.Tensor], keep: float = 0.
     with torch.no_grad():
         for sb in spec.subblocks:
             prefix = module_name(sb.name)
-            for site in sb.sites:
+            for k, site in ((k, site) for k, layer in enumerate(layer_sites(sb.sites))
+                            for site in layer.values()):
                 dropped = np.nonzero(~kept_mask[site.start: site.start + site.width])[0]
                 if len(dropped) == 0:
                     continue
@@ -73,7 +75,7 @@ def plant_redundancy(spec, state_dict: Dict[str, torch.Tensor], keep: float = 0.
                 if sb.kind == "resnet":
                     damp(f"{prefix}.norm2.weight", ch)
                     continue
-                tb = f"{prefix}.transformer_blocks.0"
+                tb = f"{prefix}.transformer_blocks.{k}"
                 if site.kind in ("attn1", "attn2"):
                     damp(f"{tb}.{site.kind}.to_v.weight", ch)
                 elif site.kind == "ff":

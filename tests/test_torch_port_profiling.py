@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from diffusion_pruning_tpu_torch.core.structure import build_structure
 from diffusion_pruning_tpu_torch.models.hypernet import HyperStructure
 from diffusion_pruning_tpu_torch.models.quantizer import StructureQuantizer
 from diffusion_pruning_tpu_torch.models.text_encoders import CLIPTextConfig, CLIPTextEncoder
@@ -261,6 +262,36 @@ def test_serving_with_recording_off_records_nothing(server):
     after = profiling.tiers_served()
     assert after.get("nchw", 0) - before.get("nchw", 0) == tiers
     assert after.get("nhwc", 0) == before.get("nhwc", 0)
+
+
+@pytest.mark.parametrize("zero_negative", [True, False])
+def test_sdxl_submit_records_both_towers_under_encode_prompt(zero_negative):
+    """An SDXL submit (two CLIP towers): `clip_l` then `clip_bigg` under
+    `encode_prompt`; an empty negative prompt (`zero_negative`) is zeros and
+    opens neither under `encode_negative`, an encoded one opens both."""
+    from test_torch_port_sdxl import prompt_ids, random_code, tiny_sdxl_config, \
+        tiny_sdxl_pipeline
+    spec = build_structure(tiny_sdxl_config())
+    quantizer = StructureQuantizer(spec, n_e=2, base=0.0)
+    with torch.no_grad():
+        codes = torch.stack([random_code(spec, 1), random_code(spec, 2)])
+        quantizer.embedding_gs.copy_(torch.where(codes >= 0.5, 0.8, 0.2))
+    pipe = tiny_sdxl_pipeline(hypernet=HyperStructure(spec, input_dim=8),
+                              quantizer=quantizer.eval())
+    pipe.zero_negative = zero_negative
+    server = ExpertServer.from_codebook(pipe, spec, pipe.unet.cfg, batch_size=2)
+    queue = ServingQueue(server, num_inference_steps=STEPS, guidance_scale=5.0)
+    profiling.start()
+    queue.submit(prompt_ids(1), prompt_ids(1, seed=9), hyper_net_input=torch.zeros(1, 8),
+                 route_noise=1e3 * (2 * codes[:1] - 1), latents=torch.zeros(1, 8, 8, 4))
+    spans = profiling.stop()
+    (submit,) = [s for s in spans if s.name == "submit"]
+    kids = {k.name: k for k in _children(spans, submit)}
+    assert [k.name for k in _children(spans, kids["encode_prompt"])] == ["clip_l", "clip_bigg"]
+    towers = [k.name for k in _children(spans, kids["encode_negative"])]
+    assert towers == ([] if zero_negative else ["clip_l", "clip_bigg"])
+    assert all(s.device_ms is None for s in spans if s.name.startswith("clip"))  # no card
+    assert len(queue.flush()) == 1
 
 
 # ---------------------------------------------------------------- the stage-1 step

@@ -415,9 +415,14 @@ def test_pruning_checkpoint_export_matches_jax(tmp_path, hn_options, q_options):
 def test_factory_unet_config_matches_jax(path):
     cfg = config.load_config(path)
     jcfg = jax_config.load_config(path)
+    # the port's config also holds SDXL's keys, which the JAX package has not:
+    # every JAX field is equal, and those keys keep the SD-2.x defaults
+    sdxl = {"transformer_layers_per_block": None, "addition_embed_type": None,
+            "addition_time_embed_dim": 256, "projection_class_embeddings_input_dim": 2816}
     for tiny in (False, True):
         assert (dataclasses.asdict(factory.unet_config_from_yaml(cfg, tiny=tiny))
-                == dataclasses.asdict(jax_factory.unet_config_from_yaml(jcfg, tiny=tiny)))
+                == {**dataclasses.asdict(jax_factory.unet_config_from_yaml(jcfg, tiny=tiny)),
+                    **sdxl})
     cfg.set_path("training.gradient_checkpointing", True)
     cfg.set_path("model.unet.fused_norm_conv", True)
     assert factory.unet_config_from_yaml(cfg).remat
